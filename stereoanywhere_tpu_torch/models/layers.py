@@ -1,0 +1,142 @@
+"""Layers with the reference model's semantics and parameter names (NCHW).
+
+- `InstanceNorm`: per-sample, per-channel over the spatial axes, no affine;
+  statistics in f32, applied in the input dtype.
+- `BatchNorm`: frozen, running statistics only (the reference freezes
+  BatchNorm at every training step), torch's parameter/buffer names minus
+  `num_batches_tracked`.
+- `ResidualBlock`, `BasicConv`: the reference blocks.
+- `init_weights`: random initialization with the JAX package's initializer
+  families (truncated-normal He fan-out for convs, LeCun for dense layers),
+  drawn from an explicit `torch.Generator`.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Normalize each (sample, channel) over the spatial axes of an NCHW /
+    NCDHW tensor: var = E[x^2] - E[x]^2 in f32, applied in x's dtype."""
+    dims = tuple(range(2, x.ndim))
+    xf = x.float()
+    mean = xf.mean(dim=dims, keepdim=True)
+    var = (xf * xf).mean(dim=dims, keepdim=True) - mean * mean
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return (x - mean.to(x.dtype)) * inv
+
+
+class InstanceNorm(nn.Module):
+    """Parameter-free instance norm (torch InstanceNorm{2,3}d, affine=False)."""
+
+    def forward(self, x):
+        return instance_norm(x)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm2d that always normalizes with its running statistics."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x):
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        inv = torch.rsqrt(self.running_var.float() + self.eps).to(x.dtype) * self.weight.to(x.dtype)
+        return (x - self.running_mean.to(x.dtype).view(shape)) * inv.view(shape) + self.bias.to(
+            x.dtype
+        ).view(shape)
+
+
+def _norm(kind: str, features: int) -> nn.Module:
+    if kind == "batch":
+        return BatchNorm(features)
+    if kind == "instance":
+        return InstanceNorm()
+    if kind == "none":
+        return nn.Identity()
+    raise ValueError(f"unknown norm {kind!r}")
+
+
+class ResidualBlock(nn.Module):
+    """Two 3x3 convs with norm + ReLU and a (1x1 conv + norm) shortcut when
+    the shape changes (reference extractor ResidualBlock)."""
+
+    def __init__(self, in_planes: int, planes: int, norm_fn: str = "instance", stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride=stride, padding=1)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1)
+        self.norm1 = _norm(norm_fn, planes)
+        self.norm2 = _norm(norm_fn, planes)
+        self.downsample = None
+        if stride != 1 or in_planes != planes:
+            self.norm3 = _norm(norm_fn, planes)
+            # the reference registers norm3 twice (as norm3 and downsample.1)
+            self.downsample = nn.Sequential(nn.Conv2d(in_planes, planes, 1, stride=stride), self.norm3)
+
+    def forward(self, x):
+        y = F.relu(self.norm1(self.conv1(x)))
+        y = F.relu(self.norm2(self.conv2(y)))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return F.relu(x + y)
+
+
+class BasicConv(nn.Module):
+    """conv (no bias) -> instance norm -> leaky ReLU(0.01), 2-D or 3-D."""
+
+    def __init__(self, in_ch: int, out_ch: int, is_3d: bool = False, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1):
+        super().__init__()
+        conv = nn.Conv3d if is_3d else nn.Conv2d
+        self.conv = conv(in_ch, out_ch, kernel_size, stride=stride, padding=padding, bias=False)
+
+    def forward(self, x):
+        return F.leaky_relu(instance_norm(self.conv(x)), negative_slope=0.01)
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+
+
+def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """Truncated normal at +-2 std, the variance-preserving form flax uses
+    (stddev / 0.8796... so that the truncated variance is std^2)."""
+    s = std / 0.87962566103423978
+    with torch.no_grad():
+        t.copy_(torch.nn.init.trunc_normal_(torch.empty_like(t), 0.0, s, -2 * s, 2 * s, generator=generator))
+
+
+LECUN = "lecun"
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights with the JAX package's initializer families: convs He
+    fan-out, `nn.Linear` and modules tagged `init_kind = LECUN` LeCun fan-in
+    (both truncated normal), biases zero, norms identity.  Parameters of
+    other shapes are left to their owning module's `reset_parameters`."""
+    for mod in model.modules():
+        kind = getattr(mod, "init_kind", None)
+        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.Linear)):
+            w = mod.weight
+            rf = math.prod(w.shape[2:]) if w.ndim > 2 else 1
+            if isinstance(mod, nn.Linear) or kind == LECUN:
+                _trunc_normal_(w, math.sqrt(1.0 / (w.shape[1] * rf)), generator)
+            else:
+                _trunc_normal_(w, math.sqrt(2.0 / (w.shape[0] * rf)), generator)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
+        elif isinstance(mod, (BatchNorm, nn.LayerNorm)):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+        if hasattr(mod, "reset_parameters_from") and callable(mod.reset_parameters_from):
+            mod.reset_parameters_from(generator)
+    return model

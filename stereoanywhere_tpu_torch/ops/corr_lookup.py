@@ -1,0 +1,46 @@
+"""Correlation pyramid and its per-iteration radius-window lookup.
+
+The lookup is plain PyTorch in the gather form (the JAX package's
+`_lookup_level_gather`).  On the JAX main path this function runs in XLA, not
+in a Pallas kernel; its hand-written Hopper kernel (one gather kernel for
+both pyramids) is later work.
+"""
+from __future__ import annotations
+
+import torch
+
+from stereoanywhere_tpu_torch.ops.interp import avg_pool_last_axis_2
+
+
+def build_corr_pyramid(volume: torch.Tensor, num_levels: int = 4) -> list[torch.Tensor]:
+    """volume (B,H,W2,W3) -> [volume, pooled by 2 along W3, ...], num_levels long."""
+    levels = [volume]
+    for _ in range(num_levels - 1):
+        levels.append(avg_pool_last_axis_2(levels[-1]))
+    return levels
+
+
+def _lookup_level(level: torch.Tensor, coords: torch.Tensor, radius: int) -> torch.Tensor:
+    """Linear interpolation of level (B,H,W2,Wl) at coords + [-r..r], zeros
+    outside [0, Wl-1] -> (B,H,W2,2r+1)."""
+    wl = level.shape[-1]
+    taps = torch.arange(-radius, radius + 1, device=coords.device, dtype=coords.dtype)
+    pos = coords.unsqueeze(-1) + taps
+    x0 = torch.floor(pos)
+    frac = (pos - x0).to(level.dtype)
+    x0i = x0.long()
+
+    def tap(idx, weight):
+        valid = ((idx >= 0) & (idx <= wl - 1)).to(level.dtype)
+        vals = torch.gather(level, -1, idx.clamp(0, wl - 1))
+        return vals * weight * valid
+
+    return tap(x0i, 1.0 - frac) + tap(x0i + 1, frac)
+
+
+def lookup_corr_pyramid(levels: list[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
+    """Index every level i at coords/2^i (coords (B,H,W2), the right-image x).
+    Returns (B,H,W2, levels*(2r+1)), level-major."""
+    return torch.cat(
+        [_lookup_level(level, coords / (2 ** i), radius) for i, level in enumerate(levels)], dim=-1
+    )

@@ -1,0 +1,176 @@
+"""Serving pipeline: image pair in [0,1] -> positive disparity.
+
+The port of the JAX package's `serve/pipeline.py` (single-graph mode):
+1. resize both views to the DAv2 input size with `jax.image.resize`'s
+   antialiased Keys cubic (a=-0.5) and run DAv2 on them as one batch;
+2. resize the depth back (antialiased bilinear), joint min-max normalize;
+3. edge-pad to a multiple of 32, run StereoAnywhere, unpad.
+`serve_http` keeps the JAX request format: POST /infer with an
+X-Meta-Length JSON header ({"h", "w"}) and float32 (2, H, W, 3) pixels,
+answered with uint16 disparity x256.
+"""
+from __future__ import annotations
+
+import json
+from http.server import BaseHTTPRequestHandler, HTTPServer
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from stereoanywhere_tpu_torch.config import MonoConfig, StereoAnywhereConfig
+from stereoanywhere_tpu_torch.device import resolve_device
+from stereoanywhere_tpu_torch.models.dpt import DepthAnythingV2, dav2_input_size, imagenet_normalize
+from stereoanywhere_tpu_torch.models.stereoanywhere import StereoAnywhere
+from stereoanywhere_tpu_torch.ops.geometry import joint_minmax_normalize
+from stereoanywhere_tpu_torch.ops.interp import resize_jax_image
+
+
+def _pad_sizes(h: int, w: int, multiple: int = 32):
+    ph = (multiple - h % multiple) % multiple
+    pw = (multiple - w % multiple) % multiple
+    return ph // 2, ph - ph // 2, pw // 2, pw - pw // 2
+
+
+class StereoAnywherePipeline:
+    """(B,H,W,3) pair in [0,1] -> (B,H,W,1) positive disparity (f32).
+
+    `mono=None` runs stereo-only with mono depth given by the caller (or
+    zeros).  `device` defaults to the card and raises without one unless
+    "cpu" is asked for; the models are moved there.
+    """
+
+    def __init__(
+        self,
+        stereo: StereoAnywhere,
+        mono: DepthAnythingV2 | None = None,
+        iters: int = 32,
+        mono_size: tuple[int, int] = (518, 518),
+        device: str | torch.device = "cuda",
+    ):
+        self.device = resolve_device(device)
+        self.stereo = stereo.to(self.device)
+        self.mono = mono.to(self.device) if mono is not None else None
+        self.iters = iters
+        self.mono_size = mono_size
+
+    def _tensor(self, x) -> torch.Tensor:
+        if not torch.is_tensor(x):
+            x = torch.from_numpy(np.array(x, dtype=np.float32))
+        return x.to(self.device, torch.float32)
+
+    @torch.inference_mode()
+    def mono_depth(self, im2, im3) -> tuple[torch.Tensor, torch.Tensor]:
+        """The mono stage alone: DAv2 on both views as one batch, at the
+        DAv2 input size, resized back.  (B,H,W,3) -> two (B,H,W,1), f32."""
+        im2, im3 = self._tensor(im2), self._tensor(im3)
+        b, h, w, _ = im2.shape
+        fh, fw = dav2_input_size(h, w, self.mono_size[0], self.mono_size[1])
+        both = torch.cat([im2, im3], dim=0).permute(0, 3, 1, 2)
+        x = resize_jax_image(both, (fh, fw), "cubic").permute(0, 2, 3, 1)
+        depth = self.mono(imagenet_normalize(x)).float().permute(0, 3, 1, 2)
+        depth = resize_jax_image(depth, (h, w), "bilinear").permute(0, 2, 3, 1)
+        return depth[:b], depth[b:]
+
+    @torch.inference_mode()
+    def __call__(self, im2, im3, mde2=None, mde3=None) -> torch.Tensor:
+        im2, im3 = self._tensor(im2), self._tensor(im3)
+        b, h, w, _ = im2.shape
+        t, bot, l, r = _pad_sizes(h, w)
+        if mde2 is None and self.mono is not None:
+            mde2, mde3 = self.mono_depth(im2, im3)
+        elif mde2 is None:
+            mde2 = mde3 = torch.zeros((b, h, w, 1), device=self.device)
+        mde2, mde3 = joint_minmax_normalize([self._tensor(m).permute(0, 3, 1, 2) for m in (mde2, mde3)])
+
+        pad = lambda x: F.pad(x, (l, r, t, bot), mode="replicate").permute(0, 2, 3, 1)  # noqa: E731
+        out = self.stereo(
+            pad(im2.permute(0, 3, 1, 2)), pad(im3.permute(0, 3, 1, 2)), pad(mde2), pad(mde3), iters=self.iters
+        )
+        return out["disparity"][:, t : t + h, l : l + w].float()
+
+
+def build_pipeline(
+    stereo_cfg: StereoAnywhereConfig = StereoAnywhereConfig(),
+    mono_cfg: MonoConfig | None = MonoConfig(),
+    iters: int = 32,
+    mono_size: tuple[int, int] = (518, 518),
+    device: str | torch.device = "cuda",
+    seed: int = 0,
+    stereo_variables=None,
+    mono_variables=None,
+) -> StereoAnywherePipeline:
+    """A pipeline with fresh models: random weights from `seed`, or the JAX
+    package's variable trees (nested dicts of numpy arrays) when given.
+    `mono_cfg=None` builds it stereo-only.  DAv2 runs in the stereo compute
+    dtype."""
+    from stereoanywhere_tpu_torch.compat.from_jax import load_dav2_variables, load_stereo_variables
+    from stereoanywhere_tpu_torch.device import torch_dtype
+
+    dev = resolve_device(device)
+    stereo = StereoAnywhere(stereo_cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    if stereo_variables is not None:
+        load_stereo_variables(stereo, stereo_variables)
+    mono = None
+    if mono_cfg is not None:
+        mono = DepthAnythingV2(
+            mono_cfg, device=dev, generator=torch.Generator().manual_seed(seed + 1),
+            dtype=torch_dtype(stereo_cfg.compute_dtype),
+        )
+        if mono_variables is not None:
+            load_dav2_variables(mono, mono_variables)
+    return StereoAnywherePipeline(stereo, mono, iters, mono_size, dev)
+
+
+def make_http_server(pipeline: StereoAnywherePipeline, host: str = "0.0.0.0", port: int = 8008) -> HTTPServer:
+    """An HTTPServer answering POST /infer with the pipeline (port 0 picks a
+    free port); the caller runs `serve_forever` and `shutdown`/`server_close`."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_POST(self):
+            if self.path != "/infer":
+                self.send_error(404)
+                return
+            length = int(self.headers["Content-Length"])
+            meta_len = int(self.headers.get("X-Meta-Length", 0))
+            raw = self.rfile.read(length)
+            meta = json.loads(raw[:meta_len])
+            h, w = meta["h"], meta["w"]
+            arr = np.frombuffer(raw[meta_len:], np.float32).reshape(2, h, w, 3)
+            disp = pipeline(arr[:1], arr[1:]).cpu().numpy()
+            out = np.clip(disp[0, ..., 0] * 256.0, 0, 65535).astype(np.uint16).tobytes()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Content-Length", str(len(out)))
+            self.end_headers()
+            self.wfile.write(out)
+
+        def log_message(self, *a):
+            pass
+
+    return HTTPServer((host, port), Handler)
+
+
+def serve_http(pipeline: StereoAnywherePipeline, host: str = "0.0.0.0", port: int = 8008) -> None:
+    """Serve the pipeline over HTTP until interrupted."""
+    server = make_http_server(pipeline, host, port)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+
+
+def infer_remote(server: str, im2: np.ndarray, im3: np.ndarray, timeout: float = 600.0) -> np.ndarray:
+    """Client of `serve_http`: (H,W,3) float images in [0,1] -> (H,W) disparity."""
+    import urllib.request
+
+    h, w, _ = im2.shape
+    meta = json.dumps({"h": h, "w": w}).encode()
+    payload = meta + np.stack([im2, im3]).astype(np.float32).tobytes()
+    req = urllib.request.Request(
+        f"{server.rstrip('/')}/infer", data=payload, method="POST",
+        headers={"Content-Type": "application/octet-stream", "X-Meta-Length": str(len(meta))},
+    )
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        raw = resp.read()
+    return np.frombuffer(raw, np.uint16).reshape(h, w).astype(np.float32) / 256.0
