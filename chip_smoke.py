@@ -11,16 +11,25 @@ Phases (any failure exits non-zero before the result line):
    plain PyTorch version on the card (TF32 off), timed with CUDA events
    beside one PyTorch call for the same function where one exists; K2 also
    on inputs where only the mask of the ragged key tail keeps it right;
-3. pipeline: DAv2 ViT-L + StereoAnywhere (default config, bf16, 32 GRU
-   iterations, seeded random weights) behind `serve_http` on 127.0.0.1,
-   answering two 512x512 pairs and two 375x1242 pairs; each kernel must run
-   24 times per request; then, per shape, the warm request and its mono and
-   stereo stages timed in interleaved rounds, and one request traced with
-   `torch.profiler` for the device's busy time, idle share and time by
-   kernel family;
+   then the refinement-step kernels (K5 dual lookup, K7 flow head, K8
+   motion encoder, K9 ConvGRU at its three scales, and K9 behind the K6
+   interface) at the quarter-resolution planes of the same requests, in
+   both dtypes, against their plain versions, also on inputs where only
+   the zero padding keeps them right, timed beside the port's unfused
+   modules for the same function (cuDNN convolutions, the plain lookup);
+3. pipelines: DAv2 ViT-L + StereoAnywhere (bf16, 32 GRU iterations,
+   seeded random weights) behind `serve_http` on 127.0.0.1, answering two
+   512x512 pairs and two 375x1242 pairs, first in the default
+   configuration, then with `fused_level0="on"`; each kernel's launches a
+   request are asserted (K1-K4 24; K5, K7, K8 31 and K9 93 on the fused
+   path, none on the default one); then, per configuration and shape, the
+   warm request and its mono and stereo stages timed in interleaved
+   rounds, and one request traced with `torch.profiler` for the device's
+   busy time, idle share and time by kernel family;
 4. whole-model checks in f32: DAv2 ViT-L at 140x140 (backbone tokens and
-   depth), and the whole pipeline (ViT-S, 64x96) on the card against the
-   CPU through the plain versions.
+   depth), the whole pipeline (ViT-S, 64x96) on the card against the CPU
+   through the plain versions, in the default and the fused configuration,
+   and the fused pipeline against the default one on the card.
 It prints a `{"kernels": [...]}` line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
 """
@@ -42,7 +51,10 @@ from torch.profiler import ProfilerActivity, profile
 import stereoanywhere_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 from stereoanywhere_tpu_torch.config import MonoConfig, StereoAnywhereConfig
 from stereoanywhere_tpu_torch.models.dpt import INTERMEDIATE_LAYER_IDX, DepthAnythingV2, dav2_input_size
-from stereoanywhere_tpu_torch.ops.cuda import build, vit_attention, vit_dense, vit_mlp
+from stereoanywhere_tpu_torch.models.layers import init_weights
+from stereoanywhere_tpu_torch.models.update import ConvGRU, FlowHead, MotionEncoder
+from stereoanywhere_tpu_torch.ops import step_fused as sf
+from stereoanywhere_tpu_torch.ops.cuda import build, corr_lookup, step_fused, vit_attention, vit_dense, vit_mlp
 from stereoanywhere_tpu_torch.serve.pipeline import build_pipeline, infer_remote, make_http_server
 
 # H100 SXM peaks (NVIDIA data sheet, dense): FLOP/s by operand type, HBM bytes/s
@@ -55,6 +67,10 @@ PEAK_BYTES = 3.35e12
 REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 VIT_L = dict(d=1024, heads=16, hidden=4096, depth=24)
 KITTI = (375, 1242)
+# quarter-resolution planes (H4, W4) of the two requests: 512^2, and
+# 375x1242 padded to 384x1248, then width-aligned to 1280
+STEP_PLANES = {"512x512": (128, 128), "375x1242": (96, 320)}
+ITERS = 32
 
 
 def card_line() -> str:
@@ -152,6 +168,15 @@ SOURCE = {
     "dense_scale_residual": ("stereoanywhere_tpu_torch/csrc/vit_dense.cu",
                              "stereoanywhere_tpu/ops/pallas/vit_dense.py:117"),
     "vit_mlp": ("stereoanywhere_tpu_torch/csrc/vit_mlp.cu", "stereoanywhere_tpu/ops/pallas/vit_mlp.py:100"),
+    "dual_lookup": ("stereoanywhere_tpu_torch/csrc/corr_lookup.cu", ", ".join(
+        f"stereoanywhere_tpu/ops/pallas/{f}" for f in (
+            "corr_kernel.py:96", "corr_tent.py:111", "corr_gather.py:156", "corr_lagged.py:120", "corr_mxu.py:121",
+            "corr_barrel.py:210", "corr_barrel.py:256", "step_fused.py:462"))),
+    "flow_head": ("stereoanywhere_tpu_torch/csrc/step_fused.cu", "stereoanywhere_tpu/ops/pallas/step_fused.py:505"),
+    "motion_encoder": ("stereoanywhere_tpu_torch/csrc/step_fused.cu",
+                       "stereoanywhere_tpu/ops/pallas/step_fused.py:646"),
+    "conv_gru": ("stereoanywhere_tpu_torch/csrc/step_fused.cu", "stereoanywhere_tpu/ops/pallas/step_fused.py:763, "
+                 "stereoanywhere_tpu/ops/pallas/gru_fused.py:203, stereoanywhere_tpu/ops/pallas/gru_fused.py:228"),
 }
 
 
@@ -193,11 +218,191 @@ def kernel_phase() -> dict:
     return records
 
 
+# ---------------------------------------------------------------------------
+# the refinement-step kernels
+
+
+def _border(x: torch.Tensor, value: float) -> torch.Tensor:
+    """x (B,H,W,C) with its first and last rows and columns set to value:
+    a conv that read anything but zeros past the plane's edge would be off
+    by about value times its weights there."""
+    x = x.clone()
+    x[:, [0, -1]] = value
+    x[:, :, [0, -1]] = value
+    return x
+
+
+def _window_bytes(coords: torch.Tensor, wls, radius: int, itemsize: int) -> int:
+    """Bytes of both pyramids' levels the lookup must read for these
+    coordinates: the entries of [floor(c / 2^l) - r, floor(c / 2^l) + r + 1]
+    inside [0, Wl - 1], at every level."""
+    total = 0
+    for lvl, wl in enumerate(wls):
+        x0 = torch.floor(coords / 2 ** lvl) - radius
+        total += int((x0 + 2 * radius + 2).clamp(0, wl).sub(x0.clamp(0, wl)).sum().item())
+    return 2 * total * itemsize
+
+
+def step_cases(dtype, h4: int, w4: int, g: torch.Generator, border: bool):
+    """(name, wrapper, plain, args, flops, bytes moved, operand dtype of the
+    flops, the unfused module's call or None) at one quarter-res plane, B=1.
+    border: inputs where only the zero padding keeps the result right."""
+    dev = "cuda"
+    m4 = h4 * w4
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev, dtype)
+
+    def module(mod, seed):
+        init_weights(mod, torch.Generator().manual_seed(seed))
+        return mod.to(dev, dtype)
+
+    def nchw(x):
+        return x.permute(0, 3, 1, 2).contiguous()
+
+    xs = torch.arange(w4, dtype=torch.float32, device=dev)
+    es = torch.finfo(dtype).bits // 8
+    cases = []
+
+    # K5: both pyramids (widths W4 / 2^l) at coords x - disparity; border:
+    # coordinates far outside every level
+    wls = [w4 // 2 ** i for i in range(4)]
+    la, lb = [rnd(1, h4, w4, wl) for wl in wls], [rnd(1, h4, w4, wl) for wl in wls]
+    if border:
+        c = (torch.randn((1, h4, w4), generator=g) * 3 * w4).to(dev)
+        c[0, 0, :4] = torch.tensor([-1e4, 1e4, -0.5, w4 - 0.5])
+    else:
+        c = xs - (torch.randn((1, h4, w4), generator=g).abs() * w4 / 8).to(dev)
+    moved = _window_bytes(c, wls, 4, es) + nbytes(c) + 2 * m4 * 36 * es
+    cases.append(("dual_lookup", corr_lookup.dual_lookup, corr_lookup.dual_lookup_ref, (la, lb, c, 4),
+                  2 * m4 * 4 * 9 * 4.0, moved, torch.float32, None))
+
+    # K7: flow head + coords (small coords, so the output is the delta)
+    fh = module(FlowHead(128, 256, 2), 11)
+    hw = sf.pack_head_weights(fh.conv1, fh.conv2, dtype)
+    h = rnd(1, h4, w4, 128)
+    if border:
+        h = _border(h, 30.0)
+    c7 = (torch.randn((1, h4, w4), generator=g) * 0.1).to(dev)
+    h_n, c7_n = nchw(h), c7[:, None]
+    cases.append(("flow_head", step_fused.flow_head, sf.flow_head_ref, (h, c7, hw),
+                  2.0 * m4 * 9 * 256 * (128 + 1), nbytes(h, c7, c7, *hw), dtype,
+                  lambda: c7_n + fh.forward_x(h_n).float()))
+
+    # K8: motion encoder on the two lookups' outputs and flow-x
+    enc = module(MotionEncoder(36), 12)
+    mw = sf.pack_motion_weights(enc, dtype)
+    ca, cb = rnd(1, h4, w4, 36), rnd(1, h4, w4, 36)
+    c8 = xs + (torch.randn((1, h4, w4), generator=g) * 2).to(dev)
+    if border:
+        ca, cb = _border(ca, 30.0), _border(cb, 30.0)
+        c8[:, [0, -1]] += 25.0
+        c8[:, :, [0, -1]] -= 25.0
+    flow = torch.stack([c8 - xs, torch.zeros_like(c8)], dim=1).to(dtype)
+    ca_n, cb_n = nchw(ca), nchw(cb)
+    flops8 = 2.0 * m4 * (2 * 36 * 64 + 49 * 64 + 9 * 3 * 64 * 64 + 9 * 192 * 126)
+    cases.append(("motion_encoder", step_fused.motion_encoder, sf.motion_encoder_ref, (ca, cb, c8, mw), flops8,
+                  nbytes(ca, cb, c8, *mw) + m4 * 128 * es, dtype, lambda: enc(flow, ca_n, cb_n)))
+
+    # K9 at its three scales (gru08, gru16: two x streams; gru32: one).  The
+    # f32 gate sums run over 3456 terms, and their rounding in two summation
+    # orders reaches 1e-5 of the output with x of unit scale: x at half
+    # scale, and border values of 4 (at 8 the border case read 0.97 of the
+    # limit), keep it at about half the limit
+    for name, scale, nx in (("conv_gru/08", 1, 2), ("conv_gru/16", 2, 2), ("conv_gru/32", 4, 1)):
+        gru = module(ConvGRU(128, 128 * nx), 13 + scale)
+        gw = sf.pack_gru_weights(gru, dtype)
+        hh, ww = h4 // scale, w4 // scale
+        hg, xg = torch.tanh(rnd(1, hh, ww, 128)), [rnd(1, hh, ww, 128, scale=0.5) for _ in range(nx)]
+        if border:
+            hg, xg = _border(hg, 4.0), [_border(x, 4.0) for x in xg]
+        czrq = rnd(1, hh, ww, 384, scale=0.3)
+        hg_n, xg_n = nchw(hg), [nchw(x) for x in xg]
+        inj_n = [nchw(czrq[..., i * 128:(i + 1) * 128]) for i in range(3)]
+        cases.append((name, step_fused.conv_gru, sf.conv_gru_ref, (hg, xg, czrq, gw),
+                      2.0 * hh * ww * 9 * (1 + nx) * 128 * 384, nbytes(hg, *xg, czrq, hg, *gw), dtype,
+                      lambda gru=gru, hg_n=hg_n, inj_n=inj_n, xg_n=xg_n: gru(hg_n, *inj_n, *xg_n)))
+
+    # the K6 interface (one 256-channel x stream, HWIO kernels) on the K9 kernel
+    gru = module(ConvGRU(128, 256), 20)
+    hwio = lambda w: w.permute(2, 3, 1, 0).contiguous()  # noqa: E731
+    wts = (hwio(torch.cat([gru.convz.weight, gru.convr.weight])), torch.cat([gru.convz.bias, gru.convr.bias]),
+           hwio(gru.convq.weight), gru.convq.bias)
+    h6, x6 = torch.tanh(rnd(1, h4, w4, 128)), rnd(1, h4, w4, 256, scale=0.5)
+    if border:
+        h6, x6 = _border(h6, 4.0), _border(x6, 4.0)
+    inj6 = [rnd(1, h4, w4, 128, scale=0.3) for _ in range(3)]
+    h6_n, x6_n, inj6_n = nchw(h6), nchw(x6), [nchw(t) for t in inj6]
+    cases.append(("gru_fused (K6 interface)", step_fused.gru_fused, step_fused.gru_fused_ref,
+                  (h6, x6, *inj6, *wts), 2.0 * m4 * 9 * 384 * 384, nbytes(h6, x6, *inj6, h6, *wts), dtype,
+                  lambda: gru(h6_n, *inj6_n, x6_n)))
+    return cases
+
+
+def step_kernel_phase() -> dict:
+    """Check and time K5, K7, K8 and K9 (and the K6 interface) against
+    their plain versions and the unfused modules.  Returns the records of
+    the main path's dtype (bf16) at 512^2; conv_gru's is the sum of its
+    three scales, as one iteration runs each once."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(1)
+    records = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for plane, (h4, w4) in STEP_PLANES.items():
+            for border in (False, True):
+                for name, fn, ref, args, flops, moved, op_dtype, unfused in step_cases(dtype, h4, w4, g, border):
+                    got = fn(*args)
+                    torch.cuda.synchronize()
+                    want = ref(*args)
+                    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+                    err, scale = map(max, zip(*[check(f"{name} ({dtype}, {plane}, border={border})", a, b, dtype)
+                                               for a, b in pairs]))
+                    what = f"kernel {name} {str(dtype)[6:]} {plane}"
+                    if border:
+                        print(f"{what} border case: max_abs_err {err:.3e} (max|plain| {scale:.3e}, "
+                              f"tol {REL_TOL[dtype]:.0e} rel)", flush=True)
+                        continue
+                    row = dict(ms=cuda_ms(lambda: fn(*args)), plain_ms=cuda_ms(lambda: ref(*args)),
+                               unfused_ms=cuda_ms(unfused) if unfused is not None else None,
+                               library_ms=None, max_abs_err=err)
+                    if row["unfused_ms"] is None:  # the unfused path's lookup is the plain version
+                        row["unfused_ms"] = row["plain_ms"]
+                    row["bound_ms"], row["bound_by"] = bound_ms(flops, moved, op_dtype)
+                    print(f"{what}: max_abs_err {err:.3e} (max|plain| {scale:.3e}, tol {REL_TOL[dtype]:.0e} rel) "
+                          f"ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} unfused_ms {row['unfused_ms']:.4f} "
+                          f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}; {flops / 1e9:.3f} GFLOP, "
+                          f"{moved / 1e6:.2f} MB)", flush=True)
+                    if dtype == torch.bfloat16 and plane == "512x512":
+                        key = name.split("/")[0]
+                        if key in records:  # conv_gru: sum the scales
+                            prev = records[key]
+                            for k in ("ms", "plain_ms", "unfused_ms", "bound_ms"):
+                                prev[k] += row[k]
+                            prev["max_abs_err"] = max(prev["max_abs_err"], err)
+                        else:
+                            records[key] = row
+    records.pop("gru_fused (K6 interface)")
+    return records
+
+
 COUNTERS = {
     "ln_dense": vit_dense.ln_dense,
     "vit_attention": vit_attention.vit_attention,
     "dense_scale_residual": vit_dense.dense_scale_residual,
     "vit_mlp": vit_mlp.vit_mlp,
+    "dual_lookup": corr_lookup.dual_lookup,
+    "flow_head": step_fused.flow_head,
+    "motion_encoder": step_fused.motion_encoder,
+    "conv_gru": step_fused.conv_gru,
+}
+# launches a request: the ViT's kernels once a block; on the fused path the
+# step kernels once a rotated body (K9 at three scales), ITERS - 1 bodies
+VIT_LAUNCHES = {n: VIT_L["depth"] for n in ("ln_dense", "vit_attention", "dense_scale_residual", "vit_mlp")}
+EXPECTED = {
+    "default": {n: VIT_LAUNCHES.get(n, 0) for n in COUNTERS},
+    "fused": {**{n: VIT_LAUNCHES.get(n, 0) for n in COUNTERS}, "dual_lookup": ITERS - 1, "flow_head": ITERS - 1,
+              "motion_encoder": ITERS - 1, "conv_gru": 3 * (ITERS - 1)},
 }
 
 
@@ -223,6 +428,7 @@ SPLIT_ROUNDS = 10
 # kernel name -> family, first match wins
 FAMILIES = (
     ("ViT K1-K4", r"gemm_kernel_bf16|gemm_kernel_f32|attn_kernel"),
+    ("step K5/K7-K9", r"conv_kernel_|dual_lookup_kernel|flow_delta_kernel|motion_c1f1_kernel"),
     ("convolution", r"conv|cudnn|implicit|winograd|fprop|dgrad|nhwc|nchw"),
     ("matmul", r"gemm|cutlass|cublas|sm90_xmma|ampere_"),
     ("reduction / softmax", r"reduce|softmax|norm"),
@@ -249,7 +455,7 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def split_and_trace(pipe, h: int, w: int, im2, im3) -> None:
+def split_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> None:
     """The warm request and its two stages alone, timed in interleaved
     rounds so that drift of the shared host hits all three alike; then one
     traced request: the device's busy time (union of its kernels'
@@ -263,19 +469,31 @@ def split_and_trace(pipe, h: int, w: int, im2, im3) -> None:
         times["pipeline"].append(sync_ms(lambda: pipe(im2, im3)))
         times["mono stage"].append(sync_ms(lambda: pipe.mono_depth(im2, im3)))
         times["stereo stage"].append(sync_ms(lambda: pipe(im2, im3, mde2, mde3)))
-    print(f"split {h}x{w}, ms, first call on this thread {first:.1f}; median [min-max] of {SPLIT_ROUNDS} "
+    print(f"split {label} {h}x{w}, ms, first call on this thread {first:.1f}; median [min-max] of {SPLIT_ROUNDS} "
           "interleaved rounds after it: " + "; ".join(f"{k} {np.median(v):.1f} [{min(v):.1f}-{max(v):.1f}]" for k, v in times.items()), flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced = sync_ms(lambda: pipe(im2, im3))
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        print(f"trace {h}x{w}: device busy time not measured (the profiler saw no device events)", flush=True)
+        print(f"trace {label} {h}x{w}: device busy time not measured (the profiler saw no device events)", flush=True)
         return
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
     wall = float(np.median(times["pipeline"]))
-    print(f"trace {h}x{w}: device busy {busy:.1f} ms, idle share {1 - busy / wall:.3f} of the untraced "
-          f"median {wall:.1f} ms (traced wall {traced:.1f} ms); {len(kernels)} kernels", flush=True)
+    # launches of each stage alone
+    stage_kernels = {}
+    for stage, fn in (("mono", lambda: pipe.mono_depth(im2, im3)), ("stereo", lambda: pipe(im2, im3, mde2, mde3))):
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            sync_ms(fn)
+        stage_kernels[stage] = sum(1 for e in p.events() if e.device_type == DeviceType.CUDA)
+    print(f"trace {label} {h}x{w}: device busy {busy:.1f} ms, idle share {1 - busy / wall:.3f} of the untraced "
+          f"median {wall:.1f} ms (traced wall {traced:.1f} ms); {len(kernels)} kernels (alone: mono stage "
+          f"{stage_kernels['mono']}, stereo stage {stage_kernels['stereo']})", flush=True)
+    counts = defaultdict(int)
+    for e in kernels:
+        counts[re.sub(r"[<(].*", "", e.name.replace("(anonymous namespace)::", ""))[-48:]] += 1
+    top = sorted(counts.items(), key=lambda kv: -kv[1])[:14]
+    print("  launches by kernel: " + ", ".join(f"{n} {c}" for n, c in top), flush=True)
     by_family = defaultdict(float)
     for e in kernels:
         fam = next((f for f, pat in FAMILIES if re.search(pat, e.name, re.IGNORECASE)), "other")
@@ -284,15 +502,15 @@ def split_and_trace(pipe, h: int, w: int, im2, im3) -> None:
                                                  sorted(by_family.items(), key=lambda kv: -kv[1])), flush=True)
 
 
-def pipeline_phase() -> dict:
+def pipeline_phase(label: str, cfg: StereoAnywhereConfig) -> dict:
     """Serve the full-width pipeline over HTTP, then split a warm request
     into its mono and stereo stages.  Returns launches per kernel over the
-    served requests."""
+    served requests, counted from 0 just before them."""
     torch.backends.cudnn.benchmark = True
-    cfg = StereoAnywhereConfig(compute_dtype="bfloat16")
     t0 = time.perf_counter()
-    pipe = build_pipeline(cfg, MonoConfig.for_encoder("vitl"), iters=32, device="cuda", seed=0)
-    print(f"pipeline built in {time.perf_counter() - t0:.1f} s (ViT-L + StereoAnywhere, bf16, iters 32)", flush=True)
+    pipe = build_pipeline(cfg, MonoConfig.for_encoder("vitl"), iters=ITERS, device="cuda", seed=0)
+    print(f"pipeline {label} built in {time.perf_counter() - t0:.1f} s (ViT-L + StereoAnywhere, bf16, iters {ITERS}, "
+          f"{cfg})", flush=True)
     rec = _Recorder(pipe)
     server = make_http_server(rec, "127.0.0.1", 0)
     url = f"http://127.0.0.1:{server.server_address[1]}"
@@ -310,7 +528,7 @@ def pipeline_phase() -> dict:
             images[(h, w)] = (im2[None], im3[None])
             t0 = time.perf_counter()
             disp = infer_remote(url, im2, im3)
-            print(f"request {h}x{w}: {1e3 * (time.perf_counter() - t0):.1f} ms end to end "
+            print(f"request {label} {h}x{w}: {1e3 * (time.perf_counter() - t0):.1f} ms end to end "
                   f"({1e3 * rec.seconds[-1]:.1f} ms in the pipeline), launches {rec.launches[-1]}", flush=True)
             out = rec.outputs[-1]
             if disp.shape != (h, w) or tuple(out.shape) != (1, h, w, 1) or not torch.isfinite(out).all():
@@ -321,13 +539,13 @@ def pipeline_phase() -> dict:
         server.server_close()
         thread.join(timeout=30)
     totals = {n: f.launches for n, f in COUNTERS.items()}
-    for n in COUNTERS:
+    for n, want in EXPECTED[label].items():
         per = [launch[n] for launch in rec.launches]
-        if per != [VIT_L["depth"]] * len(shapes):
-            raise AssertionError(f"{n} launched {per} times per request, expected {VIT_L['depth']} each")
+        if per != [want] * len(shapes):
+            raise AssertionError(f"{label}: {n} launched {per} times per request, expected {want} each")
 
     for (h, w), (im2, im3) in images.items():
-        split_and_trace(pipe, h, w, im2, im3)
+        split_and_trace(pipe, label, h, w, im2, im3)
     return totals
 
 
@@ -362,18 +580,30 @@ def compare_phase() -> None:
     if not (scale > 0 and err <= 1e-4 * scale):
         raise AssertionError(f"DAv2 ViT-L on the card disagrees with the CPU: {err} (scale {scale})")
 
-    kw = dict(stereo_cfg=StereoAnywhereConfig(), mono_cfg=MonoConfig.for_encoder("vits"), iters=4,
-              mono_size=(56, 56), seed=5)
-    pc, pg = build_pipeline(device="cpu", **kw), build_pipeline(device="cuda", **kw)
+    # the whole pipeline, default and fused (H4 16, W4 24: the fused gate
+    # holds); pixel tolerance 1e-2 plus 1e-4 of the disparity's magnitude
     rng = np.random.default_rng(2)
     im2, im3 = (rng.uniform(0, 1, (1, 64, 96, 3)).astype(np.float32) for _ in range(2))
-    want = pc(im2, im3)
-    got = pg(im2, im3).cpu()
-    err, scale = (got - want).abs().max().item(), want.abs().max().item()
-    print(f"pipeline ViT-S 64x96 f32 iters 4, card vs CPU: max_abs_err {err:.3e} px (max|cpu| {scale:.3e})",
-          flush=True)
+    on_card = {}
+    for label, cfg in (("default", StereoAnywhereConfig()), ("fused", StereoAnywhereConfig(fused_level0="on"))):
+        kw = dict(stereo_cfg=cfg, mono_cfg=MonoConfig.for_encoder("vits"), iters=4, mono_size=(56, 56), seed=5)
+        pc, pg = build_pipeline(device="cpu", **kw), build_pipeline(device="cuda", **kw)
+        want = pc(im2, im3)
+        before = step_fused.flow_head.launches
+        on_card[label] = got = pg(im2, im3).cpu()
+        if label == "fused" and step_fused.flow_head.launches - before != 3:
+            raise AssertionError("the fused pipeline did not run its rotated bodies through the kernels")
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        print(f"pipeline {label} ViT-S 64x96 f32 iters 4, card vs CPU: max_abs_err {err:.3e} px "
+              f"(max|cpu| {scale:.3e})", flush=True)
+        if not err <= 1e-2 + 1e-4 * scale:
+            raise AssertionError(f"{label} pipeline on the card disagrees with the CPU: {err}")
+    err = (on_card["fused"] - on_card["default"]).abs().max().item()
+    scale = on_card["default"].abs().max().item()
+    print(f"pipeline ViT-S 64x96 f32 iters 4, fused vs default on the card: max_abs_err {err:.3e} px "
+          f"(max|default| {scale:.3e})", flush=True)
     if not err <= 1e-2 + 1e-4 * scale:
-        raise AssertionError(f"pipeline on the card disagrees with the CPU: {err}")
+        raise AssertionError(f"the fused pipeline disagrees with the default one on the card: {err}")
 
 
 def main() -> int:
@@ -391,15 +621,20 @@ def main() -> int:
         for line in log.read_text().splitlines() if log.exists() else []:
             if "Compiling entry" in line or "Used" in line or ("spill" in line and " 0 bytes spill stores" not in line):
                 print(f"  {p.stem}: {line.strip()}", flush=True)
-    records = kernel_phase()
-    launches = pipeline_phase()
+    records = {**kernel_phase(), **step_kernel_phase()}
+    launches = pipeline_phase("default", StereoAnywhereConfig(compute_dtype="bfloat16"))
+    torch.cuda.empty_cache()
+    fused = pipeline_phase("fused", StereoAnywhereConfig(compute_dtype="bfloat16", fused_level0="on"))
     compare_phase()
     kernels = []
     for name, row in records.items():
         src, replaces = SOURCE[name]
-        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces, launches=launches[name],
+        # each kernel's launches on the path that runs it
+        n = launches[name] if name in VIT_LAUNCHES else fused[name]
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces, launches=n,
                             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
-                            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"]))
+                            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+                            unfused_ms=row.get("unfused_ms")))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -220,8 +220,12 @@ def _load(model: torch.nn.Module, variables: Mapping[str, Any], rename, what: st
 
 def load_stereo_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> torch.nn.Module:
     """Fill a port `StereoAnywhere` from the JAX model's {'params',
-    'batch_stats'} tree (nested dicts of arrays)."""
+    'batch_stats'} tree (nested dicts of arrays).  The fused loop's packed
+    weights are packed anew at its next use."""
     _load(model, variables, _stereo_rename, "load_stereo_variables")
+    for m in model.modules():
+        if hasattr(m, "clear_fused_cache"):
+            m.clear_fused_cache()
     return model
 
 

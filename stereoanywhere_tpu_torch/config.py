@@ -1,10 +1,17 @@
 """Model configuration for the PyTorch port.
 
 A copy of the JAX package's `StereoAnywhereConfig` and `MonoConfig`, keeping
-the fields that change the inference math.  Left out:
-- the TPU layout switches (`hourglass_folded`, `hourglass_blocked`,
-  `lookup_impl`, `fused_level0`, `scan_unroll`): each selects between
-  formulations of the same function there, and the port has one;
+the fields that change the inference math, and the two switches that
+select the kernels of the refinement loop:
+- `lookup_impl` (the correlation lookup: "auto" and the XLA formulations
+  run the plain gather, "mxu" and "barrel" the K5 kernel);
+- `fused_level0` (the rotated refinement loop whose quarter-resolution
+  plane runs in the K7, K5, K8 and K9 kernels).
+Their values and defaults are the JAX package's; its CPU-test mode
+`fused_level0="interpret"` has no counterpart and is refused.  Left out:
+- the other TPU layout switches (`hourglass_folded`, `hourglass_blocked`,
+  `scan_unroll`): each selects between formulations of the same function
+  there, and the port has one;
 - the training-only fields (`freeze_bn`, `vol_aug_n_masks`,
   `volume_corruption_prob`): the port has no training yet;
 - the non-default aggregation variants (`use_aggregate_stereo_vol`,
@@ -13,6 +20,9 @@ the fields that change the inference math.  Left out:
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+LOOKUP_IMPLS = ("auto", "inline", "lagged", "window", "mxu", "barrel")
+FUSED_LEVEL0 = ("off", "on", "auto")
 
 
 @dataclass(frozen=True)
@@ -49,6 +59,31 @@ class StereoAnywhereConfig:
     # It changes the output near the right edge, so the port keeps it.
     width_pad_align: int = 64
     width_pad_min: int = 640
+    # GRU-loop correlation lookup: "auto" resolves to the windowed XLA
+    # formulation in the JAX package, the plain gather here; "inline",
+    # "lagged", "window" are XLA formulations of the same function (the
+    # gather here); "mxu" and "barrel" are Pallas kernels there and the K5
+    # kernel here (ops/corr_lookup.py).
+    lookup_impl: str = "auto"
+    # Rotated, fused refinement loop (models/stereoanywhere.py): "on" runs
+    # its quarter-resolution plane in the K7/K5/K8/K9 kernels; "auto"
+    # resolves to "off", as in the JAX package.
+    fused_level0: str = "off"
+
+    def __post_init__(self):
+        if self.lookup_impl not in LOOKUP_IMPLS:
+            raise ValueError(f"lookup_impl {self.lookup_impl!r}: use one of {LOOKUP_IMPLS}")
+        if self.fused_level0 == "interpret":
+            raise ValueError(
+                "fused_level0='interpret' is the JAX package's Pallas interpret mode for CPU tests; the port "
+                "has no interpret mode: use 'on' (its kernels on the card, their plain versions on the CPU)"
+            )
+        if self.fused_level0 not in FUSED_LEVEL0:
+            raise ValueError(f"fused_level0 {self.fused_level0!r}: use one of {FUSED_LEVEL0}")
+
+    @property
+    def resolved_lookup_impl(self) -> str:
+        return "window" if self.lookup_impl == "auto" else self.lookup_impl
 
     @property
     def downsample_factor(self) -> int:

@@ -6,6 +6,12 @@ and NCHW inside.  Only the test-mode forward is ported: no training outputs
 and no volume corruption.  Internally flow = coords1 - coords0 =
 -disparity; the output is POSITIVE disparity.
 
+The refinement loop has the JAX package's two schedules: `iters` plain
+steps, or with `fused_level0="on"` (where the JAX gate would fuse) one
+pre-step without the flow head, `iters - 1` rotated bodies whose
+quarter-resolution plane runs in the K7, K5, K8 and K9 kernels (NHWC), and
+a tail with the flow and mask heads: the same function, reordered.
+
 Inputs: image2, image3 (B,H,W,3) in [0,1]; mde2, mde3 (B,H,W,1) normalized
 mono depth; H and W multiples of 32.
 """
@@ -20,12 +26,19 @@ from stereoanywhere_tpu_torch.device import resolve_device, torch_dtype
 from stereoanywhere_tpu_torch.models.extractor import ContextEncoder, FeatureEncoder
 from stereoanywhere_tpu_torch.models.hourglass import Hourglass
 from stereoanywhere_tpu_torch.models.layers import LECUN, init_weights
-from stereoanywhere_tpu_torch.models.update import MultiUpdateBlock, refinement_step
+from stereoanywhere_tpu_torch.models.update import (
+    MultiUpdateBlock,
+    fused_refinement_step,
+    refinement_step,
+    refinement_tail,
+    update_nets,
+)
 from stereoanywhere_tpu_torch.ops.corr_lookup import build_corr_pyramid
 from stereoanywhere_tpu_torch.ops.fuzzy import fuzzy_and
 from stereoanywhere_tpu_torch.ops.geometry import estimate_normals, joint_minmax_normalize, softlrc
 from stereoanywhere_tpu_torch.ops.interp import resize_bilinear_align_corners
 from stereoanywhere_tpu_torch.ops.lsq import weighted_lsq
+from stereoanywhere_tpu_torch.ops.step_fused import fused_step_supported
 from stereoanywhere_tpu_torch.ops.upsample import convex_upsample
 from stereoanywhere_tpu_torch.ops.volume import (
     all_pairs_correlation,
@@ -70,6 +83,22 @@ class StereoAnywhere(nn.Module):
         self.update_block = MultiUpdateBlock(dims, cfg.n_gru_layers, cfg.n_downsample, cfg.corr_channels)
         init_weights(self, generator or torch.Generator().manual_seed(0))
         self.to(device=dev, dtype=torch_dtype(cfg.compute_dtype))
+
+    def fused_step_used(self, net0_shape) -> bool:
+        """The JAX package's gate for the rotated, fused loop
+        (`models/stereoanywhere.py:554-562`), with its barrel condition read
+        as `lookup_impl == "barrel"`; net0_shape is the quarter-resolution
+        hidden state's NCHW shape."""
+        cfg = self.cfg
+        b, c, h4, w4 = net0_shape
+        return (
+            cfg.fused_level0 == "on"
+            and cfg.lookup_impl != "barrel"
+            and cfg.n_gru_layers == 3
+            and tuple(cfg.context_dims) == (128, 128, 128)
+            and cfg.corr_radius == 4
+            and fused_step_supported((b, h4, w4, c))
+        )
 
     @torch.no_grad()
     def forward(self, image2, image3, mde2, mde3, iters: int = 32) -> dict[str, torch.Tensor]:
@@ -163,20 +192,36 @@ class StereoAnywhere(nn.Module):
             trunc_mask = truncate_corr_volume(scaled_mde2_low, mirror_conf, None, cfg.mirror_attenuation)
             stereo_vol = trunc_mask * stereo_vol
         mono_src = agg_disp if cfg.use_aggregate_mono_vol else mono_vol
-        stereo_pyr = build_corr_pyramid(stereo_vol.to(cdt), cfg.corr_levels)
-        mono_pyr = build_corr_pyramid(mono_src.to(cdt), cfg.corr_levels)
+        # contiguous levels: the K5 kernel reads rows of them
+        stereo_pyr = build_corr_pyramid(stereo_vol.to(cdt).contiguous(), cfg.corr_levels)
+        mono_pyr = build_corr_pyramid(mono_src.to(cdt).contiguous(), cfg.corr_levels)
 
         # iterative refinement (the JAX nn.scan, as a loop)
         coords0 = torch.arange(w4, device=image2.device, dtype=torch.float32).view(1, 1, 1, w4).expand(b, 1, h4, w4)
         coords1 = coords0 if cfg.init_disparity_zero else coords0 - scaled_mde2_low
         net = [n.to(cdt) for n in net]
         inp = [tuple(t.to(cdt) for t in triple) for triple in inp]
+        lookup_impl = cfg.resolved_lookup_impl
         mask = None
-        for it in range(iters):
-            net, coords1, mask = refinement_step(
-                self.update_block, net, inp, stereo_pyr, mono_pyr, coords1, coords0, cfg.corr_radius,
-                compute_mask=it == iters - 1,
-            )
+        if iters >= 1 and self.fused_step_used(net[0].shape):
+            net = update_nets(self.update_block, net, inp, stereo_pyr, mono_pyr, coords1, coords0, cfg.corr_radius,
+                              lookup_impl)
+            if iters > 1:
+                ws = self.update_block.fused_weights(cdt)
+                net_h = [n.permute(0, 2, 3, 1).contiguous() for n in net]
+                czrq = [torch.cat(triple, dim=1).permute(0, 2, 3, 1).contiguous() for triple in inp]
+                x = coords1[:, 0].contiguous()
+                for _ in range(iters - 1):
+                    net_h, x = fused_refinement_step(ws, net_h, czrq, stereo_pyr, mono_pyr, x, cfg.corr_radius)
+                net = [n.permute(0, 3, 1, 2) for n in net_h]
+                coords1 = x[:, None]
+            net, coords1, mask = refinement_tail(self.update_block, net, coords1, compute_mask=True)
+        else:
+            for it in range(iters):
+                net, coords1, mask = refinement_step(
+                    self.update_block, net, inp, stereo_pyr, mono_pyr, coords1, coords0, cfg.corr_radius,
+                    compute_mask=it == iters - 1, lookup_impl=lookup_impl,
+                )
 
         flow_up = convex_upsample(coords1 - coords0, mask.float(), cfg.n_downsample)
         disparity = -flow_up

@@ -1,9 +1,15 @@
 """Correlation pyramid and its per-iteration radius-window lookup.
 
-The lookup is plain PyTorch in the gather form (the JAX package's
-`_lookup_level_gather`).  On the JAX main path this function runs in XLA, not
-in a Pallas kernel; its hand-written Hopper kernel (one gather kernel for
-both pyramids) is later work.
+`lookup_corr_pyramid` is plain PyTorch in the gather form (the JAX
+package's `_lookup_level_gather`).  `lookup_corr_pyramid_pair` looks both
+pyramids up at shared coordinates and dispatches on `lookup_impl` as the
+JAX package's `lookup_corr_pyramid_pair` does: its XLA formulations
+("inline", "lagged", "window") compute one function, which the port has
+once, in the gather form; its Pallas kernels ("mxu", "barrel") become the
+K5 kernel (`ops/cuda/corr_lookup.py` `dual_lookup`), which looks every level
+of both pyramids up in one launch.  On the card "barrel" needs no packing
+step: the TPU's volume-interleaved layout (`pack_pyramid_pair`) and its
+bf16-only and (B*H) % 4 conditions are TPU layout, not the function.
 """
 from __future__ import annotations
 
@@ -38,9 +44,27 @@ def _lookup_level(level: torch.Tensor, coords: torch.Tensor, radius: int) -> tor
     return tap(x0i, 1.0 - frac) + tap(x0i + 1, frac)
 
 
+XLA_IMPLS = ("inline", "lagged", "window")
+KERNEL_IMPLS = ("mxu", "barrel")
+
+
 def lookup_corr_pyramid(levels: list[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
     """Index every level i at coords/2^i (coords (B,H,W2), the right-image x).
     Returns (B,H,W2, levels*(2r+1)), level-major."""
     return torch.cat(
         [_lookup_level(level, coords / (2 ** i), radius) for i, level in enumerate(levels)], dim=-1
     )
+
+
+def lookup_corr_pyramid_pair(levels_a, levels_b, coords: torch.Tensor, radius: int, impl: str = "window"):
+    """Both pyramids (same shapes) looked up at coords (B,H,W2) f32:
+    (corr_a, corr_b), each (B,H,W2, levels*(2r+1)).  impl: one of
+    XLA_IMPLS (the gather, twice) or KERNEL_IMPLS (the K5 kernel on a CUDA
+    tensor, its plain version, the same gather, on a CPU one)."""
+    if impl in XLA_IMPLS:
+        return lookup_corr_pyramid(levels_a, coords, radius), lookup_corr_pyramid(levels_b, coords, radius)
+    if impl in KERNEL_IMPLS:
+        from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import dual_lookup
+
+        return dual_lookup(levels_a, levels_b, coords, radius)
+    raise ValueError(f"unknown lookup impl {impl!r}; use one of {XLA_IMPLS + KERNEL_IMPLS}")

@@ -150,6 +150,16 @@ def pool2x(x: torch.Tensor) -> torch.Tensor:
     return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
 
 
+def interp_like_nhwc(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """`interp_like` on NHWC tensors; the result is contiguous NHWC."""
+    return interp_like(x.permute(0, 3, 1, 2), ref.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+
+
+def pool2x_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """`pool2x` on NHWC tensors; the result is contiguous NHWC."""
+    return pool2x(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+
+
 def pool4x(x: torch.Tensor) -> torch.Tensor:
     """5x5 stride-4 pad-1 average pool, zero padding counted."""
     return F.avg_pool2d(x, 5, stride=4, padding=1, count_include_pad=True)
