@@ -6,11 +6,15 @@
 Phases (any failure exits non-zero before the result line):
 1. build the hand-written kernels from `stereoanywhere_tpu_torch/csrc/`
    (one nvcc per source, in parallel);
+   The wgmma + TMA libraries (K2, K4) must show HGMMA and UTMALDG in their
+   SASS (`cuobjdump -sass`), counted and printed;
 2. kernels: each of K1-K4 at the shapes of the ViT-L 512^2 and 375x1242
    requests (T = 1370 and 4552 tokens a view), in bf16 and f32, against its
    plain PyTorch version on the card (TF32 off), timed with CUDA events
-   beside one PyTorch call for the same function where one exists; K2 also
-   on inputs where only the mask of the ragged key tail keeps it right;
+   beside one PyTorch call for the same function where one exists, with
+   its TFLOP/s; K2's bound also counts its exponentials against the SFU;
+   K2 also on inputs where only the mask of the ragged key tail keeps it
+   right; the launch geometry (grid, waves) of K2's and K4's bf16 bodies;
    then the refinement-step kernels (K5 dual lookup, K7 flow head, K8
    motion encoder, K9 ConvGRU at its three scales, and K9 behind the K6
    interface) at the quarter-resolution planes of the same requests, in
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -100,6 +105,26 @@ def nbytes(*ts) -> int:
 def bound_ms(flops: float, moved: int, dtype) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], moved / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def exp_rate() -> tuple[float, str]:
+    """exp2 a second: the SFU issues 16 a clock on an SM.  SM count and
+    clock from the device properties (clock_rate in kHz)."""
+    props = torch.cuda.get_device_properties(0)
+    clock_hz = getattr(props, "clock_rate", 0) * 1e3
+    if not clock_hz:
+        raise RuntimeError("the device properties give no clock rate")
+    return 16.0 * props.multi_processor_count * clock_hz, (
+        f"16 x {props.multi_processor_count} SMs x {clock_hz / 1e6:.0f} MHz")
+
+
+def attention_bound_ms(flops: float, exps: float, moved: int, dtype) -> tuple[float, str, str]:
+    """max(FLOP / tensor peak, exponentials / SFU rate, bytes / HBM rate):
+    (ms, "operations" or "bytes", the term that binds)."""
+    terms = {"tensor FLOPs": flops / PEAK_FLOPS[dtype], "exp2 on the SFU": exps / exp_rate()[0],
+             "bytes": moved / PEAK_BYTES}
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, "bytes" if term == "bytes" else "operations", term
 
 
 def tokens_of(h: int, w: int) -> int:
@@ -180,6 +205,19 @@ SOURCE = {
 }
 
 
+def sass_counts(paths: dict) -> None:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS of the
+    libraries whose bf16 bodies are built on them; each must be there."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in ("vit_attention", "vit_mlp"):
+        sass = subprocess.run([cuobjdump, "-sass", str(paths[name])], capture_output=True, text=True,
+                              check=True).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+        print(f"sass {name}: " + ", ".join(f"{op} {n}" for op, n in counts.items()), flush=True)
+        if not (counts["HGMMA"] and counts["UTMALDG"]):
+            raise AssertionError(f"{name}: no wgmma or no TMA load in its SASS: {counts}")
+
+
 def kernel_phase() -> dict:
     """Check and time K1-K4 against their plain versions.  Returns the
     per-kernel record of the main path's dtype (bf16) at T=1370."""
@@ -202,10 +240,16 @@ def kernel_phase() -> dict:
                     max_abs_err=err,
                 )
                 row["bound_ms"], row["bound_by"] = bound_ms(flops, moved, dtype)
+                term = row["bound_by"]
+                if name == "vit_attention":  # one exponential a score
+                    row["bound_ms"], row["bound_by"], term = attention_bound_ms(
+                        flops, 2 * VIT_L["heads"] * t * t, moved, dtype)
+                row["tflops"] = flops / row["ms"] / 1e9
                 print(f"kernel {name} {str(dtype)[6:]} T={t}: max_abs_err {err:.3e} (max|plain| {scale:.3e}, "
-                      f"tol {REL_TOL[dtype]:.0e} rel) ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
-                      f"library_ms {row['library_ms']} cublas_product_ms {row['cublas_product_ms']} "
-                      f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+                      f"tol {REL_TOL[dtype]:.0e} rel) ms {row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s) "
+                      f"plain_ms {row['plain_ms']:.4f} library_ms {row['library_ms']} "
+                      f"cublas_product_ms {row['cublas_product_ms']} bound_ms {row['bound_ms']:.4f} ({term})",
+                      flush=True)
                 if dtype == torch.bfloat16 and t == t512:
                     records[name] = row
             qkv = key_tail_qkv(dtype, t, g)
@@ -215,7 +259,28 @@ def kernel_phase() -> dict:
                                vit_attention.vit_attention_ref(qkv, VIT_L["heads"]), dtype)
             print(f"kernel vit_attention {str(dtype)[6:]} T={t} key tail (real keys score about -32): "
                   f"max_abs_err {err:.3e} (max|plain| {scale:.3e}, tol {REL_TOL[dtype]:.0e} rel)", flush=True)
+    rate, how = exp_rate()
+    print(f"SFU exp2 rate {rate / 1e12:.2f} T/s ({how})", flush=True)
+    launch_geometry(t512, tkitti)
     return records
+
+
+def launch_geometry(*token_counts: int) -> None:
+    """Grid and waves of the bf16 wgmma launches at the ViT-L requests (B = 2)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    d, heads, hidden = VIT_L["d"], VIT_L["heads"], VIT_L["hidden"]
+    for t in token_counts:
+        a = vit_attention.launch_geometry(2, t, heads, d // heads)
+        blocks = a["grid"][0] * a["grid"][1] * a["grid"][2]
+        print(f"geometry vit_attention T={t}: grid {a['grid']} = {blocks} blocks of {a['threads']} threads, "
+              f"{a['smem']} B shared, {a['blocks_per_sm']} resident an SM: "
+              f"{blocks / (sms * a['blocks_per_sm']):.2f} waves on {sms} SMs", flush=True)
+        m = vit_mlp.launch_geometry(2 * t, d, hidden)
+        for i, p in enumerate(m["products"], 1):
+            print(f"geometry vit_mlp T={t} product {i}: 128x{p['bn']} tiles, {p['tiles']} of them on a persistent "
+                  f"grid of {p['blocks']} blocks ({m['threads']} threads, {p['smem']} B shared, one an SM): "
+                  f"{p['tiles'] / sms:.2f} waves of tiles; LN pass {m['ln_blocks']} blocks of {m['ln_threads']}",
+                  flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -427,7 +492,7 @@ class _Recorder:
 SPLIT_ROUNDS = 10
 # kernel name -> family, first match wins
 FAMILIES = (
-    ("ViT K1-K4", r"gemm_kernel_bf16|gemm_kernel_f32|attn_kernel"),
+    ("ViT K1-K4", r"gemm_kernel_bf16|gemm_kernel_f32|attn_kernel|wgmma_gemm_kernel|ln_rows_kernel"),
     ("step K5/K7-K9", r"conv_kernel_|dual_lookup_kernel|flow_delta_kernel|motion_c1f1_kernel"),
     ("convolution", r"conv|cudnn|implicit|winograd|fprop|dgrad|nhwc|nchw"),
     ("matmul", r"gemm|cutlass|cublas|sm90_xmma|ampere_"),
@@ -617,10 +682,12 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {sorted(p.name for p in paths.values())}", flush=True)
     for p in paths.values():
         log = p.with_suffix(".log")
-        # the compiler's resource report: registers, shared memory, spills
+        # the compiler's resource report: registers, shared memory, spills, serialized wgmma
         for line in log.read_text().splitlines() if log.exists() else []:
-            if "Compiling entry" in line or "Used" in line or ("spill" in line and " 0 bytes spill stores" not in line):
+            if ("Compiling entry" in line or "Used" in line or "Performance Loss" in line
+                    or ("spill" in line and " 0 bytes spill stores" not in line)):
                 print(f"  {p.stem}: {line.strip()}", flush=True)
+    sass_counts(paths)
     records = {**kernel_phase(), **step_kernel_phase()}
     launches = pipeline_phase("default", StereoAnywhereConfig(compute_dtype="bfloat16"))
     torch.cuda.empty_cache()

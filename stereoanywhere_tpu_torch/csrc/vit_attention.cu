@@ -2,26 +2,24 @@
 // Replaces stereoanywhere_tpu/ops/pallas/vit_attention.py (vit_attention).
 // Design and bound: ops/cuda/vit_attention.py.
 //
-// Both bodies give each block 64 query rows of one (batch, head), stream the
-// keys and values through shared memory in 64-row tiles and keep an online
+// Both bodies give each block the query rows of one (batch, head), stream
+// the keys and values through shared memory in tiles and keep an online
 // softmax (running max m, running sum l), so the (T, T) scores never reach
 // device memory.  Keys past T score -inf; query rows past T are computed on
-// zeros and never written.
+// zeros and never written.  The wrapper picks the body by dtype.
 //
-// bf16 (the deployed type): tensor cores through mma.sync m16n8k16, 4 warps
-// of 16 query rows each, FlashAttention-2 style.  K and V tiles stream into
-// shared memory with cp.async, two stages deep, the next tile in flight
-// while the current one multiplies; fragments come out of shared memory with
-// ldmatrix (V transposed on the way).  Scores, P and the running output stay
-// in registers: the accumulator layout of Q K^T is the A-operand layout of
-// P V.  The softmax runs in log2 units (exp2f with the scale folded in).
+// bf16 (the deployed type): FlashAttention-3 shape on Hopper's TMA and
+// wgmma, 128 query rows and 128-key tiles, a producer warpgroup and two
+// consumer warpgroups that take turns at the tensor cores (the note above
+// attn_kernel_wgmma).
 //
-// f32: FP32 FMA, 256 threads; each thread owns 4 query rows x 4 key columns
+// f32 (the check type): FP32 FMA, 64 query rows and 64-key tiles, 256
+// threads; each thread owns 4 query rows x 4 key columns
 // of a score tile (rows ty + 16i, columns tx + 16j) and 4 rows x HD/16 output
 // dims.  K is stored transposed and padded, so the reads are conflict-free;
 // the row max and row sum are reduced across the 16 threads of a row by
 // shuffles and P goes through shared memory.
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -165,165 +163,233 @@ __global__ void __launch_bounds__(kThreads) attn_kernel_f32(const float* __restr
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync tiles, scores and output in registers
+// bf16: wgmma + TMA, one producer warpgroup and two consumer warpgroups
 
-constexpr int kWarpsTC = 4;  // 16 query rows each
-constexpr int kThreadsTC = 32 * kWarpsTC;
+namespace wgattn {
+
+constexpr int BQ = 128, BKV = 128;  // query rows a block (64 a consumer warpgroup), keys a tile
+constexpr int THREADS = 384;        // warpgroups 0, 1 consume; warpgroup 2 produces
+constexpr int BAR_TURN = 1;         // named barriers 1 and 2: warpgroup 0's and 1's turn to issue
 
 template <int HD>
-struct TcLayout {
-  static constexpr int LD = HD + 8;      // bf16 pitch: 16-byte rows, conflict-free ldmatrix
-  static constexpr int TILE = kBQ * LD;  // one 64-row tile (kBQ == kBKV)
-  static constexpr size_t BYTES = 5 * static_cast<size_t>(TILE) * sizeof(__nv_bfloat16);  // Q; K, V x 2 stages
+struct Cfg {
+  static constexpr int PANELS = HD / 64;  // 64-column panels of a tile, one 128-byte swizzle row each
+  static constexpr int STAGES = HD == 64 ? 4 : 3;
+  static constexpr int Q_PANEL = BQ * 128, KV_PANEL = BKV * 128;  // bytes
+  static constexpr int Q_BYTES = PANELS * Q_PANEL, KV_BYTES = PANELS * KV_PANEL;
+  // alignment slack, Q, the ring of (K, V) stages, mbarriers: full and empty a stage, Q's
+  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + (2 * STAGES + 1) * 8;
 };
 
-// rows [r0, r0 + 64) of one head's HD columns (column offset col) into a
-// [64][LD] tile, 16 bytes a copy; rows past Tn are zero-filled
+}  // namespace wgattn
+
+// The TMA map is 3-D over qkv (B, T, 3D), box (1, 128 rows, 64 columns):
+// q, k and v of head h are the boxes at columns h HD, D + h HD, 2D + h HD
+// (+ 64 for hd 128's second panel), and rows past T arrive as zeros from
+// within the batch, never from batch b + 1.
+//
+// Each consumer warpgroup owns 64 query rows.  For key tile j it issues
+// S = Q K_j^T (wgmma.m64n128k16, both operands K-major in shared memory) and,
+// in the same turn, O += P_{j-1} V_{j-1} (wgmma.m64n64k16 per 64-column
+// panel of V: P from registers, V MN-major, the transpose bit set); then it
+// runs tile j's softmax while that PV product, and the other warpgroup's
+// turn, keep the tensor cores busy.  The turns alternate through named
+// barriers, so one warpgroup's exp2 overlaps the other's products.  S's
+// accumulators become P in place: the accumulator layout of one k16 slice
+// of S is wgmma's register A-fragment layout.  Keys past T score -inf
+// (zero-filled keys would score 0).  The softmax runs in log2 units with
+// the scale folded into one FMA; the row sums are taken from the f32 P
+// before it is rounded to bf16 for the PV product (the TPU kernel sums the
+// rounded P); both stay within the bf16 tolerance.
 template <int HD>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* base, size_t row_stride,
-                                                int col, int r0, int Tn) {
-  constexpr int PER_ROW = HD / 8;
-  for (int c = threadIdx.x; c < kBQ * PER_ROW; c += kThreadsTC) {
-    const int r = c / PER_ROW, d = (c % PER_ROW) * 8;
-    const int row = min(r0 + r, Tn - 1);  // a valid address even where nothing is read
-    cp_async16(dst + r * TcLayout<HD>::LD + d, base + row * row_stride + col + d, r0 + r < Tn ? 16 : 0);
+__global__ void __launch_bounds__(wgattn::THREADS, 1) attn_kernel_wgmma(const __grid_constant__ CUtensorMap map,
+                                                                        __nv_bfloat16* __restrict__ out, int Tn,
+                                                                        int H, float scale_log2) {
+  using namespace wgattn;
+  using namespace sm90;
+  using C = Cfg<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = smem_u32(align1024(smem_raw));
+  const uint32_t sKV = sQ + C::Q_BYTES;  // stage s: K at sKV + 2 s KV_BYTES, V after it
+  const uint32_t full0 = sKV + 2 * C::STAGES * C::KV_BYTES, empty0 = full0 + 8 * C::STAGES;
+  const uint32_t qbar = empty0 + 8 * C::STAGES;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z, D = H * HD;
+  const int n_tiles = (Tn + BKV - 1) / BKV;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(qbar, 1);
+    fence_mbar_init();
   }
-}
+  __syncthreads();
 
-// Fragment layout of mma.m16n8k16 (PTX ISA): lane = 4 g + t.  An f32
-// accumulator tile holds (row g, cols 2t, 2t+1) in [0], [1] and (row g + 8,
-// same cols) in [2], [3]; an A operand holds rows g and g + 8 at columns
-// 2t, 2t+1 and 2t+8, 2t+9.  So a score tile's accumulators are already the
-// P operand of the next product once packed to bf16, as in FlashAttention-2.
-template <int HD>
-__global__ void __launch_bounds__(kThreadsTC) attn_kernel_bf16(const __nv_bfloat16* __restrict__ qkv,
-                                                               __nv_bfloat16* __restrict__ out, int Tn, int H,
-                                                               float scale_log2) {
-  using L = TcLayout<HD>;
-  constexpr int NS = kBKV / 8;  // score n-tiles of a warp (8)
-  constexpr int NO = HD / 8;    // output n-tiles (8 or 16)
-  constexpr int KQ = HD / 16;   // k-steps of Q K^T (4 or 8)
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  auto* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
-  auto* Ks = Qs + L::TILE;                                // [2][64][LD]
-  auto* Vs = Ks + 2 * L::TILE;                            // [2][64][LD]
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  // ldmatrix: lanes 8i .. 8i+7 address the rows of 8x8 matrix i
-  const int a_row = lane % 8 + ((lane / 8) % 2) * 8, a_col = (lane / 16) * 8;  // Q (A operand), V (.trans)
-  const int b_row = lane % 8 + (lane / 16) * 8, b_col = ((lane / 8) % 2) * 8;  // K (B operand)
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * HD;
-  const size_t row_stride = 3 * static_cast<size_t>(D);
-  const __nv_bfloat16* base = qkv + static_cast<size_t>(b) * Tn * row_stride;
-  const int n_tiles = (Tn + kBKV - 1) / kBKV;
-
-  load_tile_async<HD>(Qs, base, row_stride, h * HD, q0, Tn);
-  load_tile_async<HD>(Ks, base, row_stride, D + h * HD, 0, Tn);
-  load_tile_async<HD>(Vs, base, row_stride, 2 * D + h * HD, 0, Tn);
-  cp_async_commit();
-
-  unsigned qf[KQ][4];
-  float o[NO][4];
+  if (wg == 2) {  // producer: one thread issues every load
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qbar, C::Q_BYTES);
 #pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};  // rows g, g + 8; log2 units
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_tiles) {  // the next K/V tile streams in while this one multiplies
-      load_tile_async<HD>(Ks + (buf ^ 1) * L::TILE, base, row_stride, D + h * HD, (it + 1) * kBKV, Tn);
-      load_tile_async<HD>(Vs + (buf ^ 1) * L::TILE, base, row_stride, 2 * D + h * HD, (it + 1) * kBKV, Tn);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // all but the newest group landed: this tile (and Q)
-    __syncthreads();
-    if (it == 0) {
+      for (int p = 0; p < C::PANELS; ++p) tma_load_3d(sQ + p * C::Q_PANEL, &map, qbar, h * HD + 64 * p, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % C::STAGES;
+        mbar_wait(empty0 + 8 * s, ((j / C::STAGES) & 1) ^ 1);  // the first round passes at once
+        const uint32_t k = sKV + 2 * s * C::KV_BYTES, full = full0 + 8 * s;
+        mbar_expect_tx(full, 2 * C::KV_BYTES);
 #pragma unroll
-      for (int kq = 0; kq < KQ; ++kq) ldmatrix_x4(qf[kq], Qs + (warp * 16 + a_row) * L::LD + kq * 16 + a_col);
-    }
-    const __nv_bfloat16* Kt = Ks + buf * L::TILE;
-    const __nv_bfloat16* Vt = Vs + buf * L::TILE;
-
-    // S = Q K^T: 16 x 64 per warp
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kq = 0; kq < KQ; ++kq)
-#pragma unroll
-      for (int j = 0; j < NS; j += 2) {
-        unsigned kf[4];
-        ldmatrix_x4(kf, Kt + (j * 8 + b_row) * L::LD + kq * 16 + b_col);
-        mma_bf16(s[j], qf[kq], kf[0], kf[1]);
-        mma_bf16(s[j + 1], qf[kq], kf[2], kf[3]);
+        for (int p = 0; p < C::PANELS; ++p) {
+          tma_load_3d(k + p * C::KV_PANEL, &map, full, D + h * HD + 64 * p, j * BKV, b);
+          tma_load_3d(k + C::KV_BYTES + p * C::KV_PANEL, &map, full, 2 * D + h * HD + 64 * p, j * BKV, b);
+        }
       }
+    }
+  } else {  // consumers
+    setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const uint32_t qa = sQ + wg * 64 * 128;  // this warpgroup's 64 rows of each Q panel
+    // accumulator layout (wgmma m64nN): x[4 jb + 2 i + c] is row 16 warp + g + 8 i,
+    // column 8 jb + 2 t + c
+    float s[BKV / 2], o[C::PANELS][32];
+    unsigned pf[BKV / 16][4];  // P of the previous tile, the A fragment of each 16 keys
+#pragma unroll
+    for (int e = 0; e < BKV / 2; ++e) s[e] = 0.f;
+#pragma unroll
+    for (int p = 0; p < C::PANELS; ++p)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[p][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) pf[kk][0] = pf[kk][1] = pf[kk][2] = pf[kk][3] = 0u;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};  // rows g, g + 8; log2 units
+    const int my_turn = BAR_TURN + wg, other_turn = BAR_TURN + (wg ^ 1);
 
-    // online softmax; a row's 64 scores lie in the 4 lanes of its quad
-    const int kv0 = it * kBKV;
-    float mx[2] = {-INFINITY, -INFINITY};
+    // A turn at the tensor cores: wait for it, issue, hand it to the other
+    // warpgroup.  Turn 0 issues S_0; turn j (0 < j < n) S_j and P_{j-1} V_{j-1};
+    // turn n P_{n-1} V_{n-1}.  Each path has a fixed sequence of wgmma groups,
+    // so ptxas can see which group a wait retires.
+    auto turn_begin = [&] {
+      named_bar_sync(my_turn, 256);
+      fence_regs(s);
+      fence_regs(pf);
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
+      for (int p = 0; p < C::PANELS; ++p) fence_regs(o[p]);
+      wgmma_fence();
+    };
+    auto issue_s = [&](int j) {
+      const int st = j % C::STAGES;
+      mbar_wait(full0 + 8 * st, (j / C::STAGES) & 1);
+      const uint32_t k = sKV + 2 * st * C::KV_BYTES;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = kv0 + j * 8 + 2 * t + (e & 1) < Tn ? s[j][e] * scale_log2 : -INFINITY;
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+      for (int kk = 0; kk < HD / 16; ++kk)  // panel kk / 4, 32 bytes a k16 step inside its rows
+        wgmma_m64n128k16_ss(s, smem_desc(qa + (kk / 4) * C::Q_PANEL + (kk % 4) * 32, 16, 1024),
+                            smem_desc(k + (kk / 4) * C::KV_PANEL + (kk % 4) * 32, 16, 1024), kk > 0);
+      wgmma_commit();
+    };
+    auto issue_pv = [&](int j) {
+      const uint32_t v = sKV + (2 * (j % C::STAGES) + 1) * C::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < C::PANELS; ++p)
+          wgmma_m64n64k16_rs_mn(o[p], pf[kk], smem_desc(v + p * C::KV_PANEL + kk * 16 * 128, 1024, 1024));
+      wgmma_commit();
+    };
+    // tile j's softmax on S (done): P in place in s, the running max, the
+    // rescale factor of O and l, and P's row sums
+    auto softmax = [&](int j, float (&corr)[2], float (&rsum)[2]) {
+      fence_regs(s);
+      const int kv0 = j * BKV;
+      if (kv0 + BKV > Tn) {  // the ragged key tail
+#pragma unroll
+        for (int jb = 0; jb < BKV / 8; ++jb)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (kv0 + 8 * jb + 2 * t + c >= Tn) s[4 * jb + c] = s[4 * jb + 2 + c] = -INFINITY;
       }
-    float corr[2];
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < BKV / 2; ++e) mx[(e / 2) % 2] = fmaxf(mx[(e / 2) % 2], s[e]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m_run[i], mx[i] * scale_log2);
+        corr[i] = exp2f(m_run[i] - m_new);
+        m_run[i] = m_new;
+        rsum[i] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < BKV / 2; ++e) {
+        const int i = (e / 2) % 2;
+        s[e] = exp2f(fmaf(s[e], scale_log2, -m_run[i]));
+        rsum[i] += s[e];
+      }
+    };
+    // P V of tile j is done: its K and V may be refilled
+    auto retire_pv = [&](int j) {
+      fence_regs(pf);
+#pragma unroll
+      for (int p = 0; p < C::PANELS; ++p) fence_regs(o[p]);
+      if (lane == 0) mbar_arrive(empty0 + 8 * (j % C::STAGES));
+    };
+    auto rescale_and_pack = [&](const float (&corr)[2], const float (&rsum)[2]) {
+#pragma unroll
+      for (int p = 0; p < C::PANELS; ++p)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) o[p][e] *= corr[(e / 2) % 2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * corr[i] + rsum[i];
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        pf[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);  // row g, keys 2t, 2t + 1
+        pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);  // row g + 8
+        pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);  // row g, keys 8 + 2t, 9 + 2t
+        pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);  // row g + 8
+      }
+    };
+
+    float corr[2], rsum[2];
+    if (wg == 1) named_bar_arrive(other_turn, 256);  // warpgroup 0 takes the first turn
+    mbar_wait(qbar, 0);
+    turn_begin();
+    issue_s(0);
+    named_bar_arrive(other_turn, 256);
+    wgmma_wait<0>();
+    softmax(0, corr, rsum);
+    rescale_and_pack(corr, rsum);
+    for (int j = 1; j < n_tiles; ++j) {
+      turn_begin();
+      issue_s(j);
+      issue_pv(j - 1);
+      named_bar_arrive(other_turn, 256);
+      wgmma_wait<1>();  // S_j is done; P_{j-1} V_{j-1} runs under the softmax
+      softmax(j, corr, rsum);
+      wgmma_wait<0>();
+      retire_pv(j - 1);
+      rescale_and_pack(corr, rsum);
+    }
+    turn_begin();
+    issue_pv(n_tiles - 1);
+    if (wg == 0) named_bar_arrive(other_turn, 256);  // warpgroup 1 takes the last turn
+    wgmma_wait<0>();
+    retire_pv(n_tiles - 1);
+
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_run[i], mx[i]);
-      corr[i] = exp2f(m_run[i] - m_new);
-      m_run[i] = m_new;
-      l_run[i] *= corr[i];
-    }
+      l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+      l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+      const int q = q0 + wg * 64 + warp * 16 + g + 8 * i;
+      if (q < Tn) {
+        const float inv = 1.f / l_run[i];
+        __nv_bfloat16* orow = out + (static_cast<size_t>(b) * Tn + q) * D + h * HD + 2 * t;
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-    unsigned pf[NS / 2][4];  // P as the A operand, one per 16 keys
+        for (int p = 0; p < C::PANELS; ++p)
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[e] = exp2f(s[j][e] - m_run[e / 2]);
-        l_run[e / 2] += p[e];
+          for (int jb = 0; jb < 8; ++jb)
+            *reinterpret_cast<unsigned*>(orow + 64 * p + 8 * jb) =
+                pack_bf16(o[p][4 * jb + 2 * i] * inv, o[p][4 * jb + 2 * i + 1] * inv);
       }
-      pf[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
-      pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
-
-    // O += P V
-#pragma unroll
-    for (int kk = 0; kk < NS / 2; ++kk)
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        unsigned vf[4];
-        ldmatrix_x4_trans(vf, Vt + (kk * 16 + a_row) * L::LD + n * 8 + a_col);
-        mma_bf16(o[n], pf[kk], vf[0], vf[1]);
-        mma_bf16(o[n + 1], pf[kk], vf[2], vf[3]);
-      }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
-    const int q = q0 + warp * 16 + g + 8 * i;
-    if (q < Tn) {
-      const float inv = 1.f / l_run[i];
-      __nv_bfloat16* orow = out + (static_cast<size_t>(b) * Tn + q) * D + h * HD + 2 * t;
-#pragma unroll
-      for (int n = 0; n < NO; ++n)
-        *reinterpret_cast<unsigned*>(orow + n * 8) = pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
     }
   }
 }
@@ -341,15 +407,25 @@ cudaError_t launch_f32(const void* qkv, void* out, int B, int Tn, int H, cudaStr
 }
 
 template <int HD>
+cudaError_t set_smem_limit_bf16() {
+  return cudaFuncSetAttribute(attn_kernel_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(wgattn::Cfg<HD>::SMEM));
+}
+
+dim3 grid_of(int B, int Tn, int H) { return dim3((Tn + wgattn::BQ - 1) / wgattn::BQ, H, B); }
+
+template <int HD>
 cudaError_t launch_bf16(const void* qkv, void* out, int B, int Tn, int H, cudaStream_t stream) {
-  constexpr size_t bytes = TcLayout<HD>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(attn_kernel_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(bytes));
+  const cuuint64_t d3 = 3ull * H * HD;
+  const cuuint64_t dims[3] = {d3, static_cast<cuuint64_t>(Tn), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {2 * d3, 2 * d3 * Tn};
+  const cuuint32_t box[3] = {64, wgattn::BQ, 1};  // BQ == BKV: one map for q, k and v
+  CUtensorMap map;
+  cudaError_t e = sm90::make_map_bf16(&map, qkv, 3, dims, strides, box);
+  if (e == cudaSuccess) e = set_smem_limit_bf16<HD>();
   if (e != cudaSuccess) return e;
-  const dim3 grid((Tn + kBQ - 1) / kBQ, H, B);
-  attn_kernel_bf16<HD><<<grid, kThreadsTC, bytes, stream>>>(static_cast<const __nv_bfloat16*>(qkv),
-                                                            static_cast<__nv_bfloat16*>(out), Tn, H,
-                                                            1.4426950408889634f / sqrtf(static_cast<float>(HD)));
+  attn_kernel_wgmma<HD><<<grid_of(B, Tn, H), wgattn::THREADS, wgattn::Cfg<HD>::SMEM, stream>>>(
+      map, static_cast<__nv_bfloat16*>(out), Tn, H, 1.4426950408889634f / sqrtf(static_cast<float>(HD)));
   return cudaGetLastError();
 }
 
@@ -363,4 +439,23 @@ extern "C" int sa_vit_attention(const void* qkv, void* out, int B, int Tn, int H
   if (dtype == SA_BF16)
     return HD == 64 ? launch_bf16<64>(qkv, out, B, Tn, H, s) : launch_bf16<128>(qkv, out, B, Tn, H, s);
   return cudaErrorInvalidValue;
+}
+
+// The bf16 body's launch geometry: out[0..5] = grid (x, y, z), threads,
+// dynamic shared memory in bytes, and the blocks the card keeps resident on
+// one SM (the occupancy query, at that shared memory).
+extern "C" int sa_vit_attention_geometry(int B, int Tn, int H, int HD, int* out) {
+  if (HD != 64 && HD != 128) return cudaErrorInvalidValue;
+  const dim3 grid = grid_of(B, Tn, H);
+  const size_t smem = HD == 64 ? wgattn::Cfg<64>::SMEM : wgattn::Cfg<128>::SMEM;
+  cudaError_t e = HD == 64 ? set_smem_limit_bf16<64>() : set_smem_limit_bf16<128>();
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = HD == 64 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_kernel_wgmma<64>, wgattn::THREADS, smem)
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_kernel_wgmma<128>, wgattn::THREADS,
+                                                                 smem);
+  const int v[6] = {static_cast<int>(grid.x), static_cast<int>(grid.y), static_cast<int>(grid.z), wgattn::THREADS,
+                    static_cast<int>(smem), per_sm};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return e;
 }

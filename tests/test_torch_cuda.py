@@ -100,6 +100,60 @@ def test_attention_kernel_masks_the_key_tail(cuda, dtype, t, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,heads,hd", [(1370, 16, 64), (4552, 16, 64), (5, 16, 64), (300, 8, 128)])
+def test_attention_kernel_vit_l_shapes(cuda, dtype, t, heads, hd):
+    """ViT-L's token counts at 512^2 and 375x1242 (B = 1, 16 heads of 64),
+    T below one 128-row tile, and hd 128 (two 64-column panels a tile)."""
+    rng = np.random.default_rng(t)
+    qkv = _rand(rng, dtype, 1, t, 3 * heads * hd, scale=2.0)
+    _check(port_attn.vit_attention, port_attn.vit_attention_ref, (qkv, heads), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [5, 129, 1370])
+def test_attention_kernel_masks_the_key_tail_at_vit_l_width(cuda, dtype, t):
+    rng = np.random.default_rng(t)
+    heads, hd = 16, 64
+    d = heads * hd
+    shift = np.concatenate([np.full(d, 2.0), np.full(d, -2.0), np.zeros(d)]).astype(np.float32)
+    qkv = _rand(rng, dtype, 2, t, 3 * d) + torch.from_numpy(shift).cuda().to(getattr(torch, dtype))
+    _check(port_attn.vit_attention, port_attn.vit_attention_ref, (qkv, heads), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t", [(1, 37), (2, 1370)], ids=["M37", "M2740"])
+@pytest.mark.parametrize("d", [384, 768, 1024], ids=["vits", "vitb", "vitl"])
+def test_mlp_kernel_vit_widths(cuda, dtype, b, t, d):
+    """K4 at the shipped ViT widths (hidden 4D) and M = 37, 2740: no
+    multiple of the 128-row tile; D = 384 no multiple of 256."""
+    rng = np.random.default_rng(d + t)
+    x = _rand(rng, dtype, b, t, d)
+    g, be = _rand(rng, dtype, d, scale=0.5, shift=1.0), _rand(rng, dtype, d, scale=0.1)
+    w1, b1 = _rand(rng, dtype, 4 * d, d, scale=d ** -0.5), _rand(rng, dtype, 4 * d, scale=0.1)
+    w2, b2 = _rand(rng, dtype, d, 4 * d, scale=(4 * d) ** -0.5), _rand(rng, dtype, d, scale=0.1)
+    _check(port_mlp.vit_mlp, port_mlp.vit_mlp_ref, (x, g, be, w1, b1, w2, b2), dtype)
+
+
+@pytest.mark.cuda
+def test_wgmma_kernels_launch_geometry(cuda):
+    """The bf16 bodies' launches at ViT-L 512^2: the grids the design
+    states, and the card keeps them resident."""
+    att = port_attn.launch_geometry(2, 1370, 16, 64)
+    assert att["grid"] == (11, 16, 2) and att["threads"] == 384 and att["blocks_per_sm"] == 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mlp = port_mlp.launch_geometry(2740, 1024, 4096)
+    assert mlp["threads"] == 384 and mlp["ln_blocks"] == 2740 // 8 + 1
+    for p, n in zip(mlp["products"], (4096, 1024)):
+        assert p["bn"] in (256, 208, 176) and p["tiles"] == 22 * -(-n // p["bn"])
+        assert p["blocks"] == min(sms, p["tiles"]) and p["smem"] <= 232448
+    if sms == 132:  # the H100's count: the second product's 22 x 6 tiles of 176 fill it once
+        assert mlp["products"][1]["bn"] == 176 and mlp["products"][1]["tiles"] == 132
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(1, 5, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):

@@ -4,7 +4,11 @@ hand-written CUDA kernels are held against these plain versions on the card
 in `test_torch_cuda.py`.
 
 Tolerance 1e-5 in f32 on O(1) values: the same arithmetic with sums taken
-in another order.
+in another order.  In bf16, max |port - JAX| <= 1e-2 max |JAX|, the card's
+bf16 tolerance: both round the output to bf16 (2^-8 of it), and they round
+their intermediates at the same points but from f32 values summed in
+another order (and, for attention, the JAX kernel sums the rounded P where
+the port sums the f32 one), so an intermediate may differ by one bf16 ulp.
 """
 import numpy as np
 import pytest
@@ -65,6 +69,76 @@ def test_vit_attention_plain_matches_pallas(rng, heads, hd):
     got = port_attn.vit_attention(torch.from_numpy(qkv), heads).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got, xla, rtol=RTOL, atol=ATOL)
+
+
+def _bf16_close(got, want, rel=1e-2):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert np.isfinite(got).all()
+    err, scale = np.abs(got - want).max(), np.abs(want).max()
+    assert err <= rel * scale, (err, scale)
+
+
+@pytest.mark.parametrize("t", [129, 200])
+def test_vit_attention_plain_matches_pallas_across_tiles(rng, t):
+    """T past one and two 128-key tiles of the card's kernel (heads 2, hd 64)."""
+    from stereoanywhere_tpu.ops.pallas.vit_attention import vit_attention
+
+    heads, hd = 2, 64
+    qkv = rng.standard_normal((1, t, 3 * heads * hd)).astype(np.float32)
+    want = np.asarray(vit_attention(jnp.asarray(qkv), heads, interpret=True))
+    got = port_attn.vit_attention(torch.from_numpy(qkv), heads).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_vit_attention_plain_matches_pallas_bf16(rng):
+    from stereoanywhere_tpu.ops.pallas.vit_attention import vit_attention
+
+    heads, hd, t = 2, 64, 200
+    qkv = (2.0 * rng.standard_normal((2, t, 3 * heads * hd))).astype(np.float32)
+    want = vit_attention(jnp.asarray(qkv, jnp.bfloat16), heads, interpret=True)
+    got = port_attn.vit_attention(torch.from_numpy(qkv).bfloat16(), heads)
+    assert got.dtype == torch.bfloat16
+    _bf16_close(got.float().numpy(), want.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vit_mlp_plain_matches_pallas_vit_s(rng, dtype):
+    """ViT-S widths (D 384, hidden 1536; 384 is no multiple of the card's
+    128-column tile), T = 37 ragged."""
+    from stereoanywhere_tpu.ops.pallas.vit_mlp import vit_mlp
+
+    x, g, be, w1, b1 = _inputs(rng, 1, 37, 384, 1536)
+    w2 = (rng.standard_normal((384, 1536)) / np.sqrt(1536)).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal(384)).astype(np.float32)
+    args = (x, g, be, w1, b1, w2, b2)
+    if dtype == "float32":
+        want = np.asarray(vit_mlp(x, g, be, w1.T, b1, w2.T, b2, block_t=16, interpret=True))
+        got = port_mlp.vit_mlp(*_t(*args)).numpy()
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        return
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (x, g, be, w1.T, b1, w2.T, b2)]
+    want = vit_mlp(*jb, block_t=16, interpret=True)
+    got = port_mlp.vit_mlp(*[a.bfloat16() for a in _t(*args)])
+    assert got.dtype == torch.bfloat16
+    _bf16_close(got.float().numpy(), want.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [384, 1024])
+def test_layer_norm_rows_plain_matches_flax(rng, dtype, d):
+    """The bf16 MLP body's LayerNorm pass: flax LayerNorm(epsilon=1e-6) in
+    f32; rounded to bf16, within one bf16 ulp (2^-8 relative) of it."""
+    import flax.linen as nn
+
+    x, g, be, _, _ = _inputs(rng, 2, 37, d, 8)
+    ln = nn.LayerNorm(epsilon=1e-6)
+    want = np.asarray(ln.apply({"params": {"scale": g, "bias": be}}, x))
+    got = port_mlp.layer_norm_rows_ref(*_t(x, g, be), 1e-6, getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0 ** -8, atol=1e-6)
 
 
 def test_vit_mlp_plain_matches_pallas(rng):
