@@ -1,26 +1,36 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # the smoke run below
+    python3 chip_smoke.py --tiles        # K9's tile candidates, each forced, timed
+    python3 chip_smoke.py --ab OTHER     # K1 and K9 of this checkout and OTHER, in turns
 
-Phases (any failure exits non-zero before the result line):
+Phases of the smoke run (any failure exits non-zero before the result line):
 1. build the hand-written kernels from `stereoanywhere_tpu_torch/csrc/`
    (one nvcc per source, in parallel);
-   The wgmma + TMA libraries (K2, K4) must show HGMMA and UTMALDG in their
+   The wgmma + TMA libraries (K1 and K3's `vit_dense`, K2, K4, and the
+   step kernels' `step_fused` for K9) must show HGMMA and UTMALDG in their
    SASS (`cuobjdump -sass`), counted and printed;
 2. kernels: each of K1-K4 at the shapes of the ViT-L 512^2 and 375x1242
    requests (T = 1370 and 4552 tokens a view), in bf16 and f32, against its
-   plain PyTorch version on the card (TF32 off), timed with CUDA events
-   beside one PyTorch call for the same function where one exists, with
-   its TFLOP/s; K2's bound also counts its exponentials against the SFU;
+   plain PyTorch version on the card (TF32 off), timed beside one PyTorch
+   call for the same function where one exists, with its TFLOP/s (every
+   `ms` is CUDA-event time over 20 calls back to back; beside a kernel's
+   are its `device_ms`, from torch.profiler, the union of the device's
+   kernel intervals over 20 such calls, which leaves out the gaps while
+   the host prepares the next call, and its `host_ms`, the host's least
+   time to issue a call); K2's bound also counts its exponentials against the SFU;
    K2 also on inputs where only the mask of the ragged key tail keeps it
-   right; the launch geometry (grid, waves) of K2's and K4's bf16 bodies;
+   right; the launch geometry (grid, waves) of K1's, K2's and K4's bf16
+   bodies;
    then the refinement-step kernels (K5 dual lookup, K7 flow head, K8
    motion encoder, K9 ConvGRU at its three scales, and K9 behind the K6
    interface) at the quarter-resolution planes of the same requests, in
    both dtypes, against their plain versions, also on inputs where only
    the zero padding keeps them right, timed beside the port's unfused
    modules for the same function (cuDNN convolutions, the plain lookup);
+   K9's time, TFLOP/s and bound per scale and plane, and its launch
+   geometry (tile, pixel patch, grid) per scale and plane;
 3. pipelines: DAv2 ViT-L + StereoAnywhere (bf16, 32 GRU iterations,
    seeded random weights) behind `serve_http` on 127.0.0.1, answering two
    512x512 pairs and two 375x1242 pairs, first in the default
@@ -36,6 +46,20 @@ Phases (any failure exits non-zero before the result line):
    and the fused pipeline against the default one on the card.
 It prints a `{"kernels": [...]}` line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
+
+--tiles: K9's bf16 body at each scale of both planes with each of its four
+tile candidates forced on both launches (a diagnostic entry point of the
+library), checked against the plain version and timed in device ms, its
+z/r and q launches apart: the readings `pick_plan`'s cost model is fitted
+to.
+
+--ab OTHER: K1's and K9's bf16 bodies (and K9 behind the K6 interface) of
+this checkout and of OTHER, another checkout of the repository (for
+instance an earlier commit unpacked with `git archive <commit> | tar -x -C
+build/other`), on the inputs above.  Each checkout runs in a process of
+its own, in the order OTHER, this, this, OTHER, so that drift of the card
+hits both alike; a run builds its checkout's `vit_dense` and `step_fused`
+and prints, a kernel and shape, CUDA-event ms, device ms and host ms.
 """
 from __future__ import annotations
 
@@ -47,6 +71,7 @@ import sys
 import threading
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -96,6 +121,62 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 20, rounds: int = 5) -> float:
+    """Host time to issue one call of fn: the least over `rounds` rounds of
+    `iters` calls back to back, not waiting for the device (its launch
+    queue holds them), so that the shared host's interruptions drop out."""
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best * 1e3 / iters
+
+
+def device_profile(fn, iters: int = 20, warmup: int = 3) -> tuple[float, dict] | None:
+    """Device time a call of fn, from torch.profiler over `iters` calls
+    back to back: the busy time (union of the device's kernel intervals,
+    so the gaps while the host prepares the next call do not count) and
+    each kernel name's summed duration, both in ms over iters.  None if no
+    try of three saw a whole trace: the profiler now and then returns no
+    device events, or drops some (a call launches the same kernels each
+    time, so their count must be a multiple of iters)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events and len(events) % iters == 0:
+            break
+    else:
+        return None
+    by_name = defaultdict(float)
+    for e in events:
+        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / iters
+    return busy_us([(e.time_range.start, e.time_range.end) for e in events]) / 1e3 / iters, dict(by_name)
+
+
+def device_ms(fn) -> float | None:
+    """device_profile's busy time; None where the profiler saw nothing."""
+    got = device_profile(fn)
+    return None if got is None else got[0]
+
+
+def fmt(ms: float | None, flops: float | None = None, none: str = "not measured") -> str:
+    """ms to 4 places, with its TFLOP/s when flops is given; `none` for
+    None."""
+    if ms is None:
+        return none
+    return f"{ms:.4f}" + (f" ({flops / ms / 1e9:.1f} TFLOP/s)" if flops else "")
 
 
 def nbytes(*ts) -> int:
@@ -209,7 +290,7 @@ def sass_counts(paths: dict) -> None:
     """HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS of the
     libraries whose bf16 bodies are built on them; each must be there."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in ("vit_attention", "vit_mlp"):
+    for name in ("vit_dense", "vit_attention", "vit_mlp", "step_fused"):
         sass = subprocess.run([cuobjdump, "-sass", str(paths[name])], capture_output=True, text=True,
                               check=True).stdout
         counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
@@ -234,6 +315,8 @@ def kernel_phase() -> dict:
                 err, scale = check(f"{name} ({dtype}, T={t})", got, ref(*args), dtype)
                 row = dict(
                     ms=cuda_ms(lambda: fn(*args)),
+                    device_ms=device_ms(lambda: fn(*args)),
+                    host_ms=host_ms(lambda: fn(*args)),
                     plain_ms=cuda_ms(lambda: ref(*args)),
                     library_ms=cuda_ms(lib) if lib is not None else None,
                     cublas_product_ms=cuda_ms(product) if product is not None else None,
@@ -244,11 +327,11 @@ def kernel_phase() -> dict:
                 if name == "vit_attention":  # one exponential a score
                     row["bound_ms"], row["bound_by"], term = attention_bound_ms(
                         flops, 2 * VIT_L["heads"] * t * t, moved, dtype)
-                row["tflops"] = flops / row["ms"] / 1e9
                 print(f"kernel {name} {str(dtype)[6:]} T={t}: max_abs_err {err:.3e} (max|plain| {scale:.3e}, "
-                      f"tol {REL_TOL[dtype]:.0e} rel) ms {row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s) "
-                      f"plain_ms {row['plain_ms']:.4f} library_ms {row['library_ms']} "
-                      f"cublas_product_ms {row['cublas_product_ms']} bound_ms {row['bound_ms']:.4f} ({term})",
+                      f"tol {REL_TOL[dtype]:.0e} rel) ms {fmt(row['ms'], flops)} device_ms "
+                      f"{fmt(row['device_ms'], flops)} host_ms {row['host_ms']:.4f} "
+                      f"plain_ms {row['plain_ms']:.4f} library_ms {fmt(row['library_ms'], none='none')} "
+                      f"cublas_product_ms {fmt(row['cublas_product_ms'], none='none')} bound_ms {row['bound_ms']:.4f} ({term})",
                       flush=True)
                 if dtype == torch.bfloat16 and t == t512:
                     records[name] = row
@@ -275,6 +358,11 @@ def launch_geometry(*token_counts: int) -> None:
         print(f"geometry vit_attention T={t}: grid {a['grid']} = {blocks} blocks of {a['threads']} threads, "
               f"{a['smem']} B shared, {a['blocks_per_sm']} resident an SM: "
               f"{blocks / (sms * a['blocks_per_sm']):.2f} waves on {sms} SMs", flush=True)
+        k1 = vit_dense.launch_geometry(2 * t, 3 * d)
+        print(f"geometry ln_dense T={t}: 128x{k1['bn']} tiles, {k1['tiles']} of them on a persistent grid of "
+              f"{k1['blocks']} blocks ({k1['threads']} threads, {k1['smem']} B shared, one an SM): "
+              f"{k1['tiles'] / sms:.2f} waves of tiles; LN pass {k1['ln_blocks']} blocks of {k1['ln_threads']}",
+              flush=True)
         m = vit_mlp.launch_geometry(2 * t, d, hidden)
         for i, p in enumerate(m["products"], 1):
             print(f"geometry vit_mlp T={t} product {i}: 128x{p['bn']} tiles, {p['tiles']} of them on a persistent "
@@ -404,6 +492,72 @@ def step_cases(dtype, h4: int, w4: int, g: torch.Generator, border: bool):
     return cases
 
 
+GRU_TILES = ("128x256", "128x128", "64x128", "64x64")
+
+
+def forced_tile_call(args, tile: int):
+    """A call of K9's bf16 body with tile candidate `tile` (1..4, GRU_TILES)
+    forced on both launches, through the library's diagnostic entry point
+    (no launch count), and the tensor it writes h' into."""
+    h, xs, czrq, w = args
+    hd, cs = h.shape[-1], [x.shape[-1] for x in xs]
+    z, rh, out = (torch.empty_like(h) for _ in range(3))
+    fn = build.bind("step_fused", "sa_conv_gru_forced_tile", 13, 8)
+    ptrs = (h.data_ptr(), xs[0].data_ptr(), xs[1].data_ptr() if len(xs) == 2 else None, czrq.data_ptr(),
+            czrq[..., hd:].data_ptr(), czrq[..., 2 * hd:].data_ptr(), w.w_zr.data_ptr(), w.b_zr.data_ptr(),
+            w.w_q.data_ptr(), w.b_q.data_ptr(), z.data_ptr(), rh.data_ptr(), out.data_ptr())
+    ints = (*h.shape, cs[0], cs[1] if len(cs) == 2 else 0, 3 * hd, tile)
+
+    def call():
+        build.check_status("step_fused", f"conv_gru with tile {GRU_TILES[tile - 1]}",
+                           fn(*ptrs, *ints, build.current_stream()))
+    return call, out
+
+
+def tiles_main() -> int:
+    """K9's bf16 body at each scale of both planes with each tile candidate
+    forced on both launches: checked against the plain version, then device
+    ms a call and of its z/r and q launches (kernel template arguments
+    <BM, BN, epilogue>: 1 z/r, 2 q)."""
+    build.build(("step_fused",))
+    g = torch.Generator().manual_seed(1)
+    for plane, (h4, w4) in STEP_PLANES.items():
+        for name, _, ref, args, *_ in step_cases(torch.bfloat16, h4, w4, g, border=False):
+            if not name.startswith("conv_gru/"):
+                continue
+            want, parts = ref(*args), []
+            for tile, label in enumerate(GRU_TILES, 1):
+                call, out = forced_tile_call(args, tile)
+                call()
+                torch.cuda.synchronize()
+                check(f"{name} {plane} tile {label}", out, want, torch.bfloat16)
+                got = device_profile(call)
+                if got is None:
+                    parts.append(f"{label} not measured (no whole trace from the profiler)")
+                    continue
+                busy, by_name = got
+                zr = sum(v for k, v in by_name.items() if "conv_wgmma_kernel" in k and re.search(r",\s*1>", k))
+                q = sum(v for k, v in by_name.items() if "conv_wgmma_kernel" in k and re.search(r",\s*2>", k))
+                parts.append(f"{label} {busy:.4f} (z/r {zr:.4f}, q {q:.4f})")
+            print(f"tiles {name} {plane}, device ms a call: " + "; ".join(parts), flush=True)
+    step_geometry()
+    print(card_line())
+    return 0
+
+
+def step_geometry() -> None:
+    """K9's bf16 launches (z/r, then q) at each scale of both planes (B = 1)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for plane, (h4, w4) in STEP_PLANES.items():
+        for scale in (1, 2, 4):
+            hh, ww = h4 // scale, w4 // scale
+            for what, g in zip(("z/r", "q"), step_fused.launch_geometry(1, hh, ww)):
+                print(f"geometry conv_gru/{8 * scale:02d} {plane} ({hh}x{ww}) {what}: {g['bm']}x{g['bn']} tiles of "
+                      f"{g['bw']}x{g['bh']}-pixel patches, {g['tiles']} of them on a persistent grid of {g['blocks']} "
+                      f"blocks ({g['threads']} threads, {g['stages']} stages, {g['smem']} B shared): "
+                      f"{g['tiles'] / sms:.2f} waves of tiles", flush=True)
+
+
 def step_kernel_phase() -> dict:
     """Check and time K5, K7, K8 and K9 (and the K6 interface) against
     their plain versions and the unfused modules.  Returns the records of
@@ -428,26 +582,32 @@ def step_kernel_phase() -> dict:
                         print(f"{what} border case: max_abs_err {err:.3e} (max|plain| {scale:.3e}, "
                               f"tol {REL_TOL[dtype]:.0e} rel)", flush=True)
                         continue
-                    row = dict(ms=cuda_ms(lambda: fn(*args)), plain_ms=cuda_ms(lambda: ref(*args)),
+                    row = dict(ms=cuda_ms(lambda: fn(*args)), device_ms=device_ms(lambda: fn(*args)),
+                               host_ms=host_ms(lambda: fn(*args)), plain_ms=cuda_ms(lambda: ref(*args)),
                                unfused_ms=cuda_ms(unfused) if unfused is not None else None,
                                library_ms=None, max_abs_err=err)
                     if row["unfused_ms"] is None:  # the unfused path's lookup is the plain version
                         row["unfused_ms"] = row["plain_ms"]
                     row["bound_ms"], row["bound_by"] = bound_ms(flops, moved, op_dtype)
                     print(f"{what}: max_abs_err {err:.3e} (max|plain| {scale:.3e}, tol {REL_TOL[dtype]:.0e} rel) "
-                          f"ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} unfused_ms {row['unfused_ms']:.4f} "
+                          f"ms {fmt(row['ms'], flops)} device_ms {fmt(row['device_ms'], flops)} "
+                          f"host_ms {row['host_ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+                          f"unfused_ms {row['unfused_ms']:.4f} "
                           f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}; {flops / 1e9:.3f} GFLOP, "
                           f"{moved / 1e6:.2f} MB)", flush=True)
                     if dtype == torch.bfloat16 and plane == "512x512":
                         key = name.split("/")[0]
                         if key in records:  # conv_gru: sum the scales
                             prev = records[key]
-                            for k in ("ms", "plain_ms", "unfused_ms", "bound_ms"):
+                            for k in ("ms", "host_ms", "plain_ms", "unfused_ms", "bound_ms"):
                                 prev[k] += row[k]
+                            prev["device_ms"] = (None if None in (prev["device_ms"], row["device_ms"])
+                                                 else prev["device_ms"] + row["device_ms"])
                             prev["max_abs_err"] = max(prev["max_abs_err"], err)
                         else:
                             records[key] = row
     records.pop("gru_fused (K6 interface)")
+    step_geometry()
     return records
 
 
@@ -493,7 +653,7 @@ SPLIT_ROUNDS = 10
 # kernel name -> family, first match wins
 FAMILIES = (
     ("ViT K1-K4", r"gemm_kernel_bf16|gemm_kernel_f32|attn_kernel|wgmma_gemm_kernel|ln_rows_kernel"),
-    ("step K5/K7-K9", r"conv_kernel_|dual_lookup_kernel|flow_delta_kernel|motion_c1f1_kernel"),
+    ("step K5/K7-K9", r"conv_kernel_|conv_wgmma_kernel|dual_lookup_kernel|flow_delta_kernel|motion_c1f1_kernel"),
     ("convolution", r"conv|cudnn|implicit|winograd|fprop|dgrad|nhwc|nchw"),
     ("matmul", r"gemm|cutlass|cublas|sm90_xmma|ampere_"),
     ("reduction / softmax", r"reduce|softmax|norm"),
@@ -671,9 +831,85 @@ def compare_phase() -> None:
         raise AssertionError(f"the fused pipeline disagrees with the default one on the card: {err}")
 
 
+def ab_rows() -> list[dict]:
+    """One --ab run over the package this process imported: K1 at both token
+    counts, K9 at each scale and the K6 interface on both planes, bf16."""
+    pkg = Path(stereoanywhere_tpu_torch.__file__).resolve().parents[1]
+    if pkg != Path.cwd().resolve():
+        raise RuntimeError(f"imported the package of {pkg}, not that of the checkout {Path.cwd()}")
+    build.build(("vit_dense", "step_fused"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, rows = torch.bfloat16, []
+
+    def measure(name, shape, fn, ref, args, flops):
+        got = fn(*args)
+        torch.cuda.synchronize()
+        err, _ = check(f"{name} {shape}", got, ref(*args), bf16)
+        rows.append(dict(kernel=name, shape=shape, ms=cuda_ms(lambda: fn(*args)),
+                         device_ms=device_ms(lambda: fn(*args)), host_ms=host_ms(lambda: fn(*args)),
+                         flops=flops, max_abs_err=err))
+
+    g = torch.Generator().manual_seed(0)
+    for t in (tokens_of(512, 512), tokens_of(*KITTI)):
+        for name, fn, ref, _, args, flops, *_ in kernel_cases(bf16, t, g):
+            if name == "ln_dense":
+                measure(name, f"T={t}", fn, ref, args, flops)
+    g = torch.Generator().manual_seed(1)
+    for plane, (h4, w4) in STEP_PLANES.items():
+        for name, fn, ref, args, flops, *_ in step_cases(bf16, h4, w4, g, border=False):
+            if name.startswith(("conv_gru/", "gru_fused")):
+                measure(name, plane, fn, ref, args, flops)
+    return rows
+
+
+def ab_main(other: Path) -> int:
+    """--ab: this checkout's and other's K1 and K9, in turns, each run in a
+    process of its own whose working directory (first on its import path)
+    is the checkout, running this file's code."""
+    runs: dict[str, list[list[dict]]] = {"other": [], "this": []}
+    here = Path(__file__).resolve()
+    code = ("import runpy, sys; sys.argv = [sys.argv[1], '--ab-run']; "
+            "runpy.run_path(sys.argv[0], run_name='__main__')")
+    for label, root in (("other", other), ("this", here.parent), ("this", here.parent), ("other", other)):
+        out = subprocess.run([sys.executable, "-c", code, str(here)], cwd=root, capture_output=True, text=True)
+        if out.returncode != 0:
+            print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
+            return 1
+        rows = json.loads(out.stdout.strip().splitlines()[-1])
+        for r in rows:
+            print(f"{label} ({root}) run {len(runs[label]) + 1}: {r['kernel']} {r['shape']}: ms "
+                  f"{fmt(r['ms'], r['flops'])} device_ms {fmt(r['device_ms'], r['flops'])} "
+                  f"host_ms {r['host_ms']:.4f} max_abs_err {r['max_abs_err']:.3e}", flush=True)
+        runs[label].append(rows)
+    print(card_line())
+    print("CUDA-event ms a call [device ms; host ms], each checkout's two runs:")
+    keys = [(r["kernel"], r["shape"]) for r in runs["this"][0]]
+    for i, (kernel, shape) in enumerate(keys):
+        print(f"  {kernel} {shape}: " + "; ".join(f"{lab} " + ", ".join(
+            f"{rows[i]['ms']:.4f} [{fmt(rows[i]['device_ms'])}; {rows[i]['host_ms']:.4f}]" for rows in runs[lab])
+            for lab in runs))
+    for shape in sorted({s for k, s in keys if k.startswith("conv_gru/")}):
+        print(f"  conv_gru, three scales summed, {shape}: " + "; ".join(f"{lab} " + ", ".join(
+            f"{sum(r['ms'] for r in rows if r['kernel'].startswith('conv_gru/') and r['shape'] == shape):.4f}"
+            for rows in runs[lab]) for lab in runs))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    args = sys.argv[1:]
+    if args == ["--tiles"]:
+        return tiles_main()
+    if args == ["--ab-run"]:  # one run of --ab, in the checkout this process imported
+        print(json.dumps(ab_rows()))
+        return 0
+    if len(args) == 2 and args[0] == "--ab":
+        return ab_main(Path(args[1]).resolve())
+    if args:
+        print(__doc__, file=sys.stderr)
         return 2
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -699,9 +935,9 @@ def main() -> int:
         # each kernel's launches on the path that runs it
         n = launches[name] if name in VIT_LAUNCHES else fused[name]
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces, launches=n,
-                            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
-                            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
-                            unfused_ms=row.get("unfused_ms")))
+                            max_abs_err=row["max_abs_err"], ms=row["ms"], device_ms=row["device_ms"],
+                            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                            library_ms=row["library_ms"], unfused_ms=row.get("unfused_ms")))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

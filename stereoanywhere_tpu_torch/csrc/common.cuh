@@ -1,16 +1,43 @@
-// Shared helpers of the port's CUDA kernels: dtype conversion, warp sums,
+// Shared helpers of the port's CUDA kernels: dtype conversion, 16-byte
+// loads and stores of 8 values, warp sums,
 // the sm_80+ tensor-core and async-copy primitives (mma.sync, ldmatrix,
-// cp.async) as inline PTX, and the error-string export every library
-// carries.
+// cp.async) as inline PTX, the error-string export every library
+// carries, and the host's one-time shared-memory limit of a kernel.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <mutex>
+#include <utility>
+#include <vector>
+
 // dtype codes passed from Python (ops/cuda/build.py DTYPE_CODES)
 enum SaDtype { SA_F32 = 0, SA_BF16 = 1 };
 
 extern "C" const char* sa_error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
+
+namespace {
+// Raises a kernel's dynamic shared-memory limit to `bytes` on the current
+// device once: the (kernel, device) pairs raised are kept, so later
+// launches skip the runtime call.  In an unnamed namespace, so that each
+// library keeps its own list: a static of an inline function is one object
+// across all the libraries loaded, and a kernel of one library would pass
+// for raised once the same template's kernel of another was.
+inline cudaError_t smem_limit_once(const void* kernel, size_t bytes) {
+  static std::mutex mu;
+  static std::vector<std::pair<const void*, int>> raised;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& r : raised)
+    if (r.first == kernel && r.second == dev) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e == cudaSuccess) raised.emplace_back(kernel, dev);
+  return e;
+}
+}  // namespace
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -18,6 +45,27 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) { return __float2bfloat16(v); }
+
+// 8 consecutive values as f32 (16-byte aligned; bf16 one 16-byte load, f32 two)
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(h[j]);
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+// 8 values rounded to bf16, one 16-byte store (16-byte aligned)
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 u;
+  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16(v[j]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

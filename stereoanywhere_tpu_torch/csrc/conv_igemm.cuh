@@ -1,6 +1,8 @@
-// Stride-1 "same" convolution over NHWC tensors as an implicit GEMM, the
-// body of the refinement-step kernels (K7 flow head, K8 motion encoder, K9
-// ConvGRU; ops/cuda/step_fused.py).
+// Stride-1 "same" convolution over NHWC tensors as an implicit GEMM on
+// mma.sync (bf16) or FMA (f32) tiles, the body of K7 flow head and K8
+// motion encoder in both dtypes and of K9 ConvGRU in f32
+// (ops/cuda/step_fused.py).  K9's bf16 body, the one the fused loop runs,
+// is conv_wgmma.cuh's TMA + wgmma core; K7 and K8 are to move onto it.
 //
 //   C[m, n] = epilogue( sum_k A[m, k] W[n, k] ),  m = (b, y, x) pixel,
 //   k = (tap, input channel),  A[m, (tap, c)] = in[b, y + dy, x + dx, c]
@@ -18,7 +20,8 @@
 // straddles two segments or taps) and every segment is 16-byte aligned.
 //
 // Two bodies, picked by T:
-// - bf16 (the deployed type): tensor cores through mma.sync m16n8k16 with
+// - bf16 (the deployed type; not built for the GRU epilogues, which
+//   conv_wgmma.cuh serves): tensor cores through mma.sync m16n8k16 with
 //   f32 accumulators; a 128 x BN output tile per 256-thread block (BN 128:
 //   warps 2 x 4 of 64 x 32; BN 64: warps 4 x 2 of 32 x 32); K in steps of 32
 //   through a 3-stage cp.async ring; fragments by ldmatrix.
@@ -369,6 +372,8 @@ cudaError_t launch(const Args& a, int dtype, cudaStream_t stream) {
     conv_kernel_f32<EPI><<<grid, f32::THREADS, 0, stream>>>(a);
     return cudaGetLastError();
   }
+  // bf16 ConvGRU runs on conv_wgmma.cuh
+  if constexpr (EPI == EPI_GRU_ZR || EPI == EPI_GRU_Q) return cudaErrorInvalidValue;
   if (dtype != SA_BF16) return cudaErrorInvalidValue;
   const long long blocks128 = ((M + tc::BM - 1) / tc::BM) * ((a.N + 127) / 128);
   const bool narrow = (a.groups > 1) || (a.N % 64 == 0 && blocks128 < 2 * 132);

@@ -1,26 +1,24 @@
-// One tiled matrix product with a fused prologue and epilogue, the body of
-// the ViT Dense-side kernels (K1 ln_dense, K3 dense_scale_residual, and both
-// halves of K4 vit_mlp).
+// One tiled matrix product with a fused prologue and epilogue: K3
+// dense_scale_residual in both dtypes, and the f32 bodies of K1 ln_dense and
+// of both halves of K4 vit_mlp (their bf16 bodies are gemm_wgmma.cuh's).
 //
 //   C[M, N] = epilogue( prologue(A)[M, K] @ W[N, K]^T )
 //
 // A and C are row-major tokens, W is in torch nn.Linear layout (out, in), so
 // both operands are K-contiguous.  Sums are f32 for both dtypes.
 //
-// Prologue PRO_LAYERNORM: each block first computes two-pass f32 LayerNorm
-// statistics of its rows (one warp per row at a time), then normalizes every
-// A element as it stages the tile into shared memory and rounds it to T, the
-// rounding the TPU kernel applies before its product.
+// Prologue PRO_LAYERNORM (f32 only): each block first computes two-pass
+// LayerNorm statistics of its rows (one warp per row at a time), then
+// normalizes every A element as it stages the tile into shared memory.
 // Epilogues: + bias; + bias then exact-erf gelu; + bias then
 // resid + gamma * y (LayerScale and residual).
 //
 // Two bodies, picked by T:
-// - bf16 (the deployed type): tensor cores through mma.sync m16n8k16 with
-//   f32 accumulators.  128x128 output tile per 256-thread block (8 warps,
-//   2 x 4, each 64x32 = 4 x 4 mma tiles), K in steps of 64 through a ring of
-//   3 shared-memory stages filled by cp.async, so two steps are in flight
-//   while one multiplies; fragments come out with ldmatrix.  LayerNorm is
-//   applied to each A tile in shared memory once it has landed.  The
+// - bf16 (K3, the deployed type): tensor cores through mma.sync m16n8k16
+//   with f32 accumulators.  128x128 output tile per 256-thread block (8
+//   warps, 2 x 4, each 64x32 = 4 x 4 mma tiles), K in steps of 64 through a
+//   ring of 3 shared-memory stages filled by cp.async, so two steps are in
+//   flight while one multiplies; fragments come out with ldmatrix.  The
 //   epilogue works straight from the accumulators.  At most 128 registers a
 //   thread, so two blocks share an SM.  Needs K % 8 == 0 (16-byte rows).
 // - f32: FP32 FMA, 64x64 output tile per 256-thread block, each thread a 4x4
@@ -68,35 +66,20 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* C, const __nv_bfloat16
 }
 
 // Two-pass f32 LayerNorm statistics of rows [m0, m0 + rows), one warp per
-// row at a time; rows past M get (0, 0).  bf16 rows are read 8 values (16
-// bytes) a lane at a time (K % 8 == 0 on that path).
-template <typename T>
-__device__ __forceinline__ void row_stats(const T* A, int M, int K, float eps, int m0, int rows, float* s_mean,
+// row at a time; rows past M get (0, 0).
+__device__ __forceinline__ void row_stats(const float* A, int M, int K, float eps, int m0, int rows, float* s_mean,
                                           float* s_rstd) {
-  constexpr int VEC = std::is_same<T, __nv_bfloat16>::value ? 8 : 1;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
-  auto for_each = [&](const T* row, auto&& f) {
-    for (int k = lane * VEC; k < K; k += 32 * VEC) {
-      if constexpr (VEC == 8) {
-        const uint4 u = *reinterpret_cast<const uint4*>(row + k);
-        const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) f(__bfloat162float(v[j]));
-      } else {
-        f(to_f(row[k]));
-      }
-    }
-  };
   for (int r = warp; r < rows; r += nwarps) {
     const int m = m0 + r;
     float mean = 0.f, rstd = 0.f;
     if (m < M) {
-      const T* row = A + static_cast<size_t>(m) * K;
+      const float* row = A + static_cast<size_t>(m) * K;
       float s = 0.f;
-      for_each(row, [&](float x) { s += x; });
+      for (int k = lane; k < K; k += 32) s += row[k];
       mean = warp_sum(s) / K;
       float v = 0.f;
-      for_each(row, [&](float x) { v += (x - mean) * (x - mean); });
+      for (int k = lane; k < K; k += 32) v += (row[k] - mean) * (row[k] - mean);
       rstd = rsqrtf(warp_sum(v) / K + eps);
     }
     if (lane == 0) {
@@ -189,21 +172,17 @@ constexpr int WM = 64, WN = 32;  // warp tile; warps laid out 2 (M) x 4 (N)
 constexpr int MI = WM / 16, NI = WN / 8;       // m16n8k16 tiles of a warp: 4 x 4
 constexpr int CHUNKS = BM * BK / 8 / THREADS;  // 16-byte copies per thread per operand tile (4)
 constexpr int TILE = BM * LD;                  // one operand tile, in bf16 (BM == BN)
-constexpr size_t SMEM_BYTES = STAGES * 2 * static_cast<size_t>(TILE) * sizeof(__nv_bfloat16)  // A, W per stage
-                              + 2 * BM * sizeof(float);                                     // LN statistics
+constexpr size_t SMEM_BYTES = STAGES * 2 * static_cast<size_t>(TILE) * sizeof(__nv_bfloat16);  // A, W per stage
 }  // namespace tc
 
-template <int PRO, int EPI>
+template <int EPI>
 __global__ void __launch_bounds__(tc::THREADS, 2) gemm_kernel_bf16(
     const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
-    const __nv_bfloat16* __restrict__ bias, const __nv_bfloat16* __restrict__ ln_g,
-    const __nv_bfloat16* __restrict__ ln_b, float eps, const __nv_bfloat16* __restrict__ resid,
+    const __nv_bfloat16* __restrict__ bias, const __nv_bfloat16* __restrict__ resid,
     const __nv_bfloat16* __restrict__ gamma, __nv_bfloat16* __restrict__ C, int M, int K, int N) {
   using namespace tc;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   auto* tiles = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // stage s: A at 2s * TILE, W at (2s + 1) * TILE
-  float* s_mean = reinterpret_cast<float*>(tiles + STAGES * 2 * TILE);
-  float* s_rstd = s_mean + BM;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp / 4, wn = warp % 4;
@@ -212,11 +191,6 @@ __global__ void __launch_bounds__(tc::THREADS, 2) gemm_kernel_bf16(
   const int b_row = lane % 8 + (lane / 16) * 8, b_col = ((lane / 8) % 2) * 8;  // ldmatrix lanes, B operand
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int nk = (K + BK - 1) / BK;
-
-  if (PRO == PRO_LAYERNORM) {
-    row_stats(A, M, K, eps, m0, BM, s_mean, s_rstd);
-    __syncthreads();
-  }
 
   // copy c of a tile: row c / (BK / 8), columns (c % (BK / 8)) * 8 .. +8; rows past M / N
   // and columns past K are zero-filled (K % 8 == 0, so a copy is all in or out)
@@ -246,28 +220,8 @@ __global__ void __launch_bounds__(tc::THREADS, 2) gemm_kernel_bf16(
   for (int kt = 0; kt < nk; ++kt) {
     cp_async_wait<STAGES - 2>();  // the group of k-step kt has landed
     __syncthreads();              // ... for every thread, and step kt - 1's stage is free
-    __nv_bfloat16* As = tiles + (kt % STAGES) * 2 * TILE;
+    const __nv_bfloat16* As = tiles + (kt % STAGES) * 2 * TILE;
     const __nv_bfloat16* Ws = As + TILE;
-    if (PRO == PRO_LAYERNORM) {  // normalize the landed A tile in place, rounding to bf16
-#pragma unroll
-      for (int i = 0; i < CHUNKS; ++i) {
-        const int c = tid + i * THREADS, r = c / (BK / 8), kc = (c % (BK / 8)) * 8, k = kt * BK + kc;
-        if (m0 + r >= M || k >= K) continue;
-        uint4* p = reinterpret_cast<uint4*>(As + r * LD + kc);
-        uint4 a = *p;
-        const uint4 gu = *reinterpret_cast<const uint4*>(ln_g + k), bu = *reinterpret_cast<const uint4*>(ln_b + k);
-        const __nv_bfloat16* gv = reinterpret_cast<const __nv_bfloat16*>(&gu);
-        const __nv_bfloat16* bv = reinterpret_cast<const __nv_bfloat16*>(&bu);
-        __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&a);
-        const float mu = s_mean[r], rs = s_rstd[r];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v[j] = __float2bfloat16((__bfloat162float(v[j]) - mu) * rs * __bfloat162float(gv[j]) +
-                                  __bfloat162float(bv[j]));
-        *p = a;
-      }
-      __syncthreads();
-    }
     issue(kt + STAGES - 1);  // refill the stage step kt - 1 used
 
     const __nv_bfloat16* a_tile = As + (wm * WM) * LD;
@@ -319,16 +273,15 @@ cudaError_t launch_gemm(const void* A, const void* W, const void* bias, const vo
                         float eps, const void* resid, const void* gamma, void* C, int M, int K, int N,
                         cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    static_assert(PRO == PRO_NONE, "the bf16 tile has no prologue: LayerNorm runs in ln_rows.cuh");
     if (K % 8 != 0) return cudaErrorInvalidValue;
-    auto kernel = gemm_kernel_bf16<PRO, EPI>;
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(tc::SMEM_BYTES));
+    auto kernel = gemm_kernel_bf16<EPI>;
+    cudaError_t e = smem_limit_once(reinterpret_cast<const void*>(kernel), tc::SMEM_BYTES);
     if (e != cudaSuccess) return e;
     const dim3 grid((N + tc::BN - 1) / tc::BN, (M + tc::BM - 1) / tc::BM);
     kernel<<<grid, tc::THREADS, tc::SMEM_BYTES, stream>>>(
         static_cast<const T*>(A), static_cast<const T*>(W), static_cast<const T*>(bias),
-        static_cast<const T*>(ln_g), static_cast<const T*>(ln_b), eps, static_cast<const T*>(resid),
-        static_cast<const T*>(gamma), static_cast<T*>(C), M, K, N);
+        static_cast<const T*>(resid), static_cast<const T*>(gamma), static_cast<T*>(C), M, K, N);
   } else {
     const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
     gemm_kernel_f32<PRO, EPI><<<grid, kThreads, 0, stream>>>(

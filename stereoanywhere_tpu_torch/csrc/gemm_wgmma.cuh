@@ -1,6 +1,8 @@
-// The bf16 matrix product on Hopper's TMA and wgmma, the body of K4
-// vit_mlp's two products (K1, K3 and the conv tiles still use
-// gemm_tile.cuh's mma.sync tile).
+// The bf16 matrix product on Hopper's TMA and wgmma: K1 ln_dense's product
+// (after ln_rows.cuh's row pass) and K4 vit_mlp's two.  K3 and the f32
+// bodies still use gemm_tile.cuh's tiles; the convolutions have their own
+// wgmma core (conv_wgmma.cuh, K9) or gemm_tile-style mma.sync tiles
+// (conv_igemm.cuh, K7 and K8).
 //
 //   C[M, N] = epilogue( A[M, K] @ W[N, K]^T )
 //
@@ -182,15 +184,7 @@ __global__ void __launch_bounds__(THREADS, 1) wgmma_gemm_kernel(const __grid_con
   }
 }
 
-inline int sm_count() {
-  static const int n = [] {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return sms > 0 ? sms : 1;
-  }();
-  return n;
-}
+using sm90::sm_count;
 
 inline int tile_count(int M, int N, int bn) { return ((M + BM - 1) / BM) * ((N + bn - 1) / bn); }
 inline int grid_size(int M, int N, int bn) { return std::min(tile_count(M, N, bn), sm_count()); }
@@ -205,10 +199,23 @@ inline int pick_bn(int M, int N) {
   return best;
 }
 
+inline size_t smem_of(int bn) {
+  return bn == 256 ? Tile<256>::SMEM : bn == 208 ? Tile<208>::SMEM : Tile<176>::SMEM;
+}
+
+// One product's launch geometry at (M, N): out[0..3] = tile width BN, tiles,
+// blocks (the persistent grid, one block an SM), dynamic shared memory in bytes
+inline void geometry(int M, int N, int* out) {
+  const int bn = pick_bn(M, N);
+  out[0] = bn;
+  out[1] = tile_count(M, N, bn);
+  out[2] = grid_size(M, N, bn);
+  out[3] = static_cast<int>(smem_of(bn));
+}
+
 template <int BN, int EPI>
 cudaError_t set_smem_limit() {
-  return cudaFuncSetAttribute(wgmma_gemm_kernel<BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(Tile<BN>::SMEM));
+  return smem_limit_once(reinterpret_cast<const void*>(wgmma_gemm_kernel<BN, EPI>), Tile<BN>::SMEM);
 }
 
 template <int BN, int EPI>

@@ -1,9 +1,10 @@
-// Hopper (sm_90a) primitives of the port's wgmma + TMA kernels (K2's and
-// K4's bf16 bodies), as inline PTX: mbarriers, TMA tile loads, wgmma
+// Hopper (sm_90a) primitives of the port's wgmma + TMA kernels (the bf16
+// bodies of K1, K2, K4 and K9), as inline PTX: mbarriers, TMA tile loads, wgmma
 // shared-memory descriptors and the wgmma shapes the kernels issue,
 // named barriers and setmaxnreg; and, on the host, the TMA tensor-map
 // encoder (cuTensorMapEncodeTiled), fetched through the runtime's
-// entry-point query so that no library beyond the CUDA runtime is linked.
+// entry-point query so that no library beyond the CUDA runtime is linked,
+// with a cache of the maps it encoded.
 //
 // Shared-memory tiles are what a TMA load with 128-byte swizzle writes:
 // rows of 64 bf16 (128 bytes), 8-row groups of 1024 bytes, each 16-byte
@@ -13,6 +14,9 @@
 
 #include <cuda.h>
 #include <stdint.h>
+
+#include <cstring>
+#include <mutex>
 
 #include "common.cuh"
 
@@ -61,6 +65,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       :
       : "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n"
+      :
+      : "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -116,8 +130,9 @@ __device__ __forceinline__ void fence_regs(unsigned (&r)[N][4]) {
 }
 
 // d (64 x N, f32) += A (64 x 16) B^T (B: N x 16), both from shared memory,
-// K-major; scale_d 0 ignores d's old value.  N = 128 (K2's scores) and the
-// widths of K4's product tiles.
+// K-major; scale_d 0 ignores d's old value.  N = 128 (K2's scores), the
+// widths of the product tiles (gemm_wgmma.cuh) and of the conv tiles
+// (conv_wgmma.cuh: 64, 128, 256).
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -135,6 +150,20 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -223,10 +252,12 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// K4's tile widths by N
+// the product and conv tiles' widths by N
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  static_assert(N == 176 || N == 208 || N == 256, "wgmma_ss: no wrapper for this N");
+  static_assert(N == 64 || N == 128 || N == 176 || N == 208 || N == 256, "wgmma_ss: no wrapper for this N");
+  if constexpr (N == 64) wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 128) wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
   if constexpr (N == 176) wgmma_m64n176k16_ss(d, desc_a, desc_b, scale_d);
   if constexpr (N == 208) wgmma_m64n208k16_ss(d, desc_a, desc_b, scale_d);
   if constexpr (N == 256) wgmma_m64n256k16_ss(d, desc_a, desc_b, scale_d);
@@ -272,18 +303,74 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// What a map is a function of: base, rank, dims, strides, box (no padding
+// bytes: 8 + 40 + 32 + 20 + 4 = 104)
+struct MapKey {
+  const void* base;
+  cuuint64_t dims[5], strides[4];
+  cuuint32_t box[5];
+  int rank;
+};
+
+// The maps encoded last, keyed by their arguments: the weights' maps, and
+// an activation's whenever the caching allocator hands its address out
+// again, are encoded once and then copied.  Holds more maps than a request
+// encodes distinct ones (the ViT-L's 72 weight maps and the step kernels'),
+// replaced in turn.
+struct MapCache {
+  static constexpr int SIZE = 256;
+  std::mutex mu;
+  MapKey keys[SIZE];
+  CUtensorMap maps[SIZE];
+  int used = 0, next = 0;
+};
+
 // A bf16 tensor map of `rank` dims (innermost first, dims[0] contiguous),
 // byte strides of dims 1.., box `box` elements, 128-byte swizzle, zeros
 // outside the tensor.  The box's inner extent must be 64 (one swizzle row).
 inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                                  const cuuint64_t* strides, const cuuint32_t* box) {
+  if (rank < 1 || rank > 5) return cudaErrorInvalidValue;
+  MapKey key;
+  std::memset(&key, 0, sizeof key);
+  key.base = base;
+  key.rank = rank;
+  std::memcpy(key.dims, dims, rank * sizeof(cuuint64_t));
+  std::memcpy(key.strides, strides, (rank - 1) * sizeof(cuuint64_t));
+  std::memcpy(key.box, box, rank * sizeof(cuuint32_t));
+  static MapCache cache;
+  std::lock_guard<std::mutex> lock(cache.mu);
+  for (int i = 0; i < cache.used; ++i)
+    if (cache.keys[i].base == base && std::memcmp(&cache.keys[i], &key, sizeof key) == 0) {
+      *map = cache.maps[i];
+      return cudaSuccess;
+    }
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t ones[3] = {1, 1, 1};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box,
                         ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  int slot = cache.next;
+  if (cache.used < MapCache::SIZE)
+    slot = cache.used++;
+  else
+    cache.next = (cache.next + 1) % MapCache::SIZE;
+  cache.keys[slot] = key;
+  cache.maps[slot] = *map;
+  return cudaSuccess;
+}
+
+// the card's SM count (of the current device, read once)
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms > 0 ? sms : 1;
+  }();
+  return n;
 }
 
 // dynamic shared memory moved up to a 1024-byte boundary of the shared

@@ -5,7 +5,9 @@
 // ops/pallas/gru_fused.py (gru_fused).  Design and bound:
 // ops/cuda/step_fused.py.
 //
-// The convolutions are implicit GEMMs (conv_igemm.cuh).  Two small stages
+// The convolutions are implicit GEMMs: K9's bf16 body on TMA + wgmma
+// (conv_wgmma.cuh), K7, K8 and the f32 bodies on mma.sync / FMA tiles
+// (conv_igemm.cuh).  Two small stages
 // with too few output channels for a tensor-core tile run on the CUDA cores
 // here: the flow head's 256 -> 1 conv (one warp a pixel) and the motion
 // encoder's 1x1 correlation conv plus 7x7 flow conv (one thread an output
@@ -13,24 +15,11 @@
 // encoder's c1/f1 and c2/f2 planes, z and r*h) go through device-memory
 // scratch that the wrapper allocates, rounded to the compute dtype as the
 // slabs are.
-#include "conv_igemm.cuh"
+#include "conv_wgmma.cuh"
 
 using sa::conv::Args;
 
 namespace {
-
-// 8 consecutive values as f32 (16-byte aligned; bf16 one 16-byte load, f32 two)
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(h[j]);
-}
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
 
 // Flow head conv2 (3x3, 256 -> 1; the x output only) + coordinate update:
 // coords'[m] = coords[m] + (sum_{tap, c} fh1[m + tap, c] w2[tap, c] + b2).
@@ -224,6 +213,9 @@ extern "C" int sa_conv_gru(const void* h, const void* x1, const void* x2, const 
                            void* z, void* rh, void* out, int B, int H, int W, int hd, int c1, int c2, int inj_ld,
                            int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == SA_BF16)
+    return sa::cw::launch_gru(h, x1, x2, cz, cr, cq, w_zr, b_zr, w_q, b_q, z, rh, out, B, H, W, hd, c1, c2, inj_ld,
+                              0, s);
   Args a = base_args(B, H, W, 3);
   a.seg[0] = h;
   a.seg_c[0] = hd;
@@ -258,4 +250,30 @@ extern "C" int sa_conv_gru(const void* h, const void* x1, const void* x2, const 
   q.out2 = nullptr;
   q.z = z;
   return sa::conv::launch<sa::conv::EPI_GRU_Q>(q, dtype, s);
+}
+
+// Diagnostic, not a path of the model: K9's bf16 body with tile candidate
+// 1..4 (128x256, 128x128, 64x128, 64x64; sa::cw::pick_plan) forced on both
+// launches, to time the candidates against each other.  Arguments as
+// sa_conv_gru's, bf16 only.
+extern "C" int sa_conv_gru_forced_tile(const void* h, const void* x1, const void* x2, const void* cz,
+                                       const void* cr, const void* cq, const void* w_zr, const void* b_zr,
+                                       const void* w_q, const void* b_q, void* z, void* rh, void* out, int B, int H,
+                                       int W, int hd, int c1, int c2, int inj_ld, int tile, void* stream) {
+  if (tile < 1 || tile > sa::cw::CANDIDATES) return cudaErrorInvalidValue;
+  return sa::cw::launch_gru(h, x1, x2, cz, cr, cq, w_zr, b_zr, w_q, b_q, z, rh, out, B, H, W, hd, c1, c2, inj_ld,
+                            tile, static_cast<cudaStream_t>(stream));
+}
+
+// K9's bf16 launch geometry at one plane: out[9 i .. 9 i + 8] for the z/r
+// (i = 0, N = 2 hd) and q (i = 1, N = hd) launches = tile rows BM, tile width
+// BN, patch width BW and height BH, tiles, blocks (the persistent grid),
+// ring stages, threads, dynamic shared memory in bytes.
+extern "C" int sa_conv_gru_geometry(int B, int H, int W, int hd, int* out) {
+  for (int i = 0; i < 2; ++i) {
+    const sa::cw::Plan p = sa::cw::pick_plan(B, H, W, (2 - i) * hd);
+    const int v[9] = {p.bm, p.bn, p.bw, p.bh, p.tiles, p.blocks, p.stages, p.threads, p.smem};
+    for (int k = 0; k < 9; ++k) out[9 * i + k] = v[k];
+  }
+  return cudaSuccess;
 }

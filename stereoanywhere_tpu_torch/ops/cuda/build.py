@@ -89,9 +89,11 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
 def bind(name: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
     """ctypes function `symbol` of library `name` taking n_ptrs pointers,
-    n_ints ints, n_floats floats and the stream, returning an int status."""
+    n_ints ints, n_floats floats and the stream, returning an int status
+    (bound once, on the first call)."""
     fn = getattr(library(name), symbol)
     fn.argtypes = (
         [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_float] * n_floats + [ctypes.c_void_p]

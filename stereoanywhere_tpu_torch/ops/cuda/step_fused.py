@@ -13,29 +13,42 @@ Replaces the Pallas TPU kernels `stereoanywhere_tpu/ops/pallas/step_fused.py`
 (`_motion_kernel`) and `fused_step_gru` (`_gru_kernel`); `gru_fused` stands
 for `ops/pallas/gru_fused.py` `gru_fused` (`_zr_kernel`, `_q_kernel`), the
 same ConvGRU with one x stream, through the K9 kernel.  Source:
-`csrc/step_fused.cu` (the convolutions in `csrc/conv_igemm.cuh`).
+`csrc/step_fused.cu` (the convolutions in `csrc/conv_wgmma.cuh` and
+`csrc/conv_igemm.cuh`).
 
 Bound on the H100 at the 512^2 request (H4 x W4 = 128 x 128): all three are
 convolutions above the card's ridge in bf16 (K9 at level 0: 43.5 GFLOP for
 32 MB; K8: 11.0 GFLOP for 7.3 MB; K7: 9.7 GFLOP for 4.9 MB; chip_smoke's
-counts), so tensor-core FLOP/s bound them.  The design: every 3x3 (and 7x7) conv is an implicit GEMM on
-`mma.sync` m16n8k16 tiles, the taps nine shifted K-slices whose zero
-padding is a predicated load, the [h, x...] concatenations never built, and
-the gates, blend, ReLUs and the [out | flow-x | 0] lanes applied to the f32
-accumulators.  What the TPU kernels kept in VMEM slabs between their
-stages (fh1, c1/f1, c2/f2, z, r*h) goes through device-memory scratch
-here, so a call is several launches: K7 two (conv1 on the tensor cores,
-then conv2's one output channel and the coordinate update, a warp a
-pixel), K8 three (the 1x1 correlation conv and the 7x7 flow conv on the
-CUDA cores, then convc2/convf2 as one 3-group conv, then the merge conv),
-K9 two (z and r*h, then q and the blend).  Each call counts once.
-`wgmma`/TMA and keeping the slabs on chip are later work.
+counts), so tensor-core FLOP/s bound them.  Every 3x3 (and 7x7) conv is an
+implicit GEMM whose [h, x...] concatenation is never built.
+- K9 in bf16 (the fused loop's type): `csrc/conv_wgmma.cuh`.  A tile is a
+  2-D patch of 128 or 64 pixels of one image, loaded per K-step (tap x
+  input x 64 channels) by one TMA load from a 4-D map over (C, W, H, B):
+  a tap is a coordinate offset and the zero padding is TMA's zero fill, so
+  no thread computes an address.  A producer warpgroup keeps an mbarrier
+  ring full, consumer warpgroups run `wgmma` (128 x 256 or 128 x 128 tiles
+  on the 1/4-resolution plane, 64-row tiles on the small planes so they
+  fill more SMs), the grid is persistent, and the gates and blend work on
+  16-byte pieces of the f32 sums through a padded shared tile.
+- K7, K8, and K9 in f32 (`csrc/conv_igemm.cuh`): `mma.sync` m16n8k16 tiles
+  in bf16, FP32 FMA tiles in f32, the taps nine shifted K-slices whose zero
+  padding is a predicated load, the epilogue applied to each accumulator.
+What the TPU kernels kept in VMEM slabs between their stages (fh1, c1/f1,
+c2/f2, z, r*h) goes through device-memory scratch here, rounded to the
+compute dtype as the slabs are, so a call is several launches: K7 two (conv1
+on the tensor cores, then conv2's one output channel and the coordinate
+update, a warp a pixel), K8 three (the 1x1 correlation conv and the 7x7 flow
+conv on the CUDA cores, then convc2/convf2 as one 3-group conv, then the
+merge conv), K9 two (z and r*h, then q and the blend: q's conv reads r*h of
+neighbouring pixels, which another block computes).  Each call counts once.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from stereoanywhere_tpu_torch.ops.cuda.build import bind, check_operands, check_status, current_stream
+from stereoanywhere_tpu_torch.ops.cuda.build import bind, check_operands, check_status, current_stream, library
 from stereoanywhere_tpu_torch.ops.step_fused import (
     GruWeights,
     HeadWeights,
@@ -101,6 +114,7 @@ def motion_encoder(corr_a: torch.Tensor, corr_b: torch.Tensor, coords: torch.Ten
 
 
 def _gru_launch(what, h, xs, inj, inj_ld, w: GruWeights) -> torch.Tensor:
+    """One call of the ConvGRU library function."""
     code = check_operands(what, h, *xs, w.w_zr, w.w_q)
     b, hh, ww, hd = h.shape
     cs = [x.shape[-1] for x in xs]
@@ -159,3 +173,17 @@ flow_head.launches = 0
 motion_encoder.launches = 0
 conv_gru.launches = 0
 gru_fused.launches = 0
+
+
+def launch_geometry(b: int, h: int, w: int, hd: int = 128) -> list[dict]:
+    """K9's bf16 launches (z/r, then q) on a (B, H, W) plane, as the library
+    computes them: tile rows BM and width BN, the pixel patch BW x BH,
+    tiles, blocks of the persistent grid, ring stages, threads and dynamic
+    shared memory."""
+    fn = library(_LIB).sa_conv_gru_geometry
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 18)()
+    check_status(_LIB, "conv_gru geometry", fn(b, h, w, hd, out))
+    keys = ("bm", "bn", "bw", "bh", "tiles", "blocks", "stages", "threads", "smem")
+    return [dict(zip(keys, out[9 * i:9 * i + 9])) for i in range(2)]

@@ -11,23 +11,32 @@ Replaces the Pallas TPU kernels `stereoanywhere_tpu/ops/pallas/vit_dense.py`
 
 Bound on the H100 at the ViT-L 512^2 request (M = 2 x 1370 tokens): both
 are matrix products well above the card's ridge (K1: 17.2 GFLOP for 29 MB
-moved, K3: 5.75 GFLOP for 19 MB), so tensor-core FLOP/s bound them.  The
-design keeps LayerNorm inside the product's prologue (each block computes
-its rows' f32 statistics, then normalizes each A tile on its way to the
-products) and the bias, LayerScale and residual in its epilogue, so neither
-the normalized activations nor the un-scaled product ever reach device
-memory.  In bf16
-(the deployed type) the product runs on the tensor cores through `mma.sync`
-m16n8k16 (128x128 block tile, 8 warps, K in steps of 64 through a 3-stage
-cp.async ring, LN applied to each A tile in shared memory); in f32 it runs
-as FP32 FMA tiles (64x64, 4x4 per thread), which keep the full f32 product.
-`wgmma`/TMA pipelines are later work.
+moved, K3: 5.75 GFLOP for 19 MB), so tensor-core FLOP/s bound them.  Two
+bodies each, picked by dtype:
+- K1 in bf16 (the deployed type), two launches, the first half of K4's
+  body (`csrc/vit_mlp.cu`) with a bias epilogue: the LayerNorm row pass of
+  `csrc/ln_rows.cuh` writes LN(x) rounded to bf16 into an (M, D) scratch
+  (the TPU kernel's rounding point, so no number changes; 5-6 us of
+  traffic at 512^2 against the product's 17 us bound), then the persistent
+  TMA + `wgmma` product of `csrc/gemm_wgmma.cuh` (128 x BN tiles, BN picked
+  so the tiles spread evenly over the SMs: 256 at 512^2, 264 tiles in two
+  full rounds; 176 at 375x1242) adds the bias, launched as a programmatic
+  dependent of the row pass;
+- K3 in bf16: the `mma.sync` m16n8k16 tile of `csrc/gemm_tile.cuh` (128 x 128,
+  K in steps of 64 through a 3-stage cp.async ring) with the bias,
+  LayerScale and residual in its epilogue;
+- f32 (the check type): FP32 FMA tiles (64x64, 4x4 per thread), which keep
+  the full f32 product; K1 normalises each A tile in its prologue.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from stereoanywhere_tpu_torch.ops.cuda.build import bind, check_depth, check_operands, check_status, current_stream
+from stereoanywhere_tpu_torch.ops.cuda.build import (
+    bind, check_depth, check_operands, check_status, current_stream, library,
+)
 
 _LIB = "vit_dense"
 
@@ -64,10 +73,12 @@ def ln_dense(x, g, b, w, bias, eps: float = 1e-6):
     if w.shape != (f, d) or g.shape != (d,) or b.shape != (d,) or bias.shape != (f,):
         raise ValueError(f"ln_dense: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
     check_depth("ln_dense", x.dtype, d)
+    # LN(x) for the bf16 body's row pass (the f32 body normalises in its prologue)
+    ln = torch.empty_like(x) if x.dtype == torch.bfloat16 else x
     out = torch.empty((bt, t, f), device=x.device, dtype=x.dtype)
-    fn = bind(_LIB, "sa_ln_dense", 6, 4, 1)
-    status = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                bt * t, d, f, code, eps, current_stream())
+    fn = bind(_LIB, "sa_ln_dense", 7, 4, 1)
+    status = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(), bias.data_ptr(), ln.data_ptr(),
+                out.data_ptr(), bt * t, d, f, code, eps, current_stream())
     check_status(_LIB, "ln_dense", status)
     ln_dense.launches += 1
     return out
@@ -93,3 +104,17 @@ def dense_scale_residual(x, o, w, bias, gamma):
 
 ln_dense.launches = 0
 dense_scale_residual.launches = 0
+
+
+def launch_geometry(m: int, f: int) -> dict:
+    """K1's bf16 launches at M tokens and F outputs, as the library computes
+    them: the LN pass's blocks and threads; the product's tile width BN
+    (tiles are 128 x BN), tiles, blocks of its persistent grid, dynamic
+    shared memory and threads."""
+    fn = library(_LIB).sa_ln_dense_geometry
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    check_status(_LIB, "ln_dense geometry", fn(m, f, out))
+    return dict(ln_blocks=out[0], ln_threads=out[1], bn=out[2], tiles=out[3], blocks=out[4], smem=out[5],
+                threads=out[6])

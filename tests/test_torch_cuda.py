@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (K1-K4, and K5, K7, K8, K9 with the K6
-interface) against their plain PyTorch versions, on the card.  Every test
+interface) against their plain PyTorch versions, and the launch geometry of
+the wgmma + TMA bodies (K1, K2, K4, K9), on the card.  Every test
 here needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the test conftest's fixtures, so that it
@@ -72,6 +73,20 @@ def test_dense_kernels(cuda, dtype, b, t, d, f):
     _check(port_dense.dense_scale_residual, port_dense.dense_scale_residual_ref, (x, o, wp, be, g), dtype)
     w2 = _rand(rng, dtype, d, f, scale=f ** -0.5)
     _check(port_mlp.vit_mlp, port_mlp.vit_mlp_ref, (x, g, be, w, bias, w2, be), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t", [(1, 37), (2, 1370)], ids=["M37", "M2740"])
+@pytest.mark.parametrize("d", [384, 768, 1024], ids=["vits", "vitb", "vitl"])
+def test_ln_dense_kernel_vit_widths(cuda, dtype, b, t, d):
+    """K1 at the shipped ViT widths (the QKV projection, F = 3D) and M = 37,
+    2740: no multiple of the 128-row tile."""
+    rng = np.random.default_rng(d + t + 1)
+    x = _rand(rng, dtype, b, t, d)
+    g, be = _rand(rng, dtype, d, scale=0.5, shift=1.0), _rand(rng, dtype, d, scale=0.1)
+    w, bias = _rand(rng, dtype, 3 * d, d, scale=d ** -0.5), _rand(rng, dtype, 3 * d, scale=0.1)
+    _check(port_dense.ln_dense, port_dense.ln_dense_ref, (x, g, be, w, bias), dtype)
 
 
 @pytest.mark.cuda
@@ -151,6 +166,26 @@ def test_wgmma_kernels_launch_geometry(cuda):
         assert p["blocks"] == min(sms, p["tiles"]) and p["smem"] <= 232448
     if sms == 132:  # the H100's count: the second product's 22 x 6 tiles of 176 fill it once
         assert mlp["products"][1]["bn"] == 176 and mlp["products"][1]["tiles"] == 132
+    # K1, the QKV projection at 512^2 and 375x1242 (M = 2 x 1370, 2 x 4552)
+    for m, row_tiles in ((2740, 22), (9104, 72)):
+        k1 = port_dense.launch_geometry(m, 3072)
+        assert k1["threads"] == 384 and k1["ln_blocks"] == -(-m // 8) and k1["bn"] in (256, 208, 176)
+        assert k1["tiles"] == row_tiles * -(-3072 // k1["bn"]) and k1["blocks"] == min(sms, k1["tiles"])
+        assert k1["smem"] <= 232448
+    if sms == 132:  # 264 tiles of 256 in two full rounds; 1296 of 176 in 9.8
+        assert (port_dense.launch_geometry(2740, 3072)["bn"], port_dense.launch_geometry(9104, 3072)["bn"]) == (256, 176)
+    # K9 at the three scales of both planes: patches of BM pixels cover the plane
+    for h, w in ((128, 128), (64, 64), (32, 32), (96, 320), (48, 160), (24, 80), (13, 6)):
+        for g, n in zip(port_step.launch_geometry(1, h, w), (256, 128)):
+            assert g["bw"] * g["bh"] == g["bm"] and g["bm"] in (64, 128) and g["bn"] in (64, 128, 256)
+            assert g["tiles"] == -(-w // g["bw"]) * -(-h // g["bh"]) * -(-n // g["bn"])
+            assert g["blocks"] == min(sms, g["tiles"]) and g["threads"] == 128 * (g["bm"] // 64 + 1)
+            assert g["smem"] <= 232448 and g["stages"] >= 2
+    assert port_step.launch_geometry(1, 24, 80)[0]["bw"] == 16  # 5 patches a row, none wasted
+    if sms == 132:  # 64-row tiles on the small planes of the 512^2 request
+        assert [(g["bm"], g["bn"]) for g in port_step.launch_geometry(1, 128, 128)] == [(128, 256), (128, 128)]
+        assert [(g["bm"], g["bn"]) for g in port_step.launch_geometry(1, 64, 64)] == [(64, 128), (64, 64)]
+        assert [(g["bm"], g["bn"]) for g in port_step.launch_geometry(1, 32, 32)] == [(64, 64), (64, 64)]
 
 
 @pytest.mark.cuda
@@ -256,6 +291,26 @@ def test_conv_gru_kernel(cuda, dtype, nx, scale, border):
     if border:
         h, xs = _border(h, 4.0), [_border(x, 4.0) for x in xs]
     czrq = _rand(rng, dtype, 1, hh, ww, 384, scale=0.3)
+    _check(port_step.conv_gru, port_sf.conv_gru_ref, (h, xs, czrq, w), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hh,ww,nx", [(1, 96, 320, 2), (1, 48, 160, 2), (1, 24, 80, 1), (1, 16, 6, 2),
+                                        (1, 13, 40, 1), (2, 11, 20, 2)],
+                         ids=["kitti-gru08", "kitti-gru16", "kitti-gru32", "narrower-than-a-patch",
+                              "H-not-a-patch-multiple", "batch-two"])
+def test_conv_gru_kernel_planes(cuda, dtype, b, hh, ww, nx):
+    """K9 with border values at the 375x1242 request's three planes (W 320,
+    160, 80: 64-, 32- and 16-wide patches), a plane narrower than the
+    narrowest patch (8), a height no multiple of the patch's, and B = 2."""
+    from stereoanywhere_tpu_torch.models.update import ConvGRU
+
+    rng = np.random.default_rng(hh * ww + b)
+    w = _packed(ConvGRU(128, 128 * nx), port_sf.pack_gru_weights, dtype, 4)
+    h = _border(torch.tanh(_rand(rng, dtype, b, hh, ww, 128)), 4.0)
+    xs = [_border(_rand(rng, dtype, b, hh, ww, 128, scale=0.5), 4.0) for _ in range(nx)]
+    czrq = _rand(rng, dtype, b, hh, ww, 384, scale=0.3)
     _check(port_step.conv_gru, port_sf.conv_gru_ref, (h, xs, czrq, w), dtype)
 
 
