@@ -2,15 +2,15 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py                # the smoke run below
-    python3 chip_smoke.py --tiles        # K9's tile candidates, each forced, timed
-    python3 chip_smoke.py --ab OTHER     # K1 and K9 of this checkout and OTHER, in turns
+    python3 chip_smoke.py --tiles        # K9's and K8's tile candidates, each forced, timed
+    python3 chip_smoke.py --ab OTHER     # K1, K3, K8 and K9 of this checkout and OTHER, in turns
 
 Phases of the smoke run (any failure exits non-zero before the result line):
 1. build the hand-written kernels from `stereoanywhere_tpu_torch/csrc/`
    (one nvcc per source, in parallel);
    The wgmma + TMA libraries (K1 and K3's `vit_dense`, K2, K4, and the
-   step kernels' `step_fused` for K9) must show HGMMA and UTMALDG in their
-   SASS (`cuobjdump -sass`), counted and printed;
+   step kernels' `step_fused` for K8 and K9) must show HGMMA and UTMALDG in
+   their SASS (`cuobjdump -sass`), counted and printed;
 2. kernels: each of K1-K4 at the shapes of the ViT-L 512^2 and 375x1242
    requests (T = 1370 and 4552 tokens a view), in bf16 and f32, against its
    plain PyTorch version on the card (TF32 off), timed beside one PyTorch
@@ -21,16 +21,17 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    the host prepares the next call, and its `host_ms`, the host's least
    time to issue a call); K2's bound also counts its exponentials against the SFU;
    K2 also on inputs where only the mask of the ragged key tail keeps it
-   right; the launch geometry (grid, waves) of K1's, K2's and K4's bf16
-   bodies;
+   right; the launch geometry (grid, waves) of K1's to K4's bf16 bodies;
    then the refinement-step kernels (K5 dual lookup, K7 flow head, K8
    motion encoder, K9 ConvGRU at its three scales, and K9 behind the K6
    interface) at the quarter-resolution planes of the same requests, in
    both dtypes, against their plain versions, also on inputs where only
    the zero padding keeps them right, timed beside the port's unfused
    modules for the same function (cuDNN convolutions, the plain lookup);
-   K9's time, TFLOP/s and bound per scale and plane, and its launch
-   geometry (tile, pixel patch, grid) per scale and plane;
+   K9's time, TFLOP/s and bound per scale and plane; K8's device time by
+   launch (c1/f1, the grouped 3x3 stage, the merge conv); the launch
+   geometry (tile, pixel patch, grid) of K9 per scale and plane and of K8's
+   two 3x3 stages per plane;
 3. pipelines: DAv2 ViT-L + StereoAnywhere (bf16, 32 GRU iterations,
    seeded random weights) behind `serve_http` on 127.0.0.1, answering two
    512x512 pairs and two 375x1242 pairs, first in the default
@@ -47,19 +48,21 @@ Phases of the smoke run (any failure exits non-zero before the result line):
 It prints a `{"kernels": [...]}` line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
 
---tiles: K9's bf16 body at each scale of both planes with each of its four
-tile candidates forced on both launches (a diagnostic entry point of the
-library), checked against the plain version and timed in device ms, its
-z/r and q launches apart: the readings `pick_plan`'s cost model is fitted
-to.
+--tiles: K9's bf16 body at each scale of both planes with each of its five
+tile candidates forced on both launches, and K8's with each candidate its
+grouped stage or its merge conv may take forced on that stage (diagnostic
+entry points of the library), checked against the plain version and timed
+in device ms, launch by launch: the readings `pick_plan`'s cost model is
+fitted to.
 
---ab OTHER: K1's and K9's bf16 bodies (and K9 behind the K6 interface) of
-this checkout and of OTHER, another checkout of the repository (for
-instance an earlier commit unpacked with `git archive <commit> | tar -x -C
-build/other`), on the inputs above.  Each checkout runs in a process of
-its own, in the order OTHER, this, this, OTHER, so that drift of the card
-hits both alike; a run builds its checkout's `vit_dense` and `step_fused`
-and prints, a kernel and shape, CUDA-event ms, device ms and host ms.
+--ab OTHER: K1's, K3's, K8's and K9's bf16 bodies (and K9 behind the K6
+interface) of this checkout and of OTHER, another checkout of the
+repository (for instance an earlier commit unpacked with `git archive
+<commit> | tar -x -C build/other`), on the inputs above.  Each checkout
+runs in a process of its own, in the order OTHER, this, this, OTHER, so
+that drift of the card hits both alike; a run builds its checkout's
+`vit_dense` and `step_fused` and prints, a kernel and shape, CUDA-event
+ms, device ms and host ms (K8 also its device ms by launch).
 """
 from __future__ import annotations
 
@@ -363,6 +366,10 @@ def launch_geometry(*token_counts: int) -> None:
               f"{k1['blocks']} blocks ({k1['threads']} threads, {k1['smem']} B shared, one an SM): "
               f"{k1['tiles'] / sms:.2f} waves of tiles; LN pass {k1['ln_blocks']} blocks of {k1['ln_threads']}",
               flush=True)
+        k3 = vit_dense.residual_geometry(2 * t, d)
+        print(f"geometry dense_scale_residual T={t}: 128x{k3['bn']} tiles, {k3['tiles']} of them on a persistent "
+              f"grid of {k3['blocks']} blocks ({k3['threads']} threads, {k3['smem']} B shared, one an SM): "
+              f"{k3['tiles'] / sms:.2f} waves of tiles", flush=True)
         m = vit_mlp.launch_geometry(2 * t, d, hidden)
         for i, p in enumerate(m["products"], 1):
             print(f"geometry vit_mlp T={t} product {i}: 128x{p['bn']} tiles, {p['tiles']} of them on a persistent "
@@ -492,11 +499,53 @@ def step_cases(dtype, h4: int, w4: int, g: torch.Generator, border: bool):
     return cases
 
 
-GRU_TILES = ("128x256", "128x128", "64x128", "64x64")
+TILES = ("128x256", "128x128", "64x128", "64x64", "128x64")  # the library's candidates 1..5
+# the candidates K8's bf16 3x3 stages may take: the grouped one's BN is a
+# group's 64 channels; the merge conv (N 128) is built without 128 x 256
+MOTION_TILES = {"c2/f2": (4, 5), "merge": (2, 3, 4, 5)}
+
+
+def motion_stages(by_name: dict) -> dict:
+    """K8's device ms a call by launch, from device_profile's kernel names:
+    c1/f1 (mma.sync in bf16, the CUDA cores in earlier checkouts), the
+    grouped 3x3 stage (epilogue 0, ReLU) and the merge conv (epilogue 3),
+    on the wgmma core or on the mma.sync tile of earlier checkouts (its
+    epilogue the first template argument)."""
+    out = {"c1/f1": 0.0, "c2/f2": 0.0, "merge": 0.0}
+    for name, ms in by_name.items():
+        if "motion_c1f1" in name:
+            out["c1/f1"] += ms
+            continue
+        m = re.search(r"conv_kernel_bf16<(\d+)|conv_wgmma_kernel<\d+,\s*\d+,\s*(\d+)>", name)
+        if m:
+            out["c2/f2" if int(m.group(1) or m.group(2)) == 0 else "merge"] += ms
+    return out
+
+
+def stages_text(stages: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+
+
+def forced_motion_call(args, tile2: int, tile3: int):
+    """A call of K8's bf16 body with candidate tile2 on its grouped stage
+    and tile3 on its merge conv (0: picked), through the library's
+    diagnostic entry point (no launch count), and the tensor it writes
+    into."""
+    ca, cb, c, w = args
+    b, h, wd, kc = ca.shape
+    a1 = torch.empty((b, h, wd, 192), device=ca.device, dtype=ca.dtype)
+    a2, out = torch.empty_like(a1), torch.empty((b, h, wd, 128), device=ca.device, dtype=ca.dtype)
+    fn = build.bind("step_fused", "sa_motion_forced_tile", 14, 6)
+    ptrs = [t.data_ptr() for t in (ca, cb, c, *w, a1, a2, out)]
+
+    def call():
+        build.check_status("step_fused", f"motion_encoder with tiles {tile2}, {tile3}",
+                           fn(*ptrs, b, h, wd, kc, tile2, tile3, build.current_stream()))
+    return call, out
 
 
 def forced_tile_call(args, tile: int):
-    """A call of K9's bf16 body with tile candidate `tile` (1..4, GRU_TILES)
+    """A call of K9's bf16 body with tile candidate `tile` (1..5, TILES)
     forced on both launches, through the library's diagnostic entry point
     (no launch count), and the tensor it writes h' into."""
     h, xs, czrq, w = args
@@ -509,7 +558,7 @@ def forced_tile_call(args, tile: int):
     ints = (*h.shape, cs[0], cs[1] if len(cs) == 2 else 0, 3 * hd, tile)
 
     def call():
-        build.check_status("step_fused", f"conv_gru with tile {GRU_TILES[tile - 1]}",
+        build.check_status("step_fused", f"conv_gru with tile {TILES[tile - 1]}",
                            fn(*ptrs, *ints, build.current_stream()))
     return call, out
 
@@ -518,15 +567,29 @@ def tiles_main() -> int:
     """K9's bf16 body at each scale of both planes with each tile candidate
     forced on both launches: checked against the plain version, then device
     ms a call and of its z/r and q launches (kernel template arguments
-    <BM, BN, epilogue>: 1 z/r, 2 q)."""
+    <BM, BN, epilogue>: 1 z/r, 2 q); then K8's, each candidate of one 3x3
+    stage forced, the other picked, device ms a call and by launch."""
     build.build(("step_fused",))
     g = torch.Generator().manual_seed(1)
     for plane, (h4, w4) in STEP_PLANES.items():
         for name, _, ref, args, *_ in step_cases(torch.bfloat16, h4, w4, g, border=False):
+            if name == "motion_encoder":
+                want, parts = ref(*args), []
+                forced = [("picked", 0, 0)] + [(f"c2/f2 {TILES[t - 1]}", t, 0) for t in MOTION_TILES["c2/f2"]] + [
+                    (f"merge {TILES[t - 1]}", 0, t) for t in MOTION_TILES["merge"]]
+                for label, tile2, tile3 in forced:
+                    call, out = forced_motion_call(args, tile2, tile3)
+                    call()
+                    torch.cuda.synchronize()
+                    check(f"{name} {plane} {label}", out, want, torch.bfloat16)
+                    got = device_profile(call)
+                    parts.append(f"{label} " + ("not measured" if got is None else
+                                                f"{got[0]:.4f} ({stages_text(motion_stages(got[1]))})"))
+                print(f"tiles {name} {plane}, device ms a call: " + "; ".join(parts), flush=True)
             if not name.startswith("conv_gru/"):
                 continue
             want, parts = ref(*args), []
-            for tile, label in enumerate(GRU_TILES, 1):
+            for tile, label in enumerate(TILES, 1):
                 call, out = forced_tile_call(args, tile)
                 call()
                 torch.cuda.synchronize()
@@ -546,7 +609,8 @@ def tiles_main() -> int:
 
 
 def step_geometry() -> None:
-    """K9's bf16 launches (z/r, then q) at each scale of both planes (B = 1)."""
+    """K9's bf16 launches (z/r, then q) at each scale of both planes, and
+    K8's two 3x3 launches at both planes (B = 1)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for plane, (h4, w4) in STEP_PLANES.items():
         for scale in (1, 2, 4):
@@ -556,6 +620,11 @@ def step_geometry() -> None:
                       f"{g['bw']}x{g['bh']}-pixel patches, {g['tiles']} of them on a persistent grid of {g['blocks']} "
                       f"blocks ({g['threads']} threads, {g['stages']} stages, {g['smem']} B shared): "
                       f"{g['tiles'] / sms:.2f} waves of tiles", flush=True)
+        for what, g in zip(("c2/f2 (3 groups)", "merge"), step_fused.motion_geometry(1, h4, w4)):
+            print(f"geometry motion_encoder {plane} ({h4}x{w4}) {what}: {g['bm']}x{g['bn']} tiles of "
+                  f"{g['bw']}x{g['bh']}-pixel patches, {g['tiles']} of them on a persistent grid of {g['blocks']} "
+                  f"blocks ({g['threads']} threads, {g['stages']} stages, {g['smem']} B shared): "
+                  f"{g['tiles'] / sms:.2f} waves of tiles", flush=True)
 
 
 def step_kernel_phase() -> dict:
@@ -582,7 +651,8 @@ def step_kernel_phase() -> dict:
                         print(f"{what} border case: max_abs_err {err:.3e} (max|plain| {scale:.3e}, "
                               f"tol {REL_TOL[dtype]:.0e} rel)", flush=True)
                         continue
-                    row = dict(ms=cuda_ms(lambda: fn(*args)), device_ms=device_ms(lambda: fn(*args)),
+                    prof = device_profile(lambda: fn(*args))
+                    row = dict(ms=cuda_ms(lambda: fn(*args)), device_ms=None if prof is None else prof[0],
                                host_ms=host_ms(lambda: fn(*args)), plain_ms=cuda_ms(lambda: ref(*args)),
                                unfused_ms=cuda_ms(unfused) if unfused is not None else None,
                                library_ms=None, max_abs_err=err)
@@ -595,6 +665,9 @@ def step_kernel_phase() -> dict:
                           f"unfused_ms {row['unfused_ms']:.4f} "
                           f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}; {flops / 1e9:.3f} GFLOP, "
                           f"{moved / 1e6:.2f} MB)", flush=True)
+                    if name == "motion_encoder" and dtype == torch.bfloat16:
+                        print(f"{what}: device ms by launch " + ("not measured" if prof is None else
+                                                                 stages_text(motion_stages(prof[1]))), flush=True)
                     if dtype == torch.bfloat16 and plane == "512x512":
                         key = name.split("/")[0]
                         if key in records:  # conv_gru: sum the scales
@@ -652,8 +725,8 @@ class _Recorder:
 SPLIT_ROUNDS = 10
 # kernel name -> family, first match wins
 FAMILIES = (
-    ("ViT K1-K4", r"gemm_kernel_bf16|gemm_kernel_f32|attn_kernel|wgmma_gemm_kernel|ln_rows_kernel"),
-    ("step K5/K7-K9", r"conv_kernel_|conv_wgmma_kernel|dual_lookup_kernel|flow_delta_kernel|motion_c1f1_kernel"),
+    ("ViT K1-K4", r"gemm_kernel_f32|attn_kernel|wgmma_gemm_kernel|ln_rows_kernel"),
+    ("step K5/K7-K9", r"conv_kernel_|conv_wgmma_kernel|dual_lookup_kernel|flow_delta_kernel|motion_c1f1"),
     ("convolution", r"conv|cudnn|implicit|winograd|fprop|dgrad|nhwc|nchw"),
     ("matmul", r"gemm|cutlass|cublas|sm90_xmma|ampere_"),
     ("reduction / softmax", r"reduce|softmax|norm"),
@@ -832,8 +905,9 @@ def compare_phase() -> None:
 
 
 def ab_rows() -> list[dict]:
-    """One --ab run over the package this process imported: K1 at both token
-    counts, K9 at each scale and the K6 interface on both planes, bf16."""
+    """One --ab run over the package this process imported: K1 and K3 at
+    both token counts, K8 (with its device ms by launch), K9 at each scale
+    and the K6 interface on both planes, bf16."""
     pkg = Path(stereoanywhere_tpu_torch.__file__).resolve().parents[1]
     if pkg != Path.cwd().resolve():
         raise RuntimeError(f"imported the package of {pkg}, not that of the checkout {Path.cwd()}")
@@ -846,27 +920,29 @@ def ab_rows() -> list[dict]:
         got = fn(*args)
         torch.cuda.synchronize()
         err, _ = check(f"{name} {shape}", got, ref(*args), bf16)
+        prof = device_profile(lambda: fn(*args))
         rows.append(dict(kernel=name, shape=shape, ms=cuda_ms(lambda: fn(*args)),
-                         device_ms=device_ms(lambda: fn(*args)), host_ms=host_ms(lambda: fn(*args)),
-                         flops=flops, max_abs_err=err))
+                         device_ms=None if prof is None else prof[0], host_ms=host_ms(lambda: fn(*args)),
+                         flops=flops, max_abs_err=err,
+                         stages=motion_stages(prof[1]) if name == "motion_encoder" and prof else None))
 
     g = torch.Generator().manual_seed(0)
     for t in (tokens_of(512, 512), tokens_of(*KITTI)):
         for name, fn, ref, _, args, flops, *_ in kernel_cases(bf16, t, g):
-            if name == "ln_dense":
+            if name in ("ln_dense", "dense_scale_residual"):
                 measure(name, f"T={t}", fn, ref, args, flops)
     g = torch.Generator().manual_seed(1)
     for plane, (h4, w4) in STEP_PLANES.items():
         for name, fn, ref, args, flops, *_ in step_cases(bf16, h4, w4, g, border=False):
-            if name.startswith(("conv_gru/", "gru_fused")):
+            if name.startswith(("motion_encoder", "conv_gru/", "gru_fused")):
                 measure(name, plane, fn, ref, args, flops)
     return rows
 
 
 def ab_main(other: Path) -> int:
-    """--ab: this checkout's and other's K1 and K9, in turns, each run in a
-    process of its own whose working directory (first on its import path)
-    is the checkout, running this file's code."""
+    """--ab: this checkout's and other's K1, K3, K8 and K9, in turns, each
+    run in a process of its own whose working directory (first on its
+    import path) is the checkout, running this file's code."""
     runs: dict[str, list[list[dict]]] = {"other": [], "this": []}
     here = Path(__file__).resolve()
     code = ("import runpy, sys; sys.argv = [sys.argv[1], '--ab-run']; "
@@ -880,7 +956,8 @@ def ab_main(other: Path) -> int:
         for r in rows:
             print(f"{label} ({root}) run {len(runs[label]) + 1}: {r['kernel']} {r['shape']}: ms "
                   f"{fmt(r['ms'], r['flops'])} device_ms {fmt(r['device_ms'], r['flops'])} "
-                  f"host_ms {r['host_ms']:.4f} max_abs_err {r['max_abs_err']:.3e}", flush=True)
+                  f"host_ms {r['host_ms']:.4f} max_abs_err {r['max_abs_err']:.3e}"
+                  + (f"; device ms by launch {stages_text(r['stages'])}" if r["stages"] else ""), flush=True)
         runs[label].append(rows)
     print(card_line())
     print("CUDA-event ms a call [device ms; host ms], each checkout's two runs:")

@@ -1,8 +1,9 @@
 // Stride-1 "same" convolution over NHWC tensors as an implicit GEMM on
-// mma.sync (bf16) or FMA (f32) tiles, the body of K7 flow head and K8
-// motion encoder in both dtypes and of K9 ConvGRU in f32
-// (ops/cuda/step_fused.py).  K9's bf16 body, the one the fused loop runs,
-// is conv_wgmma.cuh's TMA + wgmma core; K7 and K8 are to move onto it.
+// mma.sync (bf16) or FMA (f32) tiles: the body of K7 flow head's conv1 in
+// both dtypes, and of K8 motion encoder and K9 ConvGRU in f32
+// (ops/cuda/step_fused.py).  K7 is the last bf16 user: the bf16 3x3 convs
+// of K8 and K9 run on conv_wgmma.cuh's TMA + wgmma core, and K7 is to move
+// onto it.
 //
 //   C[m, n] = epilogue( sum_k A[m, k] W[n, k] ),  m = (b, y, x) pixel,
 //   k = (tap, input channel),  A[m, (tap, c)] = in[b, y + dy, x + dx, c]
@@ -13,15 +14,15 @@
 // k x k) taps are k*k shifted K-slices; the zero padding is a predicated
 // load (a copy of 0 bytes zero-fills its shared-memory slot).  W is packed
 // (N, k*k, Cin) so that its K index is tap * Cin + c, K-contiguous.
-// Grouped form (groups > 1, one segment): output block n0 reads only the
-// input channels of its group, as a block-diagonal weight would.
+// Grouped form (groups > 1, one segment; f32 only): output block n0 reads
+// only the input channels of its group, as a block-diagonal weight would.
 //
 // Every segment's channel count is a multiple of BK = 32 (a K-step never
 // straddles two segments or taps) and every segment is 16-byte aligned.
 //
 // Two bodies, picked by T:
-// - bf16 (the deployed type; not built for the GRU epilogues, which
-//   conv_wgmma.cuh serves): tensor cores through mma.sync m16n8k16 with
+// - bf16 (the deployed type; built for the ReLU epilogue only, ungrouped:
+//   conv_wgmma.cuh serves the others): tensor cores through mma.sync m16n8k16 with
 //   f32 accumulators; a 128 x BN output tile per 256-thread block (BN 128:
 //   warps 2 x 4 of 64 x 32; BN 64: warps 4 x 2 of 32 x 32); K in steps of 32
 //   through a 3-stage cp.async ring; fragments by ldmatrix.
@@ -257,9 +258,8 @@ __global__ void __launch_bounds__(tc::THREADS) conv_kernel_bf16(const Args a) {
   const int b_row = lane % 8 + (lane / 16) * 8, b_col = ((lane / 8) % 2) * 8;  // ldmatrix lanes, B operand
   const int M = a.B * a.H * a.W;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int cin_g = cin_group(a);
-  const int goff = a.groups > 1 ? (n0 / (a.N / a.groups)) * cin_g : 0;
-  const int kdim = a.ks * a.ks * cin_g, nk = kdim / BK;
+  const int cin = cin_group(a);
+  const int kdim = a.ks * a.ks * cin, nk = kdim / BK;
   const auto* wmat = static_cast<const __nv_bfloat16*>(a.w);
 
   // copy c of a tile: row c / 4, channels (c % 4) * 8 .. + 8
@@ -270,14 +270,14 @@ __global__ void __launch_bounds__(tc::THREADS) conv_kernel_bf16(const Args a) {
   auto issue = [&](int kt) {
     if (kt < nk) {
       int dy, dx, s, c;
-      kstep(a, cin_g, kt, dy, dx, s, c);
+      kstep(a, cin, kt, dy, dx, s, c);
       const auto* src = static_cast<const __nv_bfloat16*>(a.seg[s]);
       __nv_bfloat16* As = tiles + (kt % STAGES) * TILE;
       __nv_bfloat16* Ws = As + BM * LD;
 #pragma unroll
       for (int i = 0; i < A_CHUNKS; ++i) {
         const int cidx = tid + i * THREADS, r = cidx / 4, kc = (cidx % 4) * 8;
-        const long long off = tap_offset(a, pix[i], dy, dx, a.seg_c[s], goff + c + kc);
+        const long long off = tap_offset(a, pix[i], dy, dx, a.seg_c[s], c + kc);
         cp_async16(As + r * LD + kc, off >= 0 ? src + off : src, off >= 0 ? 16 : 0);
       }
 #pragma unroll
@@ -354,9 +354,8 @@ cudaError_t launch_bf16(const Args& a, int M, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Checks the shape rules, then launches.  BN 64 is taken where the groups
-// require it, or where 128-wide tiles would leave fewer than two blocks
-// per SM of the card's 132.
+// Checks the shape rules, then launches.  bf16: BN 64 is taken where
+// 128-wide tiles would leave fewer than two blocks per SM of the card's 132.
 template <int EPI>
 cudaError_t launch(const Args& a, int dtype, cudaStream_t stream) {
   const long long M = static_cast<long long>(a.B) * a.H * a.W;
@@ -372,13 +371,16 @@ cudaError_t launch(const Args& a, int dtype, cudaStream_t stream) {
     conv_kernel_f32<EPI><<<grid, f32::THREADS, 0, stream>>>(a);
     return cudaGetLastError();
   }
-  // bf16 ConvGRU runs on conv_wgmma.cuh
-  if constexpr (EPI == EPI_GRU_ZR || EPI == EPI_GRU_Q) return cudaErrorInvalidValue;
-  if (dtype != SA_BF16) return cudaErrorInvalidValue;
-  const long long blocks128 = ((M + tc::BM - 1) / tc::BM) * ((a.N + 127) / 128);
-  const bool narrow = (a.groups > 1) || (a.N % 64 == 0 && blocks128 < 2 * 132);
-  return narrow ? launch_bf16<EPI, 64>(a, static_cast<int>(M), stream)
-                : launch_bf16<EPI, 128>(a, static_cast<int>(M), stream);
+  // bf16: K7's conv1 only (K8 and K9 run on conv_wgmma.cuh), so only the ReLU tiles are built
+  if constexpr (EPI == EPI_RELU) {
+    if (dtype != SA_BF16 || a.groups > 1) return cudaErrorInvalidValue;
+    const long long blocks128 = ((M + tc::BM - 1) / tc::BM) * ((a.N + 127) / 128);
+    const bool narrow = a.N % 64 == 0 && blocks128 < 2 * 132;
+    return narrow ? launch_bf16<EPI, 64>(a, static_cast<int>(M), stream)
+                  : launch_bf16<EPI, 128>(a, static_cast<int>(M), stream);
+  } else {
+    return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace conv

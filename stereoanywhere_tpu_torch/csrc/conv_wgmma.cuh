@@ -1,18 +1,21 @@
-// The bf16 ConvGRU of K9 (and of K6 through it) on Hopper's TMA and wgmma:
-// a stride-1 "same" 3x3 convolution over NHWC inputs as an implicit GEMM,
-// with the GRU's gates and blend in its epilogue.
+// The bf16 3x3 convolutions of the refinement step on Hopper's TMA and
+// wgmma: a stride-1 "same" 3x3 convolution over NHWC inputs as an implicit
+// GEMM, with the epilogue of its caller: the ConvGRU of K9 (and of K6
+// through it), its gates and blend; and K8's convc2/convf2 (one 3-group
+// conv, ReLU) and merge conv (ReLU and the [out | flow-x | 0] lanes).
 //
 //   C[m, n] = epilogue( sum_k A[m, k] W[n, k] ),  m = (b, y, x) pixel,
 //   k = (tap, segment, channel),  A[m, (tap, s, c)] = seg_s[b, y + dy, x + dx, c]
 //
 // Replaces stereoanywhere_tpu/ops/pallas/step_fused.py (fused_step_gru's
-// _gru_kernel) and ops/pallas/gru_fused.py (gru_fused's _zr_kernel and
-// _q_kernel); the f32 body stays on conv_igemm.cuh's FMA tile.
+// _gru_kernel, the 3x3 stages of fused_step_motion's _motion_kernel) and
+// ops/pallas/gru_fused.py (gru_fused's _zr_kernel and _q_kernel); the f32
+// bodies stay on conv_igemm.cuh's FMA tile.
 //
-// Bound: at the 512^2 request the three scales do 56 GFLOP, gru08 43.5 of
-// them for 32 MB moved, over a thousand FLOP a byte against the card's ridge
-// of 295, so the tensor cores bound it.  The design keeps them fed without
-// any gather code:
+// Bound: at the 512^2 request the three GRU scales do 56 GFLOP, gru08 43.5
+// of them for 32 MB moved, and K8's two 3x3 stages 10.9 GFLOP for 13 MB,
+// hundreds of FLOP a byte against the card's ridge of 295, so the tensor
+// cores bound them.  The design keeps them fed without any gather code:
 // - the M tile is a BW x BH patch of pixels of one image (BW x BH = BM, 128
 //   or 64); BW is the power of two that covers the plane with the fewest
 //   patches, so a 32- or 80-wide plane does not waste half of every load;
@@ -25,10 +28,15 @@
 //   rows wgmma reads;
 // - the [h, x1, x2] concatenation is never built: each segment has its own
 //   map and the K loop runs tap x segment x 64-channel chunk (9 x 6 = 54
-//   steps at gru08).  A chunk past a segment's channels reads zeros in A, so
-//   the weights it meets there add nothing;
-// - W, packed (N, 9, Cin), is K-major already: a 3-D map over (Cin, 9, N),
-//   box (64, 1, BN);
+//   steps at gru08, 27 at K8's merge conv).  A chunk past a segment's
+//   channels reads zeros in A, so the weights it meets there add nothing;
+// - grouped form (K8's convc2 on both correlation streams and convf2, 3
+//   groups of 64 over one 192-channel input): a tile's BN output channels
+//   lie in one group, whose 64 input channels its A loads start at, so a
+//   tile does 9 K-steps and none of the block-diagonal dense form's zero
+//   products; pick_plan takes only tiles whose BN divides the group's width;
+// - W, packed (N, 9, Cin) (grouped: Cin a group's), is K-major already: a
+//   3-D map over (Cin, 9, N), box (64, 1, BN);
 // - warp roles as in gemm_wgmma.cuh: a producer warpgroup (one thread keeps
 //   the mbarrier full/empty ring filled), BM / 64 consumer warpgroups
 //   issuing four wgmma.m64nBNk16 a stage, a persistent grid of at most one
@@ -36,20 +44,22 @@
 // - the epilogue goes through a padded f32 shared tile, 64 columns at a
 //   time, then works in 16-byte pieces along the channels: 8 accumulators,
 //   8 bias values, the 16-byte injection, h and z pieces, sigmoid / tanh /
-//   blend, one 16-byte store.  Pixels of a patch outside the image are not
-//   stored.
-// The tile (BM x BN of 128 x 256, 128 x 128, 64 x 128 or 64 x 64) is picked
-// per launch by the fewest rounds of tiles over the SMs, each round costing
-// its products plus a fixed overhead measured on the card (pick_plan):
+//   blend, one 16-byte store (K8: bias, ReLU, flow-x in lane N - 2).  Pixels
+//   of a patch outside the image are not stored.
+// The tile (BM x BN of 128 x 256, 128 x 128, 64 x 128, 64 x 64 or 128 x 64)
+// is picked per launch by the fewest rounds of tiles over the SMs, each
+// round costing its products plus a fixed overhead measured on the card
+// (pick_plan):
 // 128 x 256 / 128 x 128 for the z/r and q launches of the 128 x 128 and
 // 96 x 320 planes, 64-row tiles on the small planes, where 128-row ones
-// left most of the 132 SMs idle.
+// left most of the 132 SMs idle; K8's grouped stage takes 128 x 64.
 //
-// Two launches a call (z/r, then q): q's convolution reads r*h of the
+// K9: two launches a call (z/r, then q): q's convolution reads r*h of the
 // neighbouring pixels, which another block computes.  Rounding points are
 // the TPU kernel's: z and r*h rounded to bf16 in device-memory scratch,
-// then h' rounded once.  Needs every channel count and the injections' row
-// stride a multiple of 8 (16-byte rows) and 16-byte aligned operands.
+// then h' rounded once.  K8: launch_motion.  Needs every channel count and
+// the injections' row stride a multiple of 8 (16-byte rows) and 16-byte
+// aligned operands.
 // The host's share of a call is kept small: the 3-4 maps of a launch come
 // from sm90.cuh's cache of encoded maps, and a kernel's shared-memory limit
 // is raised once.
@@ -92,25 +102,41 @@ struct Args {
   int nseg;
   int seg_c[MAX_SEGS];    // channels of each input segment
   int seg_off[MAX_SEGS];  // its first channel in W's Cin
+  int groups;             // > 1 only with nseg == 1: group g of the outputs reads input group g
   int hd, inj_ld;
   const float* bias;          // (N)
   const __nv_bfloat16* h;     // (M, hd)
   const __nv_bfloat16* z;     // (M, hd): the update gate (q launch)
   const __nv_bfloat16* inj0;  // z/r: cz; q: cq (row stride inj_ld)
   const __nv_bfloat16* inj1;  // z/r: cr
-  __nv_bfloat16* out;         // z/r: z; q: h'
+  const float* coords;        // (M): x-coordinates (EPI_MOTION)
+  __nv_bfloat16* out;         // z/r: z; q: h'; EPI_RELU, EPI_MOTION: (M, N)
   __nv_bfloat16* out2;        // z/r: r*h
 };
 
-// 8 channels n..n+7 of pixel m from their f32 sums: the gates (z/r launch),
-// or q and the blend (q launch); the arithmetic of conv_igemm.cuh's epilogue
+// input channels the K loop walks in segment s: a group's, or all of them
+__host__ __device__ __forceinline__ int k_channels(const Args& a, int s) {
+  return a.groups > 1 ? a.seg_c[0] / a.groups : a.seg_c[s];
+}
+
+// 8 channels n..n+7 of pixel m from their f32 sums: ReLU; ReLU and K8's
+// last two lanes (flow-x, 0); the gates (z/r launch); or q and the blend (q
+// launch); the arithmetic of conv_igemm.cuh's epilogue
 template <int EPI>
-__device__ __forceinline__ void gru_piece(const Args& a, size_t m, int n, float (&v)[8]) {
+__device__ __forceinline__ void piece(const Args& a, size_t m, int n, float (&v)[8]) {
   using sa::conv::sigmoidf;
 #pragma unroll
   for (int j = 0; j < 8; ++j) v[j] += __ldg(a.bias + n + j);
-  float u[8], hv[8];
-  if constexpr (EPI == sa::conv::EPI_GRU_ZR) {
+  if constexpr (EPI == sa::conv::EPI_RELU || EPI == sa::conv::EPI_MOTION) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = fmaxf(v[j], 0.f);
+    if (EPI == sa::conv::EPI_MOTION && n + 8 == a.N) {  // lanes N - 2, N - 1: flow-x (no ReLU), 0
+      v[6] = __ldg(a.coords + m) - static_cast<float>(static_cast<int>(m % a.W));
+      v[7] = 0.f;
+    }
+    store8(a.out + m * a.N + n, v);  // flow-x rounded to bf16 once, here
+  } else if constexpr (EPI == sa::conv::EPI_GRU_ZR) {
+    float u[8], hv[8];
     if (n < a.hd) {
       load8(a.inj0 + m * a.inj_ld + n, u);
 #pragma unroll
@@ -125,7 +151,7 @@ __device__ __forceinline__ void gru_piece(const Args& a, size_t m, int n, float 
       store8(a.out2 + m * a.hd + c, v);
     }
   } else {
-    float zv[8];
+    float u[8], hv[8], zv[8];
     load8(a.inj0 + m * a.inj_ld + n, u);
     load8(a.z + m * a.hd + n, zv);
     load8(a.h + m * a.hd + n, hv);
@@ -151,8 +177,13 @@ __global__ void __launch_bounds__(Tile<BM, BN>::THREADS, 1)
   const uint32_t full0 = ring + STAGES * T::STAGE_BYTES + T::OUT_BYTES, empty0 = full0 + 8 * STAGES;
   const int tiles_x = (a.W + a.bw - 1) / a.bw, per_image = tiles_x * ((a.H + a.bh - 1) / a.bh);
   const int m_tiles = a.B * per_image, tiles = m_tiles * ((a.N + BN - 1) / BN);
+  // Segment loops run over MAX_SEGS unrolled, so that every index into a
+  // and maps is a constant: a runtime index copies the parameters to local
+  // memory, read again at every stage behind the barrier waits' clobbers.
   int chunks = 0;  // 64-channel chunks a tap
-  for (int s = 0; s < a.nseg; ++s) chunks += (a.seg_c[s] + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < MAX_SEGS; ++s)
+    if (s < a.nseg) chunks += (k_channels(a, s) + BK - 1) / BK;
   const int nk = TAPS * chunks;
   const int wg = threadIdx.x / 128;
   // tile -> image b, patch origin (x0, y0), first output channel n0 (pixel tiles fastest)
@@ -182,17 +213,23 @@ __global__ void __launch_bounds__(Tile<BM, BN>::THREADS, 1)
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         int b, x0, y0, n0;
         origin(tile, b, x0, y0, n0);
+        // grouped: the first input channel of the group the tile's outputs lie in
+        const int cg = a.groups > 1 ? n0 / (a.N / a.groups) * k_channels(a, 0) : 0;
         for (int tap = 0; tap < TAPS; ++tap) {
           const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-          for (int s = 0; s < a.nseg; ++s)
-            for (int c0 = 0; c0 < a.seg_c[s]; c0 += BK, ++it) {
+#pragma unroll
+          for (int s = 0; s < MAX_SEGS; ++s) {
+            if (s >= a.nseg) break;
+            const int kc = k_channels(a, s), off = a.seg_off[s];
+            for (int c0 = 0; c0 < kc; c0 += BK, ++it) {
               const int st = it % STAGES;
               mbar_wait(empty0 + 8 * st, ((it / STAGES) & 1) ^ 1);  // the first round passes at once
               const uint32_t dst = ring + st * T::STAGE_BYTES, full = full0 + 8 * st;
               mbar_expect_tx(full, T::STAGE_BYTES);
-              tma_load_4d(dst, &maps.a[s], full, c0, x0 + dx, y0 + dy, b);
-              tma_load_3d(dst + T::A_BYTES, &maps.w, full, a.seg_off[s] + c0, tap, n0);
+              tma_load_4d(dst, &maps.a[s], full, cg + c0, x0 + dx, y0 + dy, b);
+              tma_load_3d(dst + T::A_BYTES, &maps.w, full, off + c0, tap, n0);
             }
+          }
         }
       }
     }
@@ -251,7 +288,7 @@ __global__ void __launch_bounds__(Tile<BM, BN>::THREADS, 1)
           const float4 second = *reinterpret_cast<const float4*>(src + 4 - h0);
           const float4 lo = h0 ? second : first, hi = h0 ? first : second;
           float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-          gru_piece<EPI>(a, (static_cast<size_t>(b) * a.H + y) * a.W + x, n, v);
+          piece<EPI>(a, (static_cast<size_t>(b) * a.H + y) * a.W + x, n, v);
         }
       }
     }
@@ -291,7 +328,7 @@ Plan plan_of(int B, int H, int W, int N) {
   return p;
 }
 
-constexpr int CANDIDATES = 4;
+constexpr int CANDIDATES = 5;
 // what a tile costs beyond its products (filling the ring, the epilogue), in
 // output elements: on the H100 a round of tiles took about 12 + 0.0015 BM BN
 // us at the 512^2 request's gru08 plane (128x256 61.6, 128x128 36, 64x128
@@ -299,16 +336,20 @@ constexpr int CANDIDATES = 4;
 constexpr long long TILE_OVERHEAD = 8192;
 
 // the tile with the fewest rounds of tiles over the SMs times (BM BN +
-// TILE_OVERHEAD), the larger on a tie; tile 1..CANDIDATES forces that
-// candidate instead (sa_conv_gru_forced_tile, a diagnostic)
-inline Plan pick_plan(int B, int H, int W, int N, int tile = 0) {
+// TILE_OVERHEAD), the first in this list on a tie, among the tiles whose
+// BN divides a group's N / groups output channels (grouped launches); tile
+// 1..CANDIDATES forces that candidate instead (the forced-tile entry points
+// of step_fused.cu, diagnostics)
+inline Plan pick_plan(int B, int H, int W, int N, int tile = 0, int groups = 1) {
   const Plan cands[CANDIDATES] = {plan_of<128, 256>(B, H, W, N), plan_of<128, 128>(B, H, W, N),
-                                  plan_of<64, 128>(B, H, W, N), plan_of<64, 64>(B, H, W, N)};
+                                  plan_of<64, 128>(B, H, W, N), plan_of<64, 64>(B, H, W, N),
+                                  plan_of<128, 64>(B, H, W, N)};
   if (tile >= 1 && tile <= CANDIDATES) return cands[tile - 1];
   const long long sms = sm90::sm_count();
-  Plan best = cands[0];
+  Plan best = cands[3];  // 64 x 64: any group width a multiple of 64 takes it
   long long best_cost = -1;
   for (const Plan& p : cands) {
+    if (groups > 1 && (N / groups) % p.bn) continue;
     const long long cost = (p.tiles + sms - 1) / sms * (static_cast<long long>(p.bm) * p.bn + TILE_OVERHEAD);
     if (best_cost < 0 || cost < best_cost) best = p, best_cost = cost;
   }
@@ -316,7 +357,7 @@ inline Plan pick_plan(int B, int H, int W, int N, int tile = 0) {
 }
 
 inline cudaError_t make_maps(Maps& m, const Args& a, const void* const* seg, const void* w, int bn) {
-  int cin = 0;
+  int cin = 0;  // W's input channels
   for (int s = 0; s < a.nseg; ++s) {
     const cuuint64_t c = a.seg_c[s];
     const cuuint64_t dims[4] = {c, static_cast<cuuint64_t>(a.W), static_cast<cuuint64_t>(a.H),
@@ -325,7 +366,7 @@ inline cudaError_t make_maps(Maps& m, const Args& a, const void* const* seg, con
     const cuuint32_t box[4] = {BK, static_cast<cuuint32_t>(a.bw), static_cast<cuuint32_t>(a.bh), 1};
     const cudaError_t e = sm90::make_map_bf16(&m.a[s], seg[s], 4, dims, strides, box);
     if (e != cudaSuccess) return e;
-    cin += a.seg_c[s];
+    cin += k_channels(a, s);
   }
   const cuuint64_t dims_w[3] = {static_cast<cuuint64_t>(cin), TAPS, static_cast<cuuint64_t>(a.N)};
   const cuuint64_t strides_w[2] = {static_cast<cuuint64_t>(cin) * 2, static_cast<cuuint64_t>(cin) * 2 * TAPS};
@@ -354,20 +395,30 @@ cudaError_t launch_tiles(const Maps& maps, const Args& a, int blocks, cudaStream
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// one convolution launch over the segments seg[0 .. a.nseg) with W packed (N, 9, Cin)
+// one convolution launch over the segments seg[0 .. a.nseg) with W packed
+// (N, 9, Cin).  Each epilogue is built with the tiles its launches may take:
+// K9's with all, K8's grouped ReLU with BN 64, its merge conv (N 128) with
+// BN <= 128; another forced tile is refused.
 template <int EPI>
 cudaError_t launch_conv(const void* const* seg, const void* w, Args a, int tile, cudaStream_t stream) {
-  const Plan p = pick_plan(a.B, a.H, a.W, a.N, tile);
+  if (a.groups < 1 || (a.groups > 1 && (a.nseg != 1 || a.seg_c[0] % a.groups || a.N % a.groups)))
+    return cudaErrorInvalidValue;
+  const Plan p = pick_plan(a.B, a.H, a.W, a.N, tile, a.groups);
+  if (a.groups > 1 && (a.N / a.groups) % p.bn) return cudaErrorInvalidValue;  // a tile in two groups
   a.bw = p.bw;
   a.bh = p.bh;
-  for (int s = 0, off = 0; s < a.nseg; off += a.seg_c[s], ++s) a.seg_off[s] = off;
+  for (int s = 0, off = 0; s < a.nseg; off += k_channels(a, s), ++s) a.seg_off[s] = off;
   Maps maps{};
   const cudaError_t e = make_maps(maps, a, seg, w, p.bn);
   if (e != cudaSuccess) return e;
-  if (p.bm == 128 && p.bn == 256) return launch_tiles<128, 256, EPI>(maps, a, p.blocks, stream);
-  if (p.bm == 128) return launch_tiles<128, 128, EPI>(maps, a, p.blocks, stream);
-  if (p.bn == 128) return launch_tiles<64, 128, EPI>(maps, a, p.blocks, stream);
-  return launch_tiles<64, 64, EPI>(maps, a, p.blocks, stream);
+  if (p.bn == 64) return p.bm == 128 ? launch_tiles<128, 64, EPI>(maps, a, p.blocks, stream)
+                                     : launch_tiles<64, 64, EPI>(maps, a, p.blocks, stream);
+  if constexpr (EPI != sa::conv::EPI_RELU) {
+    if (p.bn == 128) return p.bm == 128 ? launch_tiles<128, 128, EPI>(maps, a, p.blocks, stream)
+                                        : launch_tiles<64, 128, EPI>(maps, a, p.blocks, stream);
+    if constexpr (EPI != sa::conv::EPI_MOTION) return launch_tiles<128, 256, EPI>(maps, a, p.blocks, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // K9's bf16 body: z = sigmoid(conv_z([h, x1, x2]) + cz), r*h = sigmoid(conv_r(..) + cr) h
@@ -385,6 +436,7 @@ inline cudaError_t launch_gru(const void* h, const void* x1, const void* x2, con
   a.B = B;
   a.H = H;
   a.W = W;
+  a.groups = 1;
   a.hd = hd;
   a.inj_ld = inj_ld;
   a.nseg = c2 > 0 ? 3 : 2;
@@ -410,6 +462,39 @@ inline cudaError_t launch_gru(const void* h, const void* x1, const void* x2, con
   a.out = static_cast<T*>(out);
   a.out2 = nullptr;
   return launch_conv<sa::conv::EPI_GRU_Q>(seg, w_q, a, tile, stream);
+}
+
+// K8's 3x3 stages (bf16) on a1 = [c1(corr_a) | c1(corr_b) | f1(flow-x)], (M, c)
+// with c = 3 x 64: a2 = relu(conv(a1) + b_c2f2), one 3-group conv with w_c2f2
+// (c, 9, c / 3) = [convc2; convc2; convf2]; then out = [relu(mc(a2) +
+// b_mc)[..., :n - 2] | flow-x | 0], (M, n), with w_mc (n, 9, c).  tile2, tile3:
+// 0 picks each launch's tile (pick_plan), 1..CANDIDATES forces one.
+inline cudaError_t launch_motion(const void* a1, const void* w_c2f2, const void* b_c2f2, const void* w_mc,
+                                 const void* b_mc, const float* coords, void* a2, void* out, int B, int H, int W,
+                                 int c, int n, int tile2, int tile3, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || static_cast<long long>(B) * H * W > (1LL << 30) || c % 24 || n % 8 || n < 8)
+    return cudaErrorInvalidValue;
+  using T = __nv_bfloat16;
+  Args a{};
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.nseg = 1;
+  a.seg_c[0] = c;
+  a.groups = 3;
+  a.N = c;
+  a.bias = static_cast<const float*>(b_c2f2);
+  a.out = static_cast<T*>(a2);
+  const void* seg[MAX_SEGS] = {a1};
+  const cudaError_t e = launch_conv<sa::conv::EPI_RELU>(seg, w_c2f2, a, tile2, stream);
+  if (e != cudaSuccess) return e;
+  seg[0] = a2;
+  a.groups = 1;
+  a.N = n;
+  a.bias = static_cast<const float*>(b_mc);
+  a.coords = coords;
+  a.out = static_cast<T*>(out);
+  return launch_conv<sa::conv::EPI_MOTION>(seg, w_mc, a, tile3, stream);
 }
 
 }  // namespace sa::cw

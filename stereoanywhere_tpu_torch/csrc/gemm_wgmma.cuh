@@ -1,15 +1,17 @@
 // The bf16 matrix product on Hopper's TMA and wgmma: K1 ln_dense's product
-// (after ln_rows.cuh's row pass) and K4 vit_mlp's two.  K3 and the f32
-// bodies still use gemm_tile.cuh's tiles; the convolutions have their own
-// wgmma core (conv_wgmma.cuh, K9) or gemm_tile-style mma.sync tiles
-// (conv_igemm.cuh, K7 and K8).
+// (after ln_rows.cuh's row pass), K3 dense_scale_residual's and K4
+// vit_mlp's two.  The f32 bodies use gemm_tile.cuh's FMA tiles; the
+// convolutions have their own wgmma core (conv_wgmma.cuh, K8 and K9) or
+// mma.sync tiles (conv_igemm.cuh, K7).
 //
 //   C[M, N] = epilogue( A[M, K] @ W[N, K]^T )
 //
 // A is row-major tokens and W is in torch nn.Linear layout (out, in), so
 // both operands are K-major, as wgmma reads them from shared memory.  Sums
-// are f32.  Epilogues (sa::Epilogue): + bias; + bias then gelu; the result
-// is rounded to bf16 once.
+// are f32.  Epilogues (sa::Epilogue): + bias; + bias then gelu; + bias then
+// resid + gamma * y (K3's LayerScale and residual, in f32 from the
+// accumulators, as the TPU kernel computes it).  The result is rounded to
+// bf16 once.
 //
 // Bound: the products are far above the card's ridge, so the design keeps
 // the tensor cores busy on every SM.  A block owns a 128 x BN output tile,
@@ -30,7 +32,10 @@
 //   shared tile whose rows are padded so that the eight rows a warp writes
 //   fall on distinct banks, then copies it out in 16-byte pieces along the
 //   rows, the ragged edge masked (stored straight from the accumulators, a
-//   warp instruction writes 16 bytes on each of 8 rows);
+//   warp instruction writes 16 bytes on each of 8 rows).  K3's tile first
+//   holds the residual x, dense as TMA writes it: the producer loads it once
+//   the tile's last stage is issued and the previous tile's copy-out is
+//   done, and each pair x + gamma y replaces the x it came from;
 // - the grid is persistent: one block an SM walks the tiles, M fastest, so
 //   the blocks in flight share W's tiles in L2, and the producer loads the
 //   next tile while the consumers run the epilogue of this one;
@@ -66,8 +71,8 @@ struct Tile {
   // words a row of the bf16 output tile: 4 mod 8, so rows r and r + 1..7 start 4, 8, .. 28 banks apart
   static constexpr int PITCH = BN / 2 + 4 + ((BN / 2 + 4) % 8 == 0 ? 4 : 0);
   static constexpr int OUT_BYTES = BM * PITCH * 4;
-  // alignment slack, ring, output tile, mbarriers
-  static constexpr size_t SMEM = 1024 + STAGES * STAGE_BYTES + OUT_BYTES + 2 * STAGES * 8;
+  // alignment slack, ring, output tile, mbarriers (full, empty a stage; K3's residual full and free)
+  static constexpr size_t SMEM = 1024 + STAGES * STAGE_BYTES + OUT_BYTES + (2 * STAGES + 2) * 8;
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
 
@@ -80,19 +85,27 @@ __device__ __forceinline__ float gelu_as(float y) {
   return 0.5f * y * (1.f + erf);
 }
 
+// K3 (EPI_BIAS_SCALE_RESIDUAL): map_r over the residual x (M, N), box (BN,
+// 64), no swizzle, and gamma (N); the others pass map_a and null for them.
 template <int BN, int EPI>
 __global__ void __launch_bounds__(THREADS, 1) wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                                                                 const __grid_constant__ CUtensorMap map_w,
+                                                                const __grid_constant__ CUtensorMap map_r,
                                                                 const __nv_bfloat16* __restrict__ bias,
+                                                                const __nv_bfloat16* __restrict__ gamma,
                                                                 __nv_bfloat16* __restrict__ C, int M, int K, int N) {
   using namespace sm90;
   using T = Tile<BN>;
   constexpr int STAGES = T::STAGES;
+  constexpr bool RESID = EPI == EPI_BIAS_SCALE_RESIDUAL;
+  // words a row of the output tile: K3's holds the residual tile as TMA writes it, dense
+  constexpr int OUT_PITCH = RESID ? BN / 2 : T::PITCH;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const uint32_t ring = smem_u32(smem);  // stage s: A at s * STAGE_BYTES, W after it
   unsigned* out_tile = reinterpret_cast<unsigned*>(smem + STAGES * T::STAGE_BYTES);
   const uint32_t full0 = ring + STAGES * T::STAGE_BYTES + T::OUT_BYTES, empty0 = full0 + 8 * STAGES;
+  const uint32_t res_full = empty0 + 8 * STAGES, out_free = res_full + 8;
   const int m_tiles = (M + BM - 1) / BM, tiles = m_tiles * ((N + BN - 1) / BN);
   const int nk = (K + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
@@ -102,17 +115,19 @@ __global__ void __launch_bounds__(THREADS, 1) wgmma_gemm_kernel(const __grid_con
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, 8);  // lane 0 of every consumer warp
     }
+    mbar_init(res_full, 1);
+    mbar_init(out_free, 8);
     fence_mbar_init();
   }
   __syncthreads();
-  // launched as a dependent of the kernel before it: wait for that kernel's writes (A)
+  // launched as a dependent of the kernel before it: wait for that kernel's writes (A; K3's residual too)
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 
   if (wg == 2) {  // producer
     setmaxnreg_dec<40>();
     if (threadIdx.x == 256) {
       int it = 0;  // stages filled so far, over all of this block's tiles
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      for (int tile = blockIdx.x, tn = 0; tile < tiles; tile += gridDim.x, ++tn) {
         const int m0 = (tile % m_tiles) * BM, n0 = (tile / m_tiles) * BN;
         for (int kt = 0; kt < nk; ++kt, ++it) {
           const int s = it % STAGES;
@@ -122,6 +137,19 @@ __global__ void __launch_bounds__(THREADS, 1) wgmma_gemm_kernel(const __grid_con
           tma_load_2d(a, &map_a, full, kt * BK, m0);
           tma_load_2d(a + T::A_BYTES, &map_w, full, kt * BK, n0);
         }
+        if constexpr (RESID) {
+          // K3's residual tile into the output tile, once the previous tile's
+          // copy-out is done: issued after the tile's last stage, it lands
+          // while the consumers run its last STAGES stages.  Read from device
+          // memory in the epilogue instead, with the next tile waiting on it,
+          // K3 took 0.052 against 0.044 ms at the ViT-L 375x1242 request on
+          // the H100 (chip_smoke.py's device_ms)
+          if (tn > 0) mbar_wait(out_free, (tn - 1) & 1);
+          const uint32_t dst = smem_u32(out_tile);
+          mbar_expect_tx(res_full, BM * BN * 2);
+          tma_load_2d(dst, &map_r, res_full, n0, m0);
+          tma_load_2d(dst + 64 * BN * 2, &map_r, res_full, n0, m0 + 64);
+        }
       }
     }
   } else {  // consumers
@@ -130,7 +158,7 @@ __global__ void __launch_bounds__(THREADS, 1) wgmma_gemm_kernel(const __grid_con
     float acc[BN / 2];  // 64 x BN a warpgroup: acc[4 jb + 2 i + c] is row 16 warp + lane / 4 + 8 i,
                         // column 8 jb + 2 (lane % 4) + c
     int it = 0;         // stages consumed so far
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    for (int tile = blockIdx.x, tn = 0; tile < tiles; tile += gridDim.x, ++tn) {
       const int m0 = (tile % m_tiles) * BM, n0 = (tile / m_tiles) * BN;
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
@@ -154,7 +182,8 @@ __global__ void __launch_bounds__(THREADS, 1) wgmma_gemm_kernel(const __grid_con
       if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % STAGES));  // the tile's last stage
 
       // this warpgroup's 64 rows of the output tile; the previous tile's copy is done
-      unsigned* rows = out_tile + wg * 64 * T::PITCH;
+      unsigned* rows = out_tile + wg * 64 * OUT_PITCH;
+      if constexpr (RESID) mbar_wait(res_full, tn & 1);  // the residual tile is in it
       named_bar_sync(1 + wg, 128);
       const int g = lane / 4, t = lane % 4;
 #pragma unroll
@@ -162,6 +191,9 @@ __global__ void __launch_bounds__(THREADS, 1) wgmma_gemm_kernel(const __grid_con
         const int n = n0 + 8 * jb + 2 * t;
         const float2 bb = n < N ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + n))
                                 : make_float2(0.f, 0.f);
+        float2 gm = make_float2(0.f, 0.f);
+        if (RESID && n < N)
+          gm = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gamma + n));
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           float y0 = acc[4 * jb + 2 * i] + bb.x, y1 = acc[4 * jb + 2 * i + 1] + bb.y;
@@ -169,7 +201,13 @@ __global__ void __launch_bounds__(THREADS, 1) wgmma_gemm_kernel(const __grid_con
             y0 = gelu_as(y0);
             y1 = gelu_as(y1);
           }
-          rows[(warp * 16 + g + 8 * i) * T::PITCH + 4 * jb + t] = pack_bf16(y0, y1);
+          unsigned& out = rows[(warp * 16 + g + 8 * i) * OUT_PITCH + 4 * jb + t];
+          if (RESID) {  // x + gamma y in f32, rounded once, in x's place (TMA zero-filled x past M and N)
+            const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&out));
+            y0 = r.x + gm.x * y0;
+            y1 = r.y + gm.y * y1;
+          }
+          out = pack_bf16(y0, y1);
         }
       }
       named_bar_sync(1 + wg, 128);
@@ -178,7 +216,12 @@ __global__ void __launch_bounds__(THREADS, 1) wgmma_gemm_kernel(const __grid_con
         const int r = c / CHUNKS, m = m0 + wg * 64 + r, n = n0 + (c % CHUNKS) * 8;
         if (m < M && n < N)
           *reinterpret_cast<uint4*>(C + static_cast<size_t>(m) * N + n) =
-              *reinterpret_cast<const uint4*>(rows + r * T::PITCH + (c % CHUNKS) * 4);
+              *reinterpret_cast<const uint4*>(rows + r * OUT_PITCH + (c % CHUNKS) * 4);
+      }
+      if constexpr (RESID) {  // this warp's reads and writes of the tile are done: the next TMA may land
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncwarp();
+        if (lane == 0) mbar_arrive(out_free);
       }
     }
   }
@@ -219,15 +262,22 @@ cudaError_t set_smem_limit() {
 }
 
 template <int BN, int EPI>
-cudaError_t launch_tiles(const void* A, const void* W, const void* bias, void* C, int M, int K, int N,
-                         cudaStream_t stream) {
-  CUtensorMap map_a, map_w;
+cudaError_t launch_tiles(const void* A, const void* W, const void* bias, const void* resid, const void* gamma,
+                         void* C, int M, int K, int N, cudaStream_t stream) {
+  CUtensorMap map_a, map_w, map_r;
   const cuuint64_t dims_a[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
   const cuuint64_t dims_w[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(N)};
   const cuuint64_t stride[1] = {static_cast<cuuint64_t>(K) * 2};
   const cuuint32_t box_a[2] = {BK, BM}, box_w[2] = {BK, BN};
   cudaError_t e = sm90::make_map_bf16(&map_a, A, 2, dims_a, stride, box_a);
   if (e == cudaSuccess) e = sm90::make_map_bf16(&map_w, W, 2, dims_w, stride, box_w);
+  map_r = map_a;
+  if (EPI == EPI_BIAS_SCALE_RESIDUAL && e == cudaSuccess) {  // x (M, N), box of 64 whole tile rows
+    const cuuint64_t dims_r[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(M)};
+    const cuuint64_t stride_r[1] = {static_cast<cuuint64_t>(N) * 2};
+    const cuuint32_t box_r[2] = {BN, 64};
+    e = sm90::make_map_bf16(&map_r, resid, 2, dims_r, stride_r, box_r, CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
   if (e == cudaSuccess) e = set_smem_limit<BN, EPI>();
   if (e != cudaSuccess) return e;
   // programmatic dependent launch: the grid is set up while the kernel before it finishes
@@ -241,19 +291,22 @@ cudaError_t launch_tiles(const void* A, const void* W, const void* bias, void* C
   attr.val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, wgmma_gemm_kernel<BN, EPI>, map_a, map_w, static_cast<const __nv_bfloat16*>(bias),
+  e = cudaLaunchKernelEx(&cfg, wgmma_gemm_kernel<BN, EPI>, map_a, map_w, map_r,
+                         static_cast<const __nv_bfloat16*>(bias), static_cast<const __nv_bfloat16*>(gamma),
                          static_cast<__nv_bfloat16*>(C), M, K, N);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// resid (M, N) and gamma (N): EPI_BIAS_SCALE_RESIDUAL's operands, null for the others
 template <int EPI>
 cudaError_t launch_wgmma_gemm(const void* A, const void* W, const void* bias, void* C, int M, int K, int N,
-                              cudaStream_t stream) {
+                              cudaStream_t stream, const void* resid = nullptr, const void* gamma = nullptr) {
   if (K % 8 != 0 || N % 8 != 0) return cudaErrorInvalidValue;
+  if ((EPI == EPI_BIAS_SCALE_RESIDUAL) != (resid != nullptr && gamma != nullptr)) return cudaErrorInvalidValue;
   switch (pick_bn(M, N)) {
-    case 256: return launch_tiles<256, EPI>(A, W, bias, C, M, K, N, stream);
-    case 208: return launch_tiles<208, EPI>(A, W, bias, C, M, K, N, stream);
-    default: return launch_tiles<176, EPI>(A, W, bias, C, M, K, N, stream);
+    case 256: return launch_tiles<256, EPI>(A, W, bias, resid, gamma, C, M, K, N, stream);
+    case 208: return launch_tiles<208, EPI>(A, W, bias, resid, gamma, C, M, K, N, stream);
+    default: return launch_tiles<176, EPI>(A, W, bias, resid, gamma, C, M, K, N, stream);
   }
 }
 

@@ -303,13 +303,14 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// What a map is a function of: base, rank, dims, strides, box (no padding
-// bytes: 8 + 40 + 32 + 20 + 4 = 104)
+// What a map is a function of: base, rank, dims, strides, box, swizzle
+// (8 + 40 + 32 + 20 + 4 + 4 = 108 bytes and 4 of padding, zeroed before
+// the fields are set, so that keys compare as bytes)
 struct MapKey {
   const void* base;
   cuuint64_t dims[5], strides[4];
   cuuint32_t box[5];
-  int rank;
+  int rank, swizzle;
 };
 
 // The maps encoded last, keyed by their arguments: the weights' maps, and
@@ -326,15 +327,18 @@ struct MapCache {
 };
 
 // A bf16 tensor map of `rank` dims (innermost first, dims[0] contiguous),
-// byte strides of dims 1.., box `box` elements, 128-byte swizzle, zeros
-// outside the tensor.  The box's inner extent must be 64 (one swizzle row).
+// byte strides of dims 1.., box `box` elements, zeros outside the tensor;
+// 128-byte swizzle (the box's inner extent then 64, one swizzle row) or
+// none (dense rows, the inner extent a multiple of 8 up to 256).
 inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                                 const cuuint64_t* strides, const cuuint32_t* box) {
+                                 const cuuint64_t* strides, const cuuint32_t* box,
+                                 CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   if (rank < 1 || rank > 5) return cudaErrorInvalidValue;
   MapKey key;
   std::memset(&key, 0, sizeof key);
   key.base = base;
   key.rank = rank;
+  key.swizzle = static_cast<int>(swizzle);
   std::memcpy(key.dims, dims, rank * sizeof(cuuint64_t));
   std::memcpy(key.strides, strides, (rank - 1) * sizeof(cuuint64_t));
   std::memcpy(key.box, box, rank * sizeof(cuuint32_t));
@@ -349,7 +353,7 @@ inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank, c
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box,
-                        ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   int slot = cache.next;

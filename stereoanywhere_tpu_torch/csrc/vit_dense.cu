@@ -2,12 +2,14 @@
 // Replaces stereoanywhere_tpu/ops/pallas/vit_dense.py (ln_dense,
 // dense_scale_residual).  Design and bound: ops/cuda/vit_dense.py.
 //
-// K1, bf16: two launches, K4's first half with the bias epilogue: the
-// LayerNorm row pass (ln_rows.cuh) writes LN(x) rounded to bf16 into an
-// (M, K) scratch, the TPU kernel's rounding point, and the TMA + wgmma
-// product of gemm_wgmma.cuh adds the bias.  f32, and K3 in both dtypes: the
-// tiles of gemm_tile.cuh (FMA in f32, mma.sync in bf16), LayerNorm in K1's
-// prologue and LayerScale + residual in K3's epilogue.
+// bf16, both on the TMA + wgmma product of gemm_wgmma.cuh.  K1: two
+// launches, K4's first half with the bias epilogue: the LayerNorm row pass
+// (ln_rows.cuh) writes LN(x) rounded to bf16 into an (M, K) scratch, the TPU
+// kernel's rounding point, and the product adds the bias.  K3: one launch,
+// the product with the bias + LayerScale + residual epilogue, x + gamma y
+// taken in f32 from the accumulators and rounded once, as the TPU kernel
+// does.  f32: the FMA tiles of gemm_tile.cuh, LayerNorm in K1's prologue
+// and LayerScale + residual in K3's epilogue.
 #include "gemm_wgmma.cuh"
 #include "ln_rows.cuh"
 
@@ -16,8 +18,7 @@ extern "C" int sa_ln_dense(const void* x, const void* g, const void* b, const vo
                            void* out, int M, int K, int N, int dtype, float eps, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == SA_F32)
-    return sa::launch_gemm<float, sa::PRO_LAYERNORM, sa::EPI_BIAS>(x, w, bias, g, b, eps, nullptr, nullptr, out,
-                                                                   M, K, N, s);
+    return sa::launch_gemm<sa::PRO_LAYERNORM, sa::EPI_BIAS>(x, w, bias, g, b, eps, nullptr, nullptr, out, M, K, N, s);
   if (dtype != SA_BF16) return cudaErrorInvalidValue;
   if (K % 8 != 0 || N % 8 != 0) return cudaErrorInvalidValue;
   cudaError_t e = sa::launch_ln_rows(x, g, b, ln, M, K, eps, s);
@@ -40,10 +41,17 @@ extern "C" int sa_dense_scale_residual(const void* x, const void* o, const void*
                                        void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == SA_F32)
-    return sa::launch_gemm<float, sa::PRO_NONE, sa::EPI_BIAS_SCALE_RESIDUAL>(o, w, bias, nullptr, nullptr, 0.f, x,
-                                                                             gamma, out, M, K, N, s);
+    return sa::launch_gemm<sa::PRO_NONE, sa::EPI_BIAS_SCALE_RESIDUAL>(o, w, bias, nullptr, nullptr, 0.f, x, gamma,
+                                                                      out, M, K, N, s);
   if (dtype == SA_BF16)
-    return sa::launch_gemm<__nv_bfloat16, sa::PRO_NONE, sa::EPI_BIAS_SCALE_RESIDUAL>(
-        o, w, bias, nullptr, nullptr, 0.f, x, gamma, out, M, K, N, s);
+    return sa::wg::launch_wgmma_gemm<sa::EPI_BIAS_SCALE_RESIDUAL>(o, w, bias, out, M, K, N, s, x, gamma);
   return cudaErrorInvalidValue;
+}
+
+// K3's bf16 launch geometry: out[0..3] = the product's tile width BN, tiles,
+// blocks and dynamic shared memory in bytes; out[4] = its threads.
+extern "C" int sa_dense_scale_residual_geometry(int M, int N, int* out) {
+  sa::wg::geometry(M, N, out);
+  out[4] = sa::wg::THREADS;
+  return cudaSuccess;
 }

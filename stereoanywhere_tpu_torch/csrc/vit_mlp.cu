@@ -16,11 +16,11 @@ namespace {
 
 cudaError_t run_f32(const void* x, const void* g, const void* b, const void* w1, const void* b1, const void* w2,
                     const void* b2, void* hidden, void* out, int M, int D, int Hd, float eps, cudaStream_t s) {
-  cudaError_t e = sa::launch_gemm<float, sa::PRO_LAYERNORM, sa::EPI_BIAS_GELU>(x, w1, b1, g, b, eps, nullptr,
-                                                                              nullptr, hidden, M, D, Hd, s);
+  cudaError_t e = sa::launch_gemm<sa::PRO_LAYERNORM, sa::EPI_BIAS_GELU>(x, w1, b1, g, b, eps, nullptr, nullptr,
+                                                                       hidden, M, D, Hd, s);
   if (e != cudaSuccess) return e;
-  return sa::launch_gemm<float, sa::PRO_NONE, sa::EPI_BIAS>(hidden, w2, b2, nullptr, nullptr, 0.f, nullptr, nullptr,
-                                                            out, M, Hd, D, s);
+  return sa::launch_gemm<sa::PRO_NONE, sa::EPI_BIAS>(hidden, w2, b2, nullptr, nullptr, 0.f, nullptr, nullptr, out,
+                                                     M, Hd, D, s);
 }
 
 cudaError_t run_bf16(const void* x, const void* g, const void* b, const void* w1, const void* b1, const void* w2,

@@ -21,25 +21,31 @@ convolutions above the card's ridge in bf16 (K9 at level 0: 43.5 GFLOP for
 32 MB; K8: 11.0 GFLOP for 7.3 MB; K7: 9.7 GFLOP for 4.9 MB; chip_smoke's
 counts), so tensor-core FLOP/s bound them.  Every 3x3 (and 7x7) conv is an
 implicit GEMM whose [h, x...] concatenation is never built.
-- K9 in bf16 (the fused loop's type): `csrc/conv_wgmma.cuh`.  A tile is a
-  2-D patch of 128 or 64 pixels of one image, loaded per K-step (tap x
-  input x 64 channels) by one TMA load from a 4-D map over (C, W, H, B):
-  a tap is a coordinate offset and the zero padding is TMA's zero fill, so
-  no thread computes an address.  A producer warpgroup keeps an mbarrier
-  ring full, consumer warpgroups run `wgmma` (128 x 256 or 128 x 128 tiles
-  on the 1/4-resolution plane, 64-row tiles on the small planes so they
-  fill more SMs), the grid is persistent, and the gates and blend work on
+- K9 and K8's two 3x3 stages in bf16 (the fused loop's type):
+  `csrc/conv_wgmma.cuh`.  A tile is a 2-D patch of 128 or 64 pixels of one
+  image, loaded per K-step (tap x input x 64 channels) by one TMA load from
+  a 4-D map over (C, W, H, B): a tap is a coordinate offset and the zero
+  padding is TMA's zero fill, so no thread computes an address.  A
+  producer warpgroup keeps an mbarrier ring full, consumer warpgroups run
+  `wgmma` (128 x 256 or 128 x 128 tiles on the 1/4-resolution plane, 64-row
+  tiles on the small planes so they fill more SMs; 128 x 64 for K8's
+  grouped stage, whose tiles each lie in one group of 64 outputs and read
+  only that group's 64 input channels), the grid is persistent, and the
+  epilogues (K9's gates and blend, K8's ReLU and its flow-x lane) work on
   16-byte pieces of the f32 sums through a padded shared tile.
-- K7, K8, and K9 in f32 (`csrc/conv_igemm.cuh`): `mma.sync` m16n8k16 tiles
-  in bf16, FP32 FMA tiles in f32, the taps nine shifted K-slices whose zero
-  padding is a predicated load, the epilogue applied to each accumulator.
+- K7, and K8 and K9 in f32 (`csrc/conv_igemm.cuh`): `mma.sync` m16n8k16
+  tiles in bf16 (K7's conv1), FP32 FMA tiles in f32, the taps nine shifted
+  K-slices whose zero padding is a predicated load, the epilogue applied
+  to each accumulator.
 What the TPU kernels kept in VMEM slabs between their stages (fh1, c1/f1,
 c2/f2, z, r*h) goes through device-memory scratch here, rounded to the
 compute dtype as the slabs are, so a call is several launches: K7 two (conv1
 on the tensor cores, then conv2's one output channel and the coordinate
 update, a warp a pixel), K8 three (the 1x1 correlation conv and the 7x7 flow
-conv on the CUDA cores, then convc2/convf2 as one 3-group conv, then the
-merge conv), K9 two (z and r*h, then q and the blend: q's conv reads r*h of
+conv: in bf16 `mma.sync` products over 64 pixels, the 36-channel
+correlation rows, 72 bytes, being no TMA row, and the 7x7 taps an im2col in
+shared memory; in f32 on the CUDA cores, one thread an output channel; then
+convc2/convf2 as one 3-group conv, then the merge conv), K9 two (z and r*h, then q and the blend: q's conv reads r*h of
 neighbouring pixels, which another block computes).  Each call counts once.
 """
 from __future__ import annotations
@@ -185,5 +191,18 @@ def launch_geometry(b: int, h: int, w: int, hd: int = 128) -> list[dict]:
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 18)()
     check_status(_LIB, "conv_gru geometry", fn(b, h, w, hd, out))
+    keys = ("bm", "bn", "bw", "bh", "tiles", "blocks", "stages", "threads", "smem")
+    return [dict(zip(keys, out[9 * i:9 * i + 9])) for i in range(2)]
+
+
+def motion_geometry(b: int, h: int, w: int) -> list[dict]:
+    """K8's bf16 3x3 launches (the grouped convc2/convf2 stage, then the
+    merge conv) on a (B, H, W) plane, as the library computes them; keys as
+    `launch_geometry`'s."""
+    fn = library(_LIB).sa_motion_geometry
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 18)()
+    check_status(_LIB, "motion_encoder geometry", fn(b, h, w, out))
     keys = ("bm", "bn", "bw", "bh", "tiles", "blocks", "stages", "threads", "smem")
     return [dict(zip(keys, out[9 * i:9 * i + 9])) for i in range(2)]

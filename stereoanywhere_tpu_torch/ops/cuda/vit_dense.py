@@ -12,7 +12,7 @@ Replaces the Pallas TPU kernels `stereoanywhere_tpu/ops/pallas/vit_dense.py`
 Bound on the H100 at the ViT-L 512^2 request (M = 2 x 1370 tokens): both
 are matrix products well above the card's ridge (K1: 17.2 GFLOP for 29 MB
 moved, K3: 5.75 GFLOP for 19 MB), so tensor-core FLOP/s bound them.  Two
-bodies each, picked by dtype:
+bodies each, picked by dtype; both bf16 bodies run on one product core:
 - K1 in bf16 (the deployed type), two launches, the first half of K4's
   body (`csrc/vit_mlp.cu`) with a bias epilogue: the LayerNorm row pass of
   `csrc/ln_rows.cuh` writes LN(x) rounded to bf16 into an (M, D) scratch
@@ -22,11 +22,15 @@ bodies each, picked by dtype:
   so the tiles spread evenly over the SMs: 256 at 512^2, 264 tiles in two
   full rounds; 176 at 375x1242) adds the bias, launched as a programmatic
   dependent of the row pass;
-- K3 in bf16: the `mma.sync` m16n8k16 tile of `csrc/gemm_tile.cuh` (128 x 128,
-  K in steps of 64 through a 3-stage cp.async ring) with the bias,
-  LayerScale and residual in its epilogue;
-- f32 (the check type): FP32 FMA tiles (64x64, 4x4 per thread), which keep
-  the full f32 product; K1 normalises each A tile in its prologue.
+- K3 in bf16, one launch: the same `gemm_wgmma.cuh` product (BN 176 at
+  512^2, 132 tiles in one round; 208 at 375x1242, 360 tiles in 2.7) with
+  the bias, LayerScale and residual in its epilogue: x + gamma * y in f32
+  from the accumulators, x read as bf16 pairs at each thread's own rows
+  and columns (rows past M masked), rounded to bf16 once, the TPU
+  kernel's one rounding point;
+- f32 (the check type): FP32 FMA tiles of `csrc/gemm_tile.cuh` (64x64, 4x4
+  per thread), which keep the full f32 product; K1 normalises each A tile
+  in its prologue.
 """
 from __future__ import annotations
 
@@ -118,3 +122,15 @@ def launch_geometry(m: int, f: int) -> dict:
     check_status(_LIB, "ln_dense geometry", fn(m, f, out))
     return dict(ln_blocks=out[0], ln_threads=out[1], bn=out[2], tiles=out[3], blocks=out[4], smem=out[5],
                 threads=out[6])
+
+
+def residual_geometry(m: int, d: int) -> dict:
+    """K3's bf16 launch at M tokens and width D, as the library computes it:
+    the product's tile width BN (tiles are 128 x BN), tiles, blocks of its
+    persistent grid, dynamic shared memory and threads."""
+    fn = library(_LIB).sa_dense_scale_residual_geometry
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    check_status(_LIB, "dense_scale_residual geometry", fn(m, d, out))
+    return dict(bn=out[0], tiles=out[1], blocks=out[2], smem=out[3], threads=out[4])

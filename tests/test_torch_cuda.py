@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (K1-K4, and K5, K7, K8, K9 with the K6
 interface) against their plain PyTorch versions, and the launch geometry of
-the wgmma + TMA bodies (K1, K2, K4, K9), on the card.  Every test
+the wgmma + TMA bodies (K1-K4, K8, K9), on the card.  Every test
 here needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the test conftest's fixtures, so that it
@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from stereoanywhere_tpu_torch.ops import step_fused as port_sf
+from stereoanywhere_tpu_torch.ops.cuda import build as port_build
 from stereoanywhere_tpu_torch.ops.cuda import corr_lookup as port_lookup
 from stereoanywhere_tpu_torch.ops.cuda import step_fused as port_step
 from stereoanywhere_tpu_torch.ops.cuda import vit_attention as port_attn
@@ -87,6 +88,23 @@ def test_ln_dense_kernel_vit_widths(cuda, dtype, b, t, d):
     g, be = _rand(rng, dtype, d, scale=0.5, shift=1.0), _rand(rng, dtype, d, scale=0.1)
     w, bias = _rand(rng, dtype, 3 * d, d, scale=d ** -0.5), _rand(rng, dtype, 3 * d, scale=0.1)
     _check(port_dense.ln_dense, port_dense.ln_dense_ref, (x, g, be, w, bias), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t", [(1, 1370), (2, 1370), (1, 4552), (2, 4552), (1, 129)],
+                         ids=["M1370", "M2740", "M4552", "M9104", "M129"])
+def test_dense_scale_residual_kernel_vit_l(cuda, dtype, b, t):
+    """K3 at ViT-L's width (D 1024) and the token counts of the 512^2 and
+    375x1242 requests, B 1 and 2: M is no multiple of the 128-row tile, and
+    129 leaves one row in the last; the residual of the rows past M must
+    not be read."""
+    rng = np.random.default_rng(b * t)
+    d = 1024
+    x, o = _rand(rng, dtype, b, t, d), _rand(rng, dtype, b, t, d)
+    w, bias = _rand(rng, dtype, d, d, scale=d ** -0.5), _rand(rng, dtype, d, scale=0.1)
+    gamma = _rand(rng, dtype, d, scale=0.5)
+    _check(port_dense.dense_scale_residual, port_dense.dense_scale_residual_ref, (x, o, w, bias, gamma), dtype)
 
 
 @pytest.mark.cuda
@@ -174,6 +192,13 @@ def test_wgmma_kernels_launch_geometry(cuda):
         assert k1["smem"] <= 232448
     if sms == 132:  # 264 tiles of 256 in two full rounds; 1296 of 176 in 9.8
         assert (port_dense.launch_geometry(2740, 3072)["bn"], port_dense.launch_geometry(9104, 3072)["bn"]) == (256, 176)
+    # K3, the projection (N = D = 1024) at both requests: the product of K1 and K4
+    for m, row_tiles in ((2740, 22), (9104, 72)):
+        k3 = port_dense.residual_geometry(m, 1024)
+        assert k3["threads"] == 384 and k3["bn"] in (256, 208, 176) and k3["smem"] <= 232448
+        assert k3["tiles"] == row_tiles * -(-1024 // k3["bn"]) and k3["blocks"] == min(sms, k3["tiles"])
+    if sms == 132:  # 22 x 6 tiles of 176 fill the card once; 72 x 5 of 208 in 2.7 rounds
+        assert [port_dense.residual_geometry(m, 1024)["bn"] for m in (2740, 9104)] == [176, 208]
     # K9 at the three scales of both planes: patches of BM pixels cover the plane
     for h, w in ((128, 128), (64, 64), (32, 32), (96, 320), (48, 160), (24, 80), (13, 6)):
         for g, n in zip(port_step.launch_geometry(1, h, w), (256, 128)):
@@ -182,6 +207,19 @@ def test_wgmma_kernels_launch_geometry(cuda):
             assert g["blocks"] == min(sms, g["tiles"]) and g["threads"] == 128 * (g["bm"] // 64 + 1)
             assert g["smem"] <= 232448 and g["stages"] >= 2
     assert port_step.launch_geometry(1, 24, 80)[0]["bw"] == 16  # 5 patches a row, none wasted
+    # K8's 3x3 stages: the grouped one (N 192 in groups of 64) on tiles whose
+    # BN is one group's; the merge conv (N 128)
+    for h, w in ((128, 128), (96, 320), (24, 80), (13, 6)):
+        c2, mc = port_step.motion_geometry(1, h, w)
+        assert c2["bn"] == 64 and mc["bn"] in (64, 128)
+        for g, n in ((c2, 192), (mc, 128)):
+            assert g["bw"] * g["bh"] == g["bm"] and g["bm"] in (64, 128)
+            assert g["tiles"] == -(-w // g["bw"]) * -(-h // g["bh"]) * (n // g["bn"])
+            assert g["blocks"] == min(sms, g["tiles"]) and g["threads"] == 128 * (g["bm"] // 64 + 1)
+            assert g["smem"] <= 232448 and g["stages"] >= 2
+    if sms == 132:  # 128-pixel patches at both requests' planes
+        assert [(g["bm"], g["bn"]) for g in port_step.motion_geometry(1, 128, 128)] == [(128, 64), (128, 128)]
+        assert [(g["bm"], g["bn"]) for g in port_step.motion_geometry(1, 96, 320)] == [(128, 64), (128, 128)]
     if sms == 132:  # 64-row tiles on the small planes of the 512^2 request
         assert [(g["bm"], g["bn"]) for g in port_step.launch_geometry(1, 128, 128)] == [(128, 256), (128, 128)]
         assert [(g["bm"], g["bn"]) for g in port_step.launch_geometry(1, 64, 64)] == [(64, 128), (64, 64)]
@@ -274,6 +312,57 @@ def test_motion_encoder_kernel(cuda, dtype, border):
         c[:, [0, -1]] += 25.0
         c[:, :, [0, -1]] -= 25.0
     _check(port_step.motion_encoder, port_sf.motion_encoder_ref, (ca, cb, c, w), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hh,ww", [(1, 128, 128), (1, 96, 320), (1, 24, 80), (2, 24, 80), (1, 13, 6)],
+                         ids=["512-plane", "kitti-plane", "narrow", "batch-two", "narrower-than-a-patch"])
+def test_motion_encoder_kernel_planes(cuda, dtype, b, hh, ww):
+    """K8 at the quarter-resolution planes of the 512^2 and 375x1242
+    requests, a narrow one (24 x 80: 16-wide patches), B = 2 and a plane
+    narrower than a patch, with border values in both correlation streams
+    and coordinates whose flow-x is large near the plane's edges: the 7x7
+    flow conv then reads past them, and flow-x fills its lane."""
+    from stereoanywhere_tpu_torch.models.update import MotionEncoder
+
+    rng = np.random.default_rng(hh * ww + b)
+    w = _packed(MotionEncoder(36), port_sf.pack_motion_weights, dtype, 5)
+    ca, cb = _border(_rand(rng, dtype, b, hh, ww, 36)), _border(_rand(rng, dtype, b, hh, ww, 36))
+    c = _coords(rng, b, hh, ww)
+    c[:, :3] += 40.0  # the top rows and the right columns look far to the right,
+    c[:, :, -3:] -= 40.0  # the right columns far to the left
+    _check(port_step.motion_encoder, port_sf.motion_encoder_ref, (ca, cb, c, w), dtype)
+
+
+@pytest.mark.cuda
+def test_motion_encoder_forced_tiles_agree(cuda):
+    """Every tile K8's bf16 3x3 stages may take (forced through the
+    library's diagnostic entry point) gives the plain version's answer on a
+    plane no patch divides; a tile that would straddle two groups of the
+    grouped stage is refused."""
+    from stereoanywhere_tpu_torch.models.update import MotionEncoder
+
+    rng = np.random.default_rng(12)
+    b, hh, ww = 2, 20, 36
+    w = _packed(MotionEncoder(36), port_sf.pack_motion_weights, "bfloat16", 6)
+    ca, cb = _border(_rand(rng, "bfloat16", b, hh, ww, 36)), _rand(rng, "bfloat16", b, hh, ww, 36)
+    c = _coords(rng, b, hh, ww)
+    want = port_sf.motion_encoder_ref(ca, cb, c, w)
+    fn = port_build.bind("step_fused", "sa_motion_forced_tile", 14, 6)
+    a1 = torch.empty((b, hh, ww, 192), device="cuda", dtype=torch.bfloat16)
+    a2, out = torch.empty_like(a1), torch.empty((b, hh, ww, 128), device="cuda", dtype=torch.bfloat16)
+    ptrs = [t.data_ptr() for t in (ca, cb, c, w.w_c1, w.b_c1, w.w_f1, w.b_f1, w.w_c2f2, w.b_c2f2, w.w_mc, w.b_mc,
+                                   a1, a2, out)]
+    # candidates 1..5: 128x256, 128x128, 64x128, 64x64, 128x64 (0: picked)
+    for tile2, tile3 in ((0, 0), (4, 0), (5, 0), (0, 2), (0, 3), (0, 4), (0, 5), (4, 3)):
+        out.zero_()
+        assert fn(*ptrs, b, hh, ww, 36, tile2, tile3, port_build.current_stream()) == 0
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= 1e-2 * want.float().abs().max().item(), (tile2, tile3, err)
+    for tile2 in (1, 2, 3):  # BN 256 or 128 across the 64-wide groups
+        assert fn(*ptrs, b, hh, ww, 36, tile2, 0, port_build.current_stream()) != 0
 
 
 @pytest.mark.cuda

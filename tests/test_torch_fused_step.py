@@ -152,21 +152,27 @@ def _motion_weights(rng):
     )
 
 
-def test_motion_encoder_matches_jax(rng):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_motion_encoder_matches_jax(rng, dtype):
+    """K8.  In bf16, the rounding points the card's kernel keeps (c1/f1 and
+    c2/f2 rounded to bf16, flow-x rounded before convf1 and for its lane,
+    the output rounded once) against the TPU kernel's, within 1e-2 of
+    max |JAX| (`test_torch_kernels.py`'s bf16 tolerance: one bf16 ulp at
+    each rounding point, from f32 sums taken in another order)."""
     from stereoanywhere_tpu.ops.pallas import step_fused as sf
 
     from stereoanywhere_tpu_torch.models.update import MotionEncoder
     from stereoanywhere_tpu_torch.ops.cuda.step_fused import motion_encoder
 
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
     _, coords0, coords, _, _ = _sf_inputs(rng)
     cf = _arr(rng, 1, 32, 64, 128, scale=0.5)
     cf[..., 72:] = 0.0
     wts = _motion_weights(rng)
     order = ("k1", "b1", "k2c", "b2c", "kf1", "bf1", "kf2", "bf2", "kmc", "bmc")
-    mw = sf.pack_motion_weights(*[jnp.asarray(wts[k]) for k in order], 4, 4, jnp.float32)
-    flowcols = sf.make_flowcols(jnp.asarray(coords - coords0))
-    want = sf.fused_step_motion(jnp.asarray(cf), flowcols, mw, interpret=True)
-    want_r = sf.step_motion_ref(jnp.asarray(cf), jnp.asarray(coords), *[wts[k] for k in order])
+    mw = sf.pack_motion_weights(*[jnp.asarray(wts[k]) for k in order], 4, 4, jdt)
+    flowcols = sf.make_flowcols(jnp.asarray(coords - coords0).astype(jdt))
+    want = sf.fused_step_motion(jnp.asarray(cf, jdt), flowcols, mw, interpret=True)
 
     enc = MotionEncoder(36)
     for name, (k, bk) in {"convc1": ("k1", "b1"), "convc2": ("k2c", "b2c"), "convf1": ("kf1", "bf1"),
@@ -174,8 +180,14 @@ def test_motion_encoder_matches_jax(rng):
         setattr(enc, name, conv_module(wts[k], wts[bk]))
     ca = np.concatenate([cf[..., 18 * i: 18 * i + 9] for i in range(4)], -1)
     cb = np.concatenate([cf[..., 18 * i + 9: 18 * i + 18] for i in range(4)], -1)
-    got = motion_encoder(t(ca), t(cb), t(coords), P.pack_motion_weights(enc, torch.float32))
-    assert got.shape == (1, 32, 64, 128)
+    got = motion_encoder(t(ca).to(tdt), t(cb).to(tdt), t(coords), P.pack_motion_weights(enc, tdt))
+    assert got.shape == (1, 32, 64, 128) and got.dtype == tdt
+    if dtype == "bfloat16":
+        got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
+        return
+    want_r = sf.step_motion_ref(jnp.asarray(cf), jnp.asarray(coords), *[wts[k] for k in order])
     close(got.numpy(), want, 1e-4)
     close(got.numpy(), want_r, 1e-4)
 

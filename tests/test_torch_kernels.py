@@ -47,14 +47,24 @@ def test_ln_dense_plain_matches_pallas(rng):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
-def test_dense_scale_residual_plain_matches_pallas(rng):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_scale_residual_plain_matches_pallas(rng, dtype):
+    """K3; in bf16 the rounding point the card's kernel keeps: x + gamma y
+    in f32 from the f32 product, rounded to bf16 once."""
     from stereoanywhere_tpu.ops.pallas.vit_dense import dense_scale_residual
 
     x, _, gam, w, bias = _inputs(rng, 1, 37, 128, 128)
     o = rng.standard_normal(x.shape).astype(np.float32)
-    want = np.asarray(dense_scale_residual(x, o, w.T, bias, gam, block_t=16, interpret=True))
-    got = port_dense.dense_scale_residual(*_t(x, o, w, bias, gam)).numpy()
-    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    if dtype == "float32":
+        want = np.asarray(dense_scale_residual(x, o, w.T, bias, gam, block_t=16, interpret=True))
+        got = port_dense.dense_scale_residual(*_t(x, o, w, bias, gam)).numpy()
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        return
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (x, o, w.T, bias, gam)]
+    want = dense_scale_residual(*jb, block_t=16, interpret=True)
+    got = port_dense.dense_scale_residual(*[a.bfloat16() for a in _t(x, o, w, bias, gam)])
+    assert got.dtype == torch.bfloat16
+    _bf16_close(got.float().numpy(), want.astype(jnp.float32))
 
 
 @pytest.mark.parametrize("heads,hd", [(2, 64), (1, 128)])
