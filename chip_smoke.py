@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py                # the smoke run below
-    python3 chip_smoke.py --tiles        # K9's and K8's tile candidates, each forced, timed
-    python3 chip_smoke.py --ab OTHER     # K1, K3, K8 and K9 of this checkout and OTHER, in turns
+    python3 chip_smoke.py --tiles        # K9's, K8's and K7's tile candidates, each forced, timed
+    python3 chip_smoke.py --ab OTHER     # K1, K3, K7, K8 and K9 of this checkout and OTHER, in turns
 
 Phases of the smoke run (any failure exits non-zero before the result line):
 1. build the hand-written kernels from `stereoanywhere_tpu_torch/csrc/`
@@ -39,24 +39,29 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    request are asserted (K1-K4 24; K5, K7, K8 31 and K9 93 on the fused
    path, none on the default one); then, per configuration and shape, the
    warm request and its mono and stereo stages timed in interleaved
-   rounds, and one request traced with `torch.profiler` for the device's
-   busy time, idle share and time by kernel family;
-4. whole-model checks in f32: DAv2 ViT-L at 140x140 (backbone tokens and
+   rounds (the stages through `mono_stage` and `stereo_stage`), and one
+   request traced with `torch.profiler` for the device's busy time, idle
+   share, time by kernel family and aten::conv3d's device time; then the
+   mono hourglass and classifiers of a bf16 model alone at both requests'
+   volumes, with f32 depth pyramids (as the model runs them: f32 past the
+   first gate) and with bf16 ones (all in bf16), in turns;
+4. whole-model checks: DAv2 ViT-L at 140x140 in f32 (backbone tokens and
    depth), the whole pipeline (ViT-S, 64x96) on the card against the CPU
    through the plain versions, in the default and the fused configuration,
-   and the fused pipeline against the default one on the card.
+   in f32 and in bf16, and the fused pipeline against the default one on
+   the card in f32.
 It prints a `{"kernels": [...]}` line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
 
 --tiles: K9's bf16 body at each scale of both planes with each of its five
-tile candidates forced on both launches, and K8's with each candidate its
-grouped stage or its merge conv may take forced on that stage (diagnostic
-entry points of the library), checked against the plain version and timed
-in device ms, launch by launch: the readings `pick_plan`'s cost model is
-fitted to.
+tile candidates forced on both launches, K8's with each candidate its
+grouped stage or its merge conv may take forced on that stage, and K7's
+with each candidate forced on conv1 (diagnostic entry points of the
+library), checked against the plain version and timed in device ms,
+launch by launch: the readings `pick_plan`'s cost model is fitted to.
 
---ab OTHER: K1's, K3's, K8's and K9's bf16 bodies (and K9 behind the K6
-interface) of this checkout and of OTHER, another checkout of the
+--ab OTHER: K1's, K3's, K7's, K8's and K9's bf16 bodies (and K9 behind the
+K6 interface) of this checkout and of OTHER, another checkout of the
 repository (for instance an earlier commit unpacked with `git archive
 <commit> | tar -x -C build/other`), on the inputs above.  Each checkout
 runs in a process of its own, in the order OTHER, this, this, OTHER, so
@@ -84,7 +89,8 @@ from torch.profiler import ProfilerActivity, profile
 import stereoanywhere_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 from stereoanywhere_tpu_torch.config import MonoConfig, StereoAnywhereConfig
 from stereoanywhere_tpu_torch.models.dpt import INTERMEDIATE_LAYER_IDX, DepthAnythingV2, dav2_input_size
-from stereoanywhere_tpu_torch.models.layers import init_weights
+from stereoanywhere_tpu_torch.models.layers import conv_in_dtype, init_weights
+from stereoanywhere_tpu_torch.models.stereoanywhere import StereoAnywhere
 from stereoanywhere_tpu_torch.models.update import ConvGRU, FlowHead, MotionEncoder
 from stereoanywhere_tpu_torch.ops import step_fused as sf
 from stereoanywhere_tpu_torch.ops.cuda import build, corr_lookup, step_fused, vit_attention, vit_dense, vit_mlp
@@ -568,11 +574,25 @@ def tiles_main() -> int:
     forced on both launches: checked against the plain version, then device
     ms a call and of its z/r and q launches (kernel template arguments
     <BM, BN, epilogue>: 1 z/r, 2 q); then K8's, each candidate of one 3x3
-    stage forced, the other picked, device ms a call and by launch."""
+    stage forced, the other picked, device ms a call and by launch; then
+    K7's, each candidate forced on conv1, device ms a call and of conv1."""
     build.build(("step_fused",))
     g = torch.Generator().manual_seed(1)
     for plane, (h4, w4) in STEP_PLANES.items():
         for name, _, ref, args, *_ in step_cases(torch.bfloat16, h4, w4, g, border=False):
+            if name == "flow_head":
+                want, parts = ref(*args), []
+                for tile, label in [(0, "picked")] + list(enumerate(TILES, 1)):
+                    call = ((lambda: step_fused.flow_head(*args)) if tile == 0 else
+                            (lambda tile=tile: step_fused.flow_head_forced_tile(*args, tile)))
+                    got = call()
+                    torch.cuda.synchronize()
+                    check(f"{name} {plane} {label}", got, want, torch.bfloat16)
+                    prof = device_profile(call)
+                    conv1 = None if prof is None else sum(v for k, v in prof[1].items() if "conv_wgmma_kernel" in k)
+                    parts.append(f"{label} " + ("not measured" if prof is None else
+                                                f"{prof[0]:.4f} (conv1 {conv1:.4f})"))
+                print(f"tiles {name} {plane}, device ms a call: " + "; ".join(parts), flush=True)
             if name == "motion_encoder":
                 want, parts = ref(*args), []
                 forced = [("picked", 0, 0)] + [(f"c2/f2 {TILES[t - 1]}", t, 0) for t in MOTION_TILES["c2/f2"]] + [
@@ -610,7 +630,7 @@ def tiles_main() -> int:
 
 def step_geometry() -> None:
     """K9's bf16 launches (z/r, then q) at each scale of both planes, and
-    K8's two 3x3 launches at both planes (B = 1)."""
+    K7's conv1 and K8's two 3x3 launches at both planes (B = 1)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for plane, (h4, w4) in STEP_PLANES.items():
         for scale in (1, 2, 4):
@@ -620,6 +640,10 @@ def step_geometry() -> None:
                       f"{g['bw']}x{g['bh']}-pixel patches, {g['tiles']} of them on a persistent grid of {g['blocks']} "
                       f"blocks ({g['threads']} threads, {g['stages']} stages, {g['smem']} B shared): "
                       f"{g['tiles'] / sms:.2f} waves of tiles", flush=True)
+        g = step_fused.flow_head_geometry(1, h4, w4)
+        print(f"geometry flow_head {plane} ({h4}x{w4}) conv1: {g['bm']}x{g['bn']} tiles of {g['bw']}x{g['bh']}-pixel "
+              f"patches, {g['tiles']} of them on a persistent grid of {g['blocks']} blocks ({g['threads']} threads, "
+              f"{g['stages']} stages, {g['smem']} B shared): {g['tiles'] / sms:.2f} waves of tiles", flush=True)
         for what, g in zip(("c2/f2 (3 groups)", "merge"), step_fused.motion_geometry(1, h4, w4)):
             print(f"geometry motion_encoder {plane} ({h4}x{w4}) {what}: {g['bm']}x{g['bn']} tiles of "
                   f"{g['bw']}x{g['bh']}-pixel patches, {g['tiles']} of them on a persistent grid of {g['blocks']} "
@@ -726,7 +750,7 @@ SPLIT_ROUNDS = 10
 # kernel name -> family, first match wins
 FAMILIES = (
     ("ViT K1-K4", r"gemm_kernel_f32|attn_kernel|wgmma_gemm_kernel|ln_rows_kernel"),
-    ("step K5/K7-K9", r"conv_kernel_|conv_wgmma_kernel|dual_lookup_kernel|flow_delta_kernel|motion_c1f1"),
+    ("step K5/K7-K9", r"conv_kernel_|conv_wgmma_kernel|dual_lookup_kernel|flow_(z9|tapsum)_kernel|motion_c1f1"),
     ("convolution", r"conv|cudnn|implicit|winograd|fprop|dgrad|nhwc|nchw"),
     ("matmul", r"gemm|cutlass|cublas|sm90_xmma|ampere_"),
     ("reduction / softmax", r"reduce|softmax|norm"),
@@ -753,6 +777,44 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
+def _device_us(avg) -> float:
+    """A profiler average's device time in us (its name differs between
+    torch versions)."""
+    return getattr(avg, "device_time_total", None) or getattr(avg, "cuda_time_total", 0.0)
+
+
+def hourglass_phase() -> None:
+    """The mono hourglass and its two classifiers of a bf16 model at the
+    volumes of both requests, as the model runs them (the depth pyramids in
+    f32, so the hourglass is f32 past its first gate) and all in bf16 (the
+    pyramids cast to bf16: what the port ran before it followed the JAX
+    package's promotion), in turns: ms a call, CUDA events over 5 calls
+    (tens of ms each, so the host's issue time hides behind the device's;
+    the profiler, asked for these, returned no whole trace)."""
+    torch.backends.cudnn.benchmark = True
+    model = StereoAnywhere(StereoAnywhereConfig(compute_dtype="bfloat16"), device="cuda")
+    g = torch.Generator().manual_seed(6)
+    for shape, (h4, w4) in STEP_PLANES.items():
+        vol = torch.randn((1, 8, w4, h4, w4), generator=g).to("cuda", torch.bfloat16)
+        feats = [[torch.rand((1, 1, 4 * h4 // 2 ** i, 4 * w4 // 2 ** i), generator=g).cuda() for i in range(2, 6)]
+                 for _ in range(2)]
+
+        def run(dtype):
+            fl, fr = ([f.to(dtype) for f in fs] for fs in feats)
+            agg = model.hourglass_mono(vol, fl, fr).permute(0, 1, 3, 4, 2)
+            return conv_in_dtype(model.classifier_mono, agg), conv_in_dtype(model.classifier_monoconf, agg)
+
+        parts = []
+        for label, dtype in (("f32 past the first gate", torch.float32), ("all bf16", torch.bfloat16)) * 2:
+            with torch.no_grad():
+                out = run(dtype)
+                torch.cuda.synchronize()
+                if not all(torch.isfinite(o).all() for o in out):
+                    raise AssertionError(f"hourglass {shape} {label}: non-finite output")
+                parts.append(f"{label} {cuda_ms(lambda: run(dtype), iters=5, warmup=2):.3f}")
+        print(f"hourglass {shape} (volume 8x{w4}x{h4}x{w4}), ms a call in turns: " + "; ".join(parts), flush=True)
+
+
 def split_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> None:
     """The warm request and its two stages alone, timed in interleaved
     rounds so that drift of the shared host hits all three alike; then one
@@ -761,12 +823,12 @@ def split_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> None:
     # the requests ran on the server's thread; the first call on this one
     # is timed apart, as it may repeat cuDNN's per-thread algorithm search
     first = sync_ms(lambda: pipe(im2, im3))
-    mde2, mde3 = pipe.mono_depth(im2, im3)
+    mde2, mde3 = pipe.mono_stage(im2, im3)
     times = {"pipeline": [], "mono stage": [], "stereo stage": []}
     for _ in range(SPLIT_ROUNDS):
         times["pipeline"].append(sync_ms(lambda: pipe(im2, im3)))
-        times["mono stage"].append(sync_ms(lambda: pipe.mono_depth(im2, im3)))
-        times["stereo stage"].append(sync_ms(lambda: pipe(im2, im3, mde2, mde3)))
+        times["mono stage"].append(sync_ms(lambda: pipe.mono_stage(im2, im3)))
+        times["stereo stage"].append(sync_ms(lambda: pipe.stereo_stage(im2, im3, mde2, mde3)))
     print(f"split {label} {h}x{w}, ms, first call on this thread {first:.1f}; median [min-max] of {SPLIT_ROUNDS} "
           "interleaved rounds after it: " + "; ".join(f"{k} {np.median(v):.1f} [{min(v):.1f}-{max(v):.1f}]" for k, v in times.items()), flush=True)
 
@@ -780,13 +842,16 @@ def split_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> None:
     wall = float(np.median(times["pipeline"]))
     # launches of each stage alone
     stage_kernels = {}
-    for stage, fn in (("mono", lambda: pipe.mono_depth(im2, im3)), ("stereo", lambda: pipe(im2, im3, mde2, mde3))):
+    for stage, fn in (("mono", lambda: pipe.mono_stage(im2, im3)),
+                      ("stereo", lambda: pipe.stereo_stage(im2, im3, mde2, mde3))):
         with profile(activities=[ProfilerActivity.CUDA]) as p:
             sync_ms(fn)
         stage_kernels[stage] = sum(1 for e in p.events() if e.device_type == DeviceType.CUDA)
+    conv3d = sum(_device_us(e) for e in prof.key_averages() if e.key == "aten::conv3d") / 1e3
     print(f"trace {label} {h}x{w}: device busy {busy:.1f} ms, idle share {1 - busy / wall:.3f} of the untraced "
           f"median {wall:.1f} ms (traced wall {traced:.1f} ms); {len(kernels)} kernels (alone: mono stage "
-          f"{stage_kernels['mono']}, stereo stage {stage_kernels['stereo']})", flush=True)
+          f"{stage_kernels['mono']}, stereo stage {stage_kernels['stereo']}); aten::conv3d (the hourglass and "
+          f"its classifiers) {conv3d:.2f} device ms", flush=True)
     counts = defaultdict(int)
     for e in kernels:
         counts[re.sub(r"[<(].*", "", e.name.replace("(anonymous namespace)::", ""))[-48:]] += 1
@@ -848,7 +913,8 @@ def pipeline_phase(label: str, cfg: StereoAnywhereConfig) -> dict:
 
 
 def compare_phase() -> None:
-    """f32 on the card (kernels, TF32 off) against the CPU (plain versions)."""
+    """The card (kernels, TF32 off) against the CPU (plain versions): DAv2
+    ViT-L in f32, the ViT-S pipelines in f32 and bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
@@ -879,25 +945,38 @@ def compare_phase() -> None:
         raise AssertionError(f"DAv2 ViT-L on the card disagrees with the CPU: {err} (scale {scale})")
 
     # the whole pipeline, default and fused (H4 16, W4 24: the fused gate
-    # holds); pixel tolerance 1e-2 plus 1e-4 of the disparity's magnitude
+    # holds), f32 then bf16.  f32: pixel tolerance 1e-2 plus 1e-4 of the
+    # disparity's magnitude.  bf16: the card and the CPU round at the same
+    # points, from sums taken in other orders, and 4 GRU iterations carry
+    # a bf16 ulp's difference far; the card's answer must lie within twice
+    # bf16's own distance from the f32 answer (the larger of the card's and
+    # the CPU's)
     rng = np.random.default_rng(2)
     im2, im3 = (rng.uniform(0, 1, (1, 64, 96, 3)).astype(np.float32) for _ in range(2))
-    on_card = {}
-    for label, cfg in (("default", StereoAnywhereConfig()), ("fused", StereoAnywhereConfig(fused_level0="on"))):
-        kw = dict(stereo_cfg=cfg, mono_cfg=MonoConfig.for_encoder("vits"), iters=4, mono_size=(56, 56), seed=5)
-        pc, pg = build_pipeline(device="cpu", **kw), build_pipeline(device="cuda", **kw)
-        want = pc(im2, im3)
-        before = step_fused.flow_head.launches
-        on_card[label] = got = pg(im2, im3).cpu()
-        if label == "fused" and step_fused.flow_head.launches - before != 3:
-            raise AssertionError("the fused pipeline did not run its rotated bodies through the kernels")
-        err, scale = (got - want).abs().max().item(), want.abs().max().item()
-        print(f"pipeline {label} ViT-S 64x96 f32 iters 4, card vs CPU: max_abs_err {err:.3e} px "
-              f"(max|cpu| {scale:.3e})", flush=True)
-        if not err <= 1e-2 + 1e-4 * scale:
-            raise AssertionError(f"{label} pipeline on the card disagrees with the CPU: {err}")
-    err = (on_card["fused"] - on_card["default"]).abs().max().item()
-    scale = on_card["default"].abs().max().item()
+    on_card, on_cpu = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for label, fused in (("default", "off"), ("fused", "on")):
+            cfg = StereoAnywhereConfig(compute_dtype=dtype, fused_level0=fused)
+            kw = dict(stereo_cfg=cfg, mono_cfg=MonoConfig.for_encoder("vits"), iters=4, mono_size=(56, 56), seed=5)
+            pc, pg = build_pipeline(device="cpu", **kw), build_pipeline(device="cuda", **kw)
+            on_cpu[label, dtype] = want = pc(im2, im3)
+            before = step_fused.flow_head.launches
+            on_card[label, dtype] = got = pg(im2, im3).cpu()
+            if label == "fused" and step_fused.flow_head.launches - before != 3:
+                raise AssertionError("the fused pipeline did not run its rotated bodies through the kernels")
+            err, scale = (got - want).abs().max().item(), want.abs().max().item()
+            if dtype == "float32":
+                tol, how = 1e-2 + 1e-4 * scale, "1e-2 px + 1e-4 rel."
+            else:
+                gap = max((got - on_card[label, "float32"]).abs().max().item(),
+                          (want - on_cpu[label, "float32"]).abs().max().item())
+                tol, how = 2 * gap, f"2 x bf16's distance from f32, {gap:.3e}"
+            print(f"pipeline {label} ViT-S 64x96 {dtype} iters 4, card vs CPU: max_abs_err {err:.3e} px "
+                  f"(max|cpu| {scale:.3e}, tol {how})", flush=True)
+            if not (torch.isfinite(got).all() and err <= tol):
+                raise AssertionError(f"{label} {dtype} pipeline on the card disagrees with the CPU: {err}")
+    err = (on_card["fused", "float32"] - on_card["default", "float32"]).abs().max().item()
+    scale = on_card["default", "float32"].abs().max().item()
     print(f"pipeline ViT-S 64x96 f32 iters 4, fused vs default on the card: max_abs_err {err:.3e} px "
           f"(max|default| {scale:.3e})", flush=True)
     if not err <= 1e-2 + 1e-4 * scale:
@@ -906,8 +985,8 @@ def compare_phase() -> None:
 
 def ab_rows() -> list[dict]:
     """One --ab run over the package this process imported: K1 and K3 at
-    both token counts, K8 (with its device ms by launch), K9 at each scale
-    and the K6 interface on both planes, bf16."""
+    both token counts, K7, K8 (with its device ms by launch), K9 at each
+    scale and the K6 interface on both planes, bf16."""
     pkg = Path(stereoanywhere_tpu_torch.__file__).resolve().parents[1]
     if pkg != Path.cwd().resolve():
         raise RuntimeError(f"imported the package of {pkg}, not that of the checkout {Path.cwd()}")
@@ -934,13 +1013,13 @@ def ab_rows() -> list[dict]:
     g = torch.Generator().manual_seed(1)
     for plane, (h4, w4) in STEP_PLANES.items():
         for name, fn, ref, args, flops, *_ in step_cases(bf16, h4, w4, g, border=False):
-            if name.startswith(("motion_encoder", "conv_gru/", "gru_fused")):
+            if name.startswith(("flow_head", "motion_encoder", "conv_gru/", "gru_fused")):
                 measure(name, plane, fn, ref, args, flops)
     return rows
 
 
 def ab_main(other: Path) -> int:
-    """--ab: this checkout's and other's K1, K3, K8 and K9, in turns, each
+    """--ab: this checkout's and other's K1, K3, K7, K8 and K9, in turns, each
     run in a process of its own whose working directory (first on its
     import path) is the checkout, running this file's code."""
     runs: dict[str, list[list[dict]]] = {"other": [], "this": []}
@@ -1005,6 +1084,8 @@ def main() -> int:
     launches = pipeline_phase("default", StereoAnywhereConfig(compute_dtype="bfloat16"))
     torch.cuda.empty_cache()
     fused = pipeline_phase("fused", StereoAnywhereConfig(compute_dtype="bfloat16", fused_level0="on"))
+    torch.cuda.empty_cache()
+    hourglass_phase()
     compare_phase()
     kernels = []
     for name, row in records.items():

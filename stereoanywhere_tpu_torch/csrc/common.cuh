@@ -1,8 +1,8 @@
 // Shared helpers of the port's CUDA kernels: dtype conversion, 16-byte
-// loads and stores of 8 values, warp sums,
-// the sm_80+ tensor-core and async-copy primitives (mma.sync, ldmatrix,
-// cp.async) as inline PTX, the error-string export every library
-// carries, and the host's one-time shared-memory limit of a kernel.
+// loads and stores of 8 values, warp sums, the sm_80+ tensor-core
+// primitives (mma.sync, ldmatrix) as inline PTX, the error-string export
+// every library carries, and the host's one-time shared-memory limit of a
+// kernel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -73,19 +73,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// --- tensor-core and async-copy primitives (bf16 paths)
+// --- tensor-core primitives (bf16 paths)
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
-
-// 16-byte global -> shared copy, not cached in L1; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"

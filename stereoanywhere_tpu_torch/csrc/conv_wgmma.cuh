@@ -1,14 +1,17 @@
 // The bf16 3x3 convolutions of the refinement step on Hopper's TMA and
 // wgmma: a stride-1 "same" 3x3 convolution over NHWC inputs as an implicit
 // GEMM, with the epilogue of its caller: the ConvGRU of K9 (and of K6
-// through it), its gates and blend; and K8's convc2/convf2 (one 3-group
-// conv, ReLU) and merge conv (ReLU and the [out | flow-x | 0] lanes).
+// through it), its gates and blend; K8's convc2/convf2 (one 3-group conv,
+// ReLU) and merge conv (ReLU and the [out | flow-x | 0] lanes); and K7's
+// conv1, whose ReLU output goes no further than the epilogue: there it is
+// projected on conv2's x row, each pixel's 9 tap columns (launch_flowhead).
 //
 //   C[m, n] = epilogue( sum_k A[m, k] W[n, k] ),  m = (b, y, x) pixel,
 //   k = (tap, segment, channel),  A[m, (tap, s, c)] = seg_s[b, y + dy, x + dx, c]
 //
 // Replaces stereoanywhere_tpu/ops/pallas/step_fused.py (fused_step_gru's
-// _gru_kernel, the 3x3 stages of fused_step_motion's _motion_kernel) and
+// _gru_kernel, the 3x3 stages of fused_step_motion's _motion_kernel, the
+// conv1 and tap columns of fused_step_head's _fh_kernel) and
 // ops/pallas/gru_fused.py (gru_fused's _zr_kernel and _q_kernel); the f32
 // bodies stay on conv_igemm.cuh's FMA tile.
 //
@@ -44,8 +47,10 @@
 // - the epilogue goes through a padded f32 shared tile, 64 columns at a
 //   time, then works in 16-byte pieces along the channels: 8 accumulators,
 //   8 bias values, the 16-byte injection, h and z pieces, sigmoid / tanh /
-//   blend, one 16-byte store (K8: bias, ReLU, flow-x in lane N - 2).  Pixels
-//   of a patch outside the image are not stored.
+//   blend, one 16-byte store (K8: bias, ReLU, flow-x in lane N - 2; K7:
+//   bias, ReLU, rounded to bf16 as the TPU kernel's fh1 slab, then 8
+//   channels' share of the 9 tap-column dots, summed over the 8 threads of a
+//   row by shuffles).  Pixels of a patch outside the image are not stored.
 // The tile (BM x BN of 128 x 256, 128 x 128, 64 x 128, 64 x 64 or 128 x 64)
 // is picked per launch by the fewest rounds of tiles over the SMs, each
 // round costing its products plus a fixed overhead measured on the card
@@ -75,6 +80,8 @@ namespace sa::cw {
 constexpr int BK = 64, TAPS = 9, MAX_SEGS = sa::conv::MAX_SEGS;
 constexpr int SMEM_LIMIT = 232448, MAX_STAGES = 6;
 constexpr int PITCH = 72;  // floats a row of a warpgroup's 64-column f32 chunk: 8 mod 32 banks
+// K7: conv1's 256 outputs, and conv2's x row (9 taps x 256, bf16) kept in shared memory as f32
+constexpr int FH_N = 256, FH_W2_BYTES = TAPS * FH_N * 4;
 
 template <int BM, int BN>
 struct Tile {
@@ -112,6 +119,8 @@ struct Args {
   const float* coords;        // (M): x-coordinates (EPI_MOTION)
   __nv_bfloat16* out;         // z/r: z; q: h'; EPI_RELU, EPI_MOTION: (M, N)
   __nv_bfloat16* out2;        // z/r: r*h
+  const __nv_bfloat16* w2;    // (9, FH_N): conv2's x row, tap-major (EPI_FLOWHEAD)
+  float* z9;                  // (N / BN, 9, M): partial tap columns, one set a tile column (EPI_FLOWHEAD)
 };
 
 // input channels the K loop walks in segment s: a group's, or all of them
@@ -205,6 +214,12 @@ __global__ void __launch_bounds__(Tile<BM, BN>::THREADS, 1)
   __syncthreads();
   // launched as a dependent of the kernel before it: wait for its writes
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  // K7: conv2's x row as f32, behind the mbarriers
+  float* w2s = reinterpret_cast<float*>(smem + T::SMEM - 1024);
+  if constexpr (EPI == sa::conv::EPI_FLOWHEAD) {
+    for (int i = threadIdx.x; i < TAPS * FH_N; i += T::THREADS) w2s[i] = __bfloat162float(a.w2[i]);
+    __syncthreads();
+  }
 
   if (wg == WGS) {  // producer
     if constexpr (WGS == 2) setmaxnreg_dec<40>();
@@ -266,6 +281,15 @@ __global__ void __launch_bounds__(Tile<BM, BN>::THREADS, 1)
 
       // epilogue, 64 columns at a time through this warpgroup's f32 chunk
       const int g = lane / 4, t = lane % 4;
+      // K7: thread tid takes channels 8 (tid % 8) .. + 7 of a chunk in rows
+      // tid / 8 + 16 k, and sums their share of each row's 9 tap columns
+      float zp[4][TAPS];
+      if constexpr (EPI == sa::conv::EPI_FLOWHEAD) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int tap = 0; tap < TAPS; ++tap) zp[k][tap] = 0.f;
+      }
 #pragma unroll
       for (int j = 0; j < BN / 64; ++j) {
         named_bar_sync(1 + wg, 128);  // the chunk before is read
@@ -276,19 +300,67 @@ __global__ void __launch_bounds__(Tile<BM, BN>::THREADS, 1)
             *reinterpret_cast<float2*>(chunk + (warp * 16 + g + 8 * i) * PITCH + 8 * jb + 2 * t) =
                 make_float2(acc[4 * (8 * j + jb) + 2 * i], acc[4 * (8 * j + jb) + 2 * i + 1]);
         named_bar_sync(1 + wg, 128);
-        // 8 threads a row, one 8-channel piece each
-        for (int c = tid; c < 64 * 8; c += 128) {
-          const int r = c / 8, p = c % 8, px = wg * 64 + r;
-          const int y = y0 + px / a.bw, x = x0 + px % a.bw, n = n0 + 64 * j + 8 * p;
-          if (y >= a.H || x >= a.W || n >= a.N) continue;
-          // pieces 4..7 read their upper half first: the 8 threads then hit 32 distinct banks
+        // 8 threads a row, one 8-channel piece each; pieces 4..7 read their
+        // upper half first: the 8 threads then hit 32 distinct banks
+        auto read_piece = [&](int r, int p, float (&v)[8]) {
           const float* src = chunk + r * PITCH + 8 * p;
           const int h0 = (p >> 2) * 4;
           const float4 first = *reinterpret_cast<const float4*>(src + h0);
           const float4 second = *reinterpret_cast<const float4*>(src + 4 - h0);
           const float4 lo = h0 ? second : first, hi = h0 ? first : second;
-          float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-          piece<EPI>(a, (static_cast<size_t>(b) * a.H + y) * a.W + x, n, v);
+          v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w, v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+        };
+        if constexpr (EPI == sa::conv::EPI_FLOWHEAD) {
+          // fh1 = relu(acc + b1), rounded to bf16; every row, inside the image or not (only stores are masked)
+          const int p = tid % 8, n = n0 + 64 * j + 8 * p;
+          float fh[4][8], bias[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) bias[e] = __ldg(a.bias + n + e);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            read_piece(tid / 8 + 16 * k, p, fh[k]);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) fh[k][e] = __bfloat162float(__float2bfloat16(fmaxf(fh[k][e] + bias[e], 0.f)));
+          }
+#pragma unroll
+          for (int tap = 0; tap < TAPS; ++tap) {
+            const float4 w0 = *reinterpret_cast<const float4*>(w2s + tap * FH_N + n);
+            const float4 w1 = *reinterpret_cast<const float4*>(w2s + tap * FH_N + n + 4);
+            const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+#pragma unroll
+              for (int e = 0; e < 8; ++e) zp[k][tap] = fmaf(fh[k][e], w[e], zp[k][tap]);
+          }
+        } else {
+          for (int c = tid; c < 64 * 8; c += 128) {
+            const int r = c / 8, p = c % 8, px = wg * 64 + r;
+            const int y = y0 + px / a.bw, x = x0 + px % a.bw, n = n0 + 64 * j + 8 * p;
+            if (y >= a.H || x >= a.W || n >= a.N) continue;
+            float v[8];
+            read_piece(r, p, v);
+            piece<EPI>(a, (static_cast<size_t>(b) * a.H + y) * a.W + x, n, v);
+          }
+        }
+      }
+      if constexpr (EPI == sa::conv::EPI_FLOWHEAD) {
+        // the 8 threads of a row (lanes 8 q .. 8 q + 7) sum their shares; lane
+        // 8 q + p stores tap p (and p = 0 tap 8) of the tile column's set
+        const int p = tid % 8;
+        const size_t M = static_cast<size_t>(a.B) * a.H * a.W;
+        float* z9 = a.z9 + static_cast<size_t>(n0 / BN) * TAPS * M;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+#pragma unroll
+          for (int tap = 0; tap < TAPS; ++tap)
+#pragma unroll
+            for (int o = 1; o < 8; o <<= 1) zp[k][tap] += __shfl_xor_sync(0xffffffffu, zp[k][tap], o);
+          const int px = wg * 64 + tid / 8 + 16 * k, y = y0 + px / a.bw, x = x0 + px % a.bw;
+          if (y >= a.H || x >= a.W) continue;
+          const size_t m = (static_cast<size_t>(b) * a.H + y) * a.W + x;
+#pragma unroll
+          for (int tap = 0; tap < TAPS; ++tap)
+            if (tap % 8 == p) z9[tap * M + m] = zp[k][tap];
         }
       }
     }
@@ -377,14 +449,17 @@ inline cudaError_t make_maps(Maps& m, const Args& a, const void* const* seg, con
 template <int BM, int BN, int EPI>
 cudaError_t launch_tiles(const Maps& maps, const Args& a, int blocks, cudaStream_t stream) {
   using T = Tile<BM, BN>;
+  // K7's epilogue keeps conv2's x row behind the mbarriers
+  constexpr size_t smem = T::SMEM + (EPI == sa::conv::EPI_FLOWHEAD ? FH_W2_BYTES : 0);
+  static_assert(smem <= SMEM_LIMIT, "the tile and its epilogue's data do not fit");
   auto kernel = conv_wgmma_kernel<BM, BN, EPI>;
-  cudaError_t e = smem_limit_once(reinterpret_cast<const void*>(kernel), T::SMEM);
+  cudaError_t e = smem_limit_once(reinterpret_cast<const void*>(kernel), smem);
   if (e != cudaSuccess) return e;
   // programmatic dependent launch: the grid is set up while the kernel before it finishes
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(T::THREADS);
-  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -397,8 +472,8 @@ cudaError_t launch_tiles(const Maps& maps, const Args& a, int blocks, cudaStream
 
 // one convolution launch over the segments seg[0 .. a.nseg) with W packed
 // (N, 9, Cin).  Each epilogue is built with the tiles its launches may take:
-// K9's with all, K8's grouped ReLU with BN 64, its merge conv (N 128) with
-// BN <= 128; another forced tile is refused.
+// K9's and K7's with all, K8's grouped ReLU with BN 64, its merge conv (N
+// 128) with BN <= 128; another forced tile is refused.
 template <int EPI>
 cudaError_t launch_conv(const void* const* seg, const void* w, Args a, int tile, cudaStream_t stream) {
   if (a.groups < 1 || (a.groups > 1 && (a.nseg != 1 || a.seg_c[0] % a.groups || a.N % a.groups)))
@@ -495,6 +570,31 @@ inline cudaError_t launch_motion(const void* a1, const void* w_c2f2, const void*
   a.coords = coords;
   a.out = static_cast<T*>(out);
   return launch_conv<sa::conv::EPI_MOTION>(seg, w_mc, a, tile3, stream);
+}
+
+// K7's bf16 conv1 and tap columns, one launch: z9[s, tap, m] = the sum over
+// the FH_N / sets output channels n of tile column s of bf16(relu(conv1(h)[m,
+// n] + b1[n])) w2[tap, n], with h (M, c), w1 (FH_N, 9, c), w2 (9, FH_N) bf16.
+// *sets is FH_N / BN of the tile taken: the caller's tap sum adds the sets.
+// tile 0 picks it (pick_plan), 1..CANDIDATES forces one.
+inline cudaError_t launch_flowhead(const void* h, const void* w1, const void* b1, const void* w2, float* z9, int B,
+                                   int H, int W, int c, int tile, int* sets, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || static_cast<long long>(B) * H * W > (1LL << 30) || c <= 0 || c % 8)
+    return cudaErrorInvalidValue;
+  Args a{};
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.groups = 1;
+  a.nseg = 1;
+  a.seg_c[0] = c;
+  a.N = FH_N;
+  a.bias = static_cast<const float*>(b1);
+  a.w2 = static_cast<const __nv_bfloat16*>(w2);
+  a.z9 = z9;
+  const void* seg[MAX_SEGS] = {h};
+  *sets = FH_N / pick_plan(B, H, W, FH_N, tile).bn;
+  return launch_conv<sa::conv::EPI_FLOWHEAD>(seg, w1, a, tile, stream);
 }
 
 }  // namespace sa::cw

@@ -5,49 +5,71 @@
 // ops/pallas/gru_fused.py (gru_fused).  Design and bound:
 // ops/cuda/step_fused.py.
 //
-// The convolutions are implicit GEMMs: the bf16 3x3 convs of K8 and K9 on
-// TMA + wgmma (conv_wgmma.cuh), K7's and the f32 bodies on mma.sync / FMA
-// tiles (conv_igemm.cuh).  Two small stages are here: the flow head's
-// 256 -> 1 conv (one warp a pixel, CUDA cores) and the motion encoder's 1x1
-// correlation conv plus 7x7 flow conv (bf16: mma.sync products over 64
-// pixels; f32: one thread an output channel).  Intermediates the TPU kernels kept in VMEM slabs (fh1, the
-// encoder's c1/f1 and c2/f2 planes, z and r*h) go through device-memory
-// scratch that the wrapper allocates, rounded to the compute dtype as the
-// slabs are.
+// The convolutions are implicit GEMMs: the bf16 3x3 convs of K7, K8 and K9
+// on TMA + wgmma (conv_wgmma.cuh), the f32 bodies on FMA tiles
+// (conv_igemm.cuh).  Small stages are here: the flow head's tap sum (and,
+// in f32, its tap columns) and the motion encoder's 1x1 correlation conv
+// plus 7x7 flow conv (bf16: mma.sync products over 64 pixels; f32: one
+// thread an output channel).  Intermediates the TPU kernels kept in VMEM
+// slabs (the flow head's tap columns z9, the encoder's c1/f1 and c2/f2
+// planes, z and r*h) go through device-memory scratch that the wrapper
+// allocates, rounded to the compute dtype as the slabs are (z9 f32).  The
+// bf16 flow head keeps its fh1 slab out of device memory: conv1's epilogue
+// projects it on conv2's x row.
 #include "conv_wgmma.cuh"
 
 using sa::conv::Args;
 
 namespace {
 
-// Flow head conv2 (3x3, 256 -> 1; the x output only) + coordinate update:
-// coords'[m] = coords[m] + (sum_{tap, c} fh1[m + tap, c] w2[tap, c] + b2).
-// One warp a pixel, 8 channels a lane.
-constexpr int FH_HID = 256;
+// Flow head conv2 (3x3, 256 -> 1; the x output only) as the TPU kernel
+// computes it: tap columns z9[tap, m] = fh1[m] . w2[tap] (conv_wgmma.cuh's
+// EPI_FLOWHEAD in bf16, flow_z9_kernel in f32), then
+// coords'[m] = coords[m] + (sum_tap z9[tap, m + off_tap] + b2), z9 zero
+// outside the plane, the taps summed in order (flow_tapsum_kernel).
+using sa::cw::FH_N;
 
-template <typename T>
-__global__ void __launch_bounds__(256) flow_delta_kernel(const T* __restrict__ fh1, const T* __restrict__ w2,
-                                                         const float* __restrict__ b2,
-                                                         const float* __restrict__ coords, float* __restrict__ out,
-                                                         int B, int H, int W) {
+// f32 tap columns from fh1 (M, FH_N): one warp a pixel, 8 channels a lane
+__global__ void __launch_bounds__(256) flow_z9_kernel(const float* __restrict__ fh1, const float* __restrict__ w2,
+                                                      float* __restrict__ z9, int M) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int M = B * H * W;
   const int m = blockIdx.x * 8 + warp;
   if (m >= M) return;
-  const int x = m % W, y = (m / W) % H, b = m / (W * H);
-  float acc = 0.f;
+  float v[8], w[8];
+  load8(fh1 + static_cast<size_t>(m) * FH_N + lane * 8, v);
 #pragma unroll
   for (int tap = 0; tap < 9; ++tap) {
-    const int yy = y + tap / 3 - 1, xx = x + tap % 3 - 1;
-    if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
-    float v[8], w[8];
-    load8(fh1 + (static_cast<size_t>(b * H + yy) * W + xx) * FH_HID + lane * 8, v);
-    load8(w2 + tap * FH_HID + lane * 8, w);
+    load8(w2 + tap * FH_N + lane * 8, w);
+    float acc = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc = fmaf(v[j], w[j], acc);
+    acc = warp_sum(acc);
+    if (lane == 0) z9[static_cast<size_t>(tap) * M + m] = acc;
   }
-  acc = warp_sum(acc);
-  if (lane == 0) out[m] = coords[m] + (acc + b2[0]);
+}
+
+// the tap sum and the coordinate update, a thread a pixel; z9 holds `sets`
+// partial sets (9, M), added per tap.  Its inputs (0.6 MB a set at the
+// 512^2 request's plane) are in L2, written by the launch before.
+__global__ void __launch_bounds__(256) flow_tapsum_kernel(const float* __restrict__ z9, int sets,
+                                                          const float* __restrict__ b2,
+                                                          const float* __restrict__ coords, float* __restrict__ out,
+                                                          int B, int H, int W) {
+  const size_t M = static_cast<size_t>(B) * H * W;
+  const size_t m = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  const int x = static_cast<int>(m % W), y = static_cast<int>((m / W) % H);
+  float delta = 0.f;
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    if (y + dy < 0 || y + dy >= H || x + dx < 0 || x + dx >= W) continue;
+    const float* col = z9 + tap * M + static_cast<ptrdiff_t>(m) + dy * W + dx;
+    float v = col[0];
+    for (int s = 1; s < sets; ++s) v += col[s * 9 * M];
+    delta += v;
+  }
+  out[m] = coords[m] + (delta + b2[0]);
 }
 
 // Motion encoder, first stage: out[m] = [relu(c1(corr_a)) | relu(c1(corr_b)) | relu(f1(flow-x))]
@@ -319,7 +341,7 @@ cudaError_t run_motion(const void* corr_a, const void* corr_b, const void* coord
   a.bias = static_cast<const float*>(b_c2f2);
   a.N = C1_OUT;
   a.out = a2;
-  e = sa::conv::launch<sa::conv::EPI_RELU>(a, dtype, s);
+  e = sa::conv::launch<sa::conv::EPI_RELU>(a, s);
   if (e != cudaSuccess) return e;
 
   // the 192 -> 126 merge conv and the [out | flow-x | 0] lanes
@@ -332,40 +354,76 @@ cudaError_t run_motion(const void* corr_a, const void* corr_b, const void* coord
   m.N = 128;
   m.out = out;
   m.coords = cf;
-  return sa::conv::launch<sa::conv::EPI_MOTION>(m, dtype, s);
+  return sa::conv::launch<sa::conv::EPI_MOTION>(m, s);
+}
+
+// K7 (tile: conv1's bf16 tile, 0 = picked; see sa_flow_head)
+cudaError_t run_flow_head(const void* h, const void* w1, const void* b1, const void* w2, const void* b2,
+                          const void* coords, void* fh1, void* z9, void* coords_out, int B, int H, int W, int C,
+                          int dtype, int tile, cudaStream_t s) {
+  const long long M = static_cast<long long>(B) * H * W;
+  if ((dtype != SA_F32 && dtype != SA_BF16) || M <= 0 || M > (1LL << 30)) return cudaErrorInvalidValue;
+  auto* zf = static_cast<float*>(z9);
+  int sets = 1;
+  cudaError_t e;
+  if (dtype == SA_BF16) {
+    e = sa::cw::launch_flowhead(h, w1, b1, w2, zf, B, H, W, C, tile, &sets, s);
+  } else {
+    Args a = base_args(B, H, W, 3);
+    a.seg[0] = h;
+    a.seg_c[0] = C;
+    a.nseg = 1;
+    a.w = w1;
+    a.bias = static_cast<const float*>(b1);
+    a.N = FH_N;
+    a.out = fh1;
+    e = sa::conv::launch<sa::conv::EPI_RELU>(a, s);
+    if (e == cudaSuccess) {
+      flow_z9_kernel<<<static_cast<unsigned>((M + 7) / 8), 256, 0, s>>>(
+          static_cast<const float*>(fh1), static_cast<const float*>(w2), zf, static_cast<int>(M));
+      e = cudaGetLastError();
+    }
+  }
+  if (e != cudaSuccess) return e;
+  flow_tapsum_kernel<<<static_cast<unsigned>((M + 255) / 256), 256, 0, s>>>(
+      zf, sets, static_cast<const float*>(b2), static_cast<const float*>(coords), static_cast<float*>(coords_out), B,
+      H, W);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// K7.  h (M, 128), w1 (256, 9, 128), b1 (256) f32, w2 (9, 256), b2 (1) f32,
-// coords (M) f32 -> coords_out (M) f32; fh1 scratch (M, 256).
+// K7.  h (M, C), w1 (256, 9, C), b1 (256) f32, w2 (9, 256), b2 (1) f32,
+// coords (M) f32 -> coords_out (M) f32.  Scratch z9 (4, 9, M) f32: the tap
+// columns, one partial set a 256 / 4 = 64-channel tile column at most; f32
+// also fh1 (M, 256), null in bf16.  Two launches in bf16 (conv1 with its
+// tap columns on conv_wgmma.cuh, the tap sum), three in f32 (conv1 on
+// conv_igemm.cuh's FMA tile, the tap columns, the tap sum).
 extern "C" int sa_flow_head(const void* h, const void* w1, const void* b1, const void* w2, const void* b2,
-                            const void* coords, void* fh1, void* coords_out, int B, int H, int W, int C, int dtype,
-                            void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  Args a = base_args(B, H, W, 3);
-  a.seg[0] = h;
-  a.seg_c[0] = C;
-  a.nseg = 1;
-  a.w = w1;
-  a.bias = static_cast<const float*>(b1);
-  a.N = FH_HID;
-  a.out = fh1;
-  cudaError_t e = sa::conv::launch<sa::conv::EPI_RELU>(a, dtype, s);
-  if (e != cudaSuccess) return e;
-  const int M = B * H * W;
-  const unsigned blocks = static_cast<unsigned>((M + 7) / 8);
-  const auto* bb = static_cast<const float*>(b2);
-  const auto* cf = static_cast<const float*>(coords);
-  auto* co = static_cast<float*>(coords_out);
-  if (dtype == SA_F32)
-    flow_delta_kernel<float><<<blocks, 256, 0, s>>>(static_cast<const float*>(fh1), static_cast<const float*>(w2),
-                                                    bb, cf, co, B, H, W);
-  else
-    flow_delta_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(fh1),
-                                                            static_cast<const __nv_bfloat16*>(w2), bb, cf, co, B, H,
-                                                            W);
-  return cudaGetLastError();
+                            const void* coords, void* fh1, void* z9, void* coords_out, int B, int H, int W, int C,
+                            int dtype, void* stream) {
+  return run_flow_head(h, w1, b1, w2, b2, coords, fh1, z9, coords_out, B, H, W, C, dtype, 0,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Diagnostic, not a path of the model: K7's bf16 body with tile candidate
+// 1..5 (sa::cw::pick_plan's list) forced on conv1.  Arguments as
+// sa_flow_head's, bf16 only.
+extern "C" int sa_flow_head_forced_tile(const void* h, const void* w1, const void* b1, const void* w2, const void* b2,
+                                        const void* coords, void* z9, void* coords_out, int B, int H, int W, int C,
+                                        int tile, void* stream) {
+  if (tile < 1 || tile > sa::cw::CANDIDATES) return cudaErrorInvalidValue;
+  return run_flow_head(h, w1, b1, w2, b2, coords, nullptr, z9, coords_out, B, H, W, C, SA_BF16, tile,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// K7's bf16 conv1 launch geometry at one plane, out[0 .. 8] as
+// sa_conv_gru_geometry's; the shared memory includes conv2's x row.
+extern "C" int sa_flow_head_geometry(int B, int H, int W, int* out) {
+  const sa::cw::Plan p = sa::cw::pick_plan(B, H, W, FH_N);
+  const int v[9] = {p.bm, p.bn, p.bw, p.bh, p.tiles, p.blocks, p.stages, p.threads, p.smem + sa::cw::FH_W2_BYTES};
+  for (int k = 0; k < 9; ++k) out[k] = v[k];
+  return cudaSuccess;
 }
 
 // K8.  corr_a, corr_b (M, 36), coords (M) f32 -> out (M, 128) =
@@ -443,7 +501,7 @@ extern "C" int sa_conv_gru(const void* h, const void* x1, const void* x2, const 
   a.N = 2 * hd;
   a.out = z;
   a.out2 = rh;
-  cudaError_t e = sa::conv::launch<sa::conv::EPI_GRU_ZR>(a, dtype, s);
+  cudaError_t e = sa::conv::launch<sa::conv::EPI_GRU_ZR>(a, s);
   if (e != cudaSuccess) return e;
 
   Args q = a;
@@ -454,7 +512,7 @@ extern "C" int sa_conv_gru(const void* h, const void* x1, const void* x2, const 
   q.out = out;
   q.out2 = nullptr;
   q.z = z;
-  return sa::conv::launch<sa::conv::EPI_GRU_Q>(q, dtype, s);
+  return sa::conv::launch<sa::conv::EPI_GRU_Q>(q, s);
 }
 
 // Diagnostic, not a path of the model: K9's bf16 body with tile candidate

@@ -5,6 +5,12 @@ the spatial order (W3, H, W2) before the 3-D convs.  Feature maps (the mono
 depth pyramids) are NCHW (B, 1, H', W').  The JAX package runs the same
 network on lane-folded and blocked layouts; the port runs plain cuDNN
 conv3d and is held against that default.
+
+Dtypes as in the JAX package: every conv runs in its input's dtype.  The
+depth pyramids stay f32 in a bf16 model, so the attention branches and
+their sigmoid gates are f32, and `gate * cv` promotes the volume to f32 at
+the first gate: in a bf16 model only `down_layers[0]` runs in bf16, the
+rest of the hourglass (and the classifiers after it) in f32.
 """
 from __future__ import annotations
 
@@ -13,13 +19,14 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from stereoanywhere_tpu_torch.models.layers import BasicConv
+from stereoanywhere_tpu_torch.models.layers import BasicConv, conv_in_dtype
 from stereoanywhere_tpu_torch.ops.interp import resize_trilinear_align_corners
 
 
 class _AttBranch(nn.Sequential):
     """BasicConv(1 -> mid) then a 1x1 conv to the volume's channels
-    (reference names feat_att_left.0 / feat_att_left.1)."""
+    (reference names feat_att_left.0 / feat_att_left.1), in the feature
+    map's dtype."""
 
     def __init__(self, feat_ch: int, cv_ch: int, kernel_size: int, stride: int, padding: int):
         mid = max(32, feat_ch // 2)
@@ -28,10 +35,14 @@ class _AttBranch(nn.Sequential):
             nn.Conv2d(mid, cv_ch, 1),
         )
 
+    def forward(self, x):
+        return conv_in_dtype(self[1], self[0](x))
+
 
 class DoubleFeatureAtt(nn.Module):
     """Gate the volume by sigmoid(left attention) x sigmoid(right attention):
-    the left gate broadcasts over W3, the right over W2."""
+    the left gate broadcasts over W3, the right over W2.  The product takes
+    the wider of the two dtypes (an f32 gate promotes a bf16 volume)."""
 
     def __init__(self, cv_ch: int, feat_ch: int = 1, kernel_size: int = 3, stride: int = 1, padding: int = 1):
         super().__init__()
@@ -44,7 +55,7 @@ class DoubleFeatureAtt(nn.Module):
         gate = gl.unsqueeze(2) * gr.permute(0, 1, 3, 2).unsqueeze(-1)  # (B,C,W3,H,W2)
         if gate.shape[2:] != cv.shape[2:]:
             gate = resize_trilinear_align_corners(gate, tuple(cv.shape[2:]))
-        return gate.to(cv.dtype) * cv
+        return gate * cv
 
 
 class Hourglass(nn.Module):

@@ -90,8 +90,17 @@ class ResidualBlock(nn.Module):
         return F.relu(x + y)
 
 
+def conv_in_dtype(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """conv(x) in x's dtype: the parameters are cast to it at the call, as
+    the JAX package's convs cast their kernel to the input's dtype (an f32
+    input of a bf16 model runs in f32)."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return conv._conv_forward(x, conv.weight.to(x.dtype), bias)
+
+
 class BasicConv(nn.Module):
-    """conv (no bias) -> instance norm -> leaky ReLU(0.01), 2-D or 3-D."""
+    """conv (no bias) -> instance norm -> leaky ReLU(0.01), 2-D or 3-D, in
+    the input's dtype."""
 
     def __init__(self, in_ch: int, out_ch: int, is_3d: bool = False, kernel_size: int = 3,
                  stride: int = 1, padding: int = 1):
@@ -100,7 +109,7 @@ class BasicConv(nn.Module):
         self.conv = conv(in_ch, out_ch, kernel_size, stride=stride, padding=padding, bias=False)
 
     def forward(self, x):
-        return F.leaky_relu(instance_norm(self.conv(x)), negative_slope=0.01)
+        return F.leaky_relu(instance_norm(conv_in_dtype(self.conv, x)), negative_slope=0.01)
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ from stereoanywhere_tpu_torch.config import StereoAnywhereConfig
 from stereoanywhere_tpu_torch.device import resolve_device, torch_dtype
 from stereoanywhere_tpu_torch.models.extractor import ContextEncoder, FeatureEncoder
 from stereoanywhere_tpu_torch.models.hourglass import Hourglass
-from stereoanywhere_tpu_torch.models.layers import LECUN, init_weights
+from stereoanywhere_tpu_torch.models.layers import LECUN, conv_in_dtype, init_weights
 from stereoanywhere_tpu_torch.models.update import (
     MultiUpdateBlock,
     fused_refinement_step,
@@ -142,9 +142,10 @@ class StereoAnywhere(nn.Module):
         fmaps = self.fnet(torch.cat([image2, image3], dim=0).to(cdt))
         fmap2, fmap3 = fmaps[:b], fmaps[b:]
 
-        # mono depth pyramids for the hourglass attention
-        fmde2 = [resize_bilinear_align_corners(mde2, (h // 2 ** i, w // 2 ** i)).to(cdt) for i in range(cfg.n_downsample, 6)]
-        fmde3 = [resize_bilinear_align_corners(mde3, (h // 2 ** i, w // 2 ** i)).to(cdt) for i in range(cfg.n_downsample, 6)]
+        # mono depth pyramids for the hourglass attention, f32 as in JAX: in
+        # a bf16 model they promote the hourglass to f32 past its first gate
+        fmde2 = [resize_bilinear_align_corners(mde2, (h // 2 ** i, w // 2 ** i)) for i in range(cfg.n_downsample, 6)]
+        fmde3 = [resize_bilinear_align_corners(mde3, (h // 2 ** i, w // 2 ** i)) for i in range(cfg.n_downsample, 6)]
 
         # all-pairs volumes
         stereo_vol = all_pairs_correlation(fmap2, fmap3)  # (B,H4,W2,W3)
@@ -155,8 +156,8 @@ class StereoAnywhere(nn.Module):
         # masked mono volume -> hourglass -> classifiers over (H, W2, W3)
         agg = self.hourglass_mono(masked_volume(mono_vol, left_masks, right_masks).to(cdt), fmde2, fmde3)
         agg = agg.permute(0, 1, 3, 4, 2)  # (B,C,W3,H,W2) -> (B,C,H,W2,W3)
-        agg_disp = self.classifier_mono(agg).float()[:, 0]  # (B,H,W2,W3)
-        agg_conf = self.classifier_monoconf(agg).float()[:, 0]
+        agg_disp = conv_in_dtype(self.classifier_mono, agg).float()[:, 0]  # (B,H,W2,W3)
+        agg_conf = conv_in_dtype(self.classifier_monoconf, agg).float()[:, 0]
 
         # coarse disparities and confidences
         coarse_dispmono2_low = estimate_left_disparity(agg_disp)

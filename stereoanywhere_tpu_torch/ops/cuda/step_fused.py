@@ -13,15 +13,15 @@ Replaces the Pallas TPU kernels `stereoanywhere_tpu/ops/pallas/step_fused.py`
 (`_motion_kernel`) and `fused_step_gru` (`_gru_kernel`); `gru_fused` stands
 for `ops/pallas/gru_fused.py` `gru_fused` (`_zr_kernel`, `_q_kernel`), the
 same ConvGRU with one x stream, through the K9 kernel.  Source:
-`csrc/step_fused.cu` (the convolutions in `csrc/conv_wgmma.cuh` and
-`csrc/conv_igemm.cuh`).
+`csrc/step_fused.cu` (the convolutions in `csrc/conv_wgmma.cuh`, and the
+f32 bodies in `csrc/conv_igemm.cuh`).
 
 Bound on the H100 at the 512^2 request (H4 x W4 = 128 x 128): all three are
 convolutions above the card's ridge in bf16 (K9 at level 0: 43.5 GFLOP for
 32 MB; K8: 11.0 GFLOP for 7.3 MB; K7: 9.7 GFLOP for 4.9 MB; chip_smoke's
 counts), so tensor-core FLOP/s bound them.  Every 3x3 (and 7x7) conv is an
 implicit GEMM whose [h, x...] concatenation is never built.
-- K9 and K8's two 3x3 stages in bf16 (the fused loop's type):
+- K9, K8's two 3x3 stages and K7's conv1 in bf16 (the fused loop's type):
   `csrc/conv_wgmma.cuh`.  A tile is a 2-D patch of 128 or 64 pixels of one
   image, loaded per K-step (tap x input x 64 channels) by one TMA load from
   a 4-D map over (C, W, H, B): a tap is a coordinate offset and the zero
@@ -31,17 +31,26 @@ implicit GEMM whose [h, x...] concatenation is never built.
   tiles on the small planes so they fill more SMs; 128 x 64 for K8's
   grouped stage, whose tiles each lie in one group of 64 outputs and read
   only that group's 64 input channels), the grid is persistent, and the
-  epilogues (K9's gates and blend, K8's ReLU and its flow-x lane) work on
-  16-byte pieces of the f32 sums through a padded shared tile.
-- K7, and K8 and K9 in f32 (`csrc/conv_igemm.cuh`): `mma.sync` m16n8k16
-  tiles in bf16 (K7's conv1), FP32 FMA tiles in f32, the taps nine shifted
-  K-slices whose zero padding is a predicated load, the epilogue applied
-  to each accumulator.
-What the TPU kernels kept in VMEM slabs between their stages (fh1, c1/f1,
+  epilogues (K9's gates and blend, K8's ReLU and its flow-x lane, K7's ReLU
+  and tap columns) work on 16-byte pieces of the f32 sums through a padded
+  shared tile.
+- The f32 bodies (`csrc/conv_igemm.cuh`): FP32 FMA tiles, the taps nine
+  shifted K-slices whose zero padding is a predicated load, the epilogue
+  applied to each accumulator.
+K7 is the TPU kernel's tap-column form: conv2 has one output channel (x),
+so conv2(fh1)[p] = sum_tap z9[p + off_tap, tap] with z9 = fh1 . w2[tap],
+z9 zero outside the plane.  In bf16, conv1's epilogue (128 x 256 tiles: all
+256 channels of a pixel in one tile) rounds fh1 = relu(conv1 + b1) to bf16,
+as the TPU kernel's slab, and reduces it at once to the 9 f32 tap columns
+against conv2's x row kept in shared memory: fh1 (8.4 MB at the 512^2
+request's plane) never reaches device memory, z9 (0.6 MB) does; a second
+launch sums the taps in the TPU kernel's order and updates the
+coordinates.  A tile narrower than 256 channels (forced, or picked on a
+small plane) writes a partial z9 set that the tap sum adds.
+What the TPU kernels kept in VMEM slabs between their other stages (c1/f1,
 c2/f2, z, r*h) goes through device-memory scratch here, rounded to the
-compute dtype as the slabs are, so a call is several launches: K7 two (conv1
-on the tensor cores, then conv2's one output channel and the coordinate
-update, a warp a pixel), K8 three (the 1x1 correlation conv and the 7x7 flow
+compute dtype as the slabs are, so a call is several launches: K7 two (three
+in f32: conv1, its tap columns, the tap sum), K8 three (the 1x1 correlation conv and the 7x7 flow
 conv: in bf16 `mma.sync` products over 64 pixels, the 36-channel
 correlation rows, 72 bytes, being no TMA row, and the 7x7 taps an im2col in
 shared memory; in f32 on the CUDA cores, one thread an output channel; then
@@ -67,6 +76,7 @@ from stereoanywhere_tpu_torch.ops.step_fused import (
 
 _LIB = "step_fused"
 _BK = 32  # the kernels' K-step: every input's channel count is a multiple of it
+_Z9_SETS = 4  # K7's partial tap-column sets: one a 64-channel tile column at most
 
 
 def _check_coords(what: str, coords: torch.Tensor, device, shape) -> None:
@@ -80,18 +90,34 @@ def flow_head(h: torch.Tensor, coords: torch.Tensor, w: HeadWeights) -> torch.Te
     """h (B,H,W,128), coords (B,H,W) f32 -> coords + the flow head's x-delta."""
     if h.device.type == "cpu":
         return flow_head_ref(h, coords, w)
-    code = check_operands("flow_head", h, w.w1, w.w2)
+    out = _flow_head_call("flow_head", h, coords, w, 0)
+    flow_head.launches += 1
+    return out
+
+
+def _flow_head_call(what: str, h: torch.Tensor, coords: torch.Tensor, w: HeadWeights, tile: int) -> torch.Tensor:
+    """One call of the flow-head library function; tile 1..5 forces conv1's
+    bf16 tile through the diagnostic entry point (0: picked)."""
+    code = check_operands(what, h, w.w1, w.w2)
     b, hh, ww, c = h.shape
     if w.w1.shape != (256, 9, c) or w.w2.shape != (9, 256) or c % _BK:
-        raise ValueError(f"flow_head: h {tuple(h.shape)}, w1 {tuple(w.w1.shape)}, w2 {tuple(w.w2.shape)}")
-    _check_coords("flow_head", coords, h.device, (b, hh, ww))
-    fh1 = torch.empty((b, hh, ww, 256), device=h.device, dtype=h.dtype)
+        raise ValueError(f"{what}: h {tuple(h.shape)}, w1 {tuple(w.w1.shape)}, w2 {tuple(w.w2.shape)}")
+    _check_coords(what, coords, h.device, (b, hh, ww))
+    f32 = h.dtype == torch.float32
+    fh1 = torch.empty((b, hh, ww, 256), device=h.device, dtype=h.dtype) if f32 else None
+    z9 = torch.empty((_Z9_SETS, 9, b, hh, ww), device=h.device, dtype=torch.float32)
     out = torch.empty_like(coords)
-    fn = bind(_LIB, "sa_flow_head", 8, 5)
-    status = fn(h.data_ptr(), w.w1.data_ptr(), w.b1.data_ptr(), w.w2.data_ptr(), w.b2.data_ptr(), coords.data_ptr(),
-                fh1.data_ptr(), out.data_ptr(), b, hh, ww, c, code, current_stream())
-    check_status(_LIB, "flow_head", status)
-    flow_head.launches += 1
+    ptrs = [h.data_ptr(), w.w1.data_ptr(), w.b1.data_ptr(), w.w2.data_ptr(), w.b2.data_ptr(), coords.data_ptr()]
+    if tile:
+        if f32:
+            raise TypeError(f"{what}: a forced tile is a bf16 diagnostic")
+        fn = bind(_LIB, "sa_flow_head_forced_tile", 8, 5)
+        status = fn(*ptrs, z9.data_ptr(), out.data_ptr(), b, hh, ww, c, tile, current_stream())
+    else:
+        fn = bind(_LIB, "sa_flow_head", 9, 5)
+        status = fn(*ptrs, None if fh1 is None else fh1.data_ptr(), z9.data_ptr(), out.data_ptr(), b, hh, ww, c, code,
+                    current_stream())
+    check_status(_LIB, what, status)
     return out
 
 
@@ -181,6 +207,29 @@ conv_gru.launches = 0
 gru_fused.launches = 0
 
 
+_GEOMETRY_KEYS = ("bm", "bn", "bw", "bh", "tiles", "blocks", "stages", "threads", "smem")
+
+
+def flow_head_forced_tile(h: torch.Tensor, coords: torch.Tensor, w: HeadWeights, tile: int) -> torch.Tensor:
+    """K7's bf16 body with conv1's tile candidate `tile` (1..5: 128x256,
+    128x128, 64x128, 64x64, 128x64) forced: a diagnostic, not a path of the
+    model, and not counted."""
+    if not 1 <= tile <= 5:
+        raise ValueError(f"flow_head_forced_tile: tile {tile} is not a candidate (1..5)")
+    return _flow_head_call("flow_head_forced_tile", h, coords, w, tile)
+
+
+def flow_head_geometry(b: int, h: int, w: int) -> dict:
+    """K7's bf16 conv1 launch on a (B, H, W) plane, as the library computes
+    it; keys as `launch_geometry`'s."""
+    fn = library(_LIB).sa_flow_head_geometry
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 9)()
+    check_status(_LIB, "flow_head geometry", fn(b, h, w, out))
+    return dict(zip(_GEOMETRY_KEYS, out))
+
+
 def launch_geometry(b: int, h: int, w: int, hd: int = 128) -> list[dict]:
     """K9's bf16 launches (z/r, then q) on a (B, H, W) plane, as the library
     computes them: tile rows BM and width BN, the pixel patch BW x BH,
@@ -191,8 +240,7 @@ def launch_geometry(b: int, h: int, w: int, hd: int = 128) -> list[dict]:
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 18)()
     check_status(_LIB, "conv_gru geometry", fn(b, h, w, hd, out))
-    keys = ("bm", "bn", "bw", "bh", "tiles", "blocks", "stages", "threads", "smem")
-    return [dict(zip(keys, out[9 * i:9 * i + 9])) for i in range(2)]
+    return [dict(zip(_GEOMETRY_KEYS, out[9 * i:9 * i + 9])) for i in range(2)]
 
 
 def motion_geometry(b: int, h: int, w: int) -> list[dict]:
@@ -204,5 +252,4 @@ def motion_geometry(b: int, h: int, w: int) -> list[dict]:
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 18)()
     check_status(_LIB, "motion_encoder geometry", fn(b, h, w, out))
-    keys = ("bm", "bn", "bw", "bh", "tiles", "blocks", "stages", "threads", "smem")
-    return [dict(zip(keys, out[9 * i:9 * i + 9])) for i in range(2)]
+    return [dict(zip(_GEOMETRY_KEYS, out[9 * i:9 * i + 9])) for i in range(2)]

@@ -5,7 +5,8 @@ The port's counterpart of the non-kernel half of the JAX package's
 motion encoder, K9 ConvGRU) are in `ops/cuda/step_fused.py`; the functions
 here are what they compute, in plain PyTorch, on NHWC tensors:
 
-- `flow_head_ref`: coords + conv2(relu(conv1(h))), the x output only;
+- `flow_head_ref`: coords + conv2(relu(conv1(h))), the x output only, conv2
+  as the TPU kernel's 9 tap columns;
 - `motion_encoder_ref`: [relu(_conv([c2(c1(corr_a)), c2(c1(corr_b)),
   f2(f1(flow-x))])) | flow-x | 0], convc1/convc2 shared by the two
   correlation streams, convf1 on flow-x alone (flow-y is structurally
@@ -14,14 +15,16 @@ here are what they compute, in plain PyTorch, on NHWC tensors:
 
 They keep the TPU kernels' rounding points: sums in f32, and each stage
 output that the TPU kernel stores in a compute-dtype slab (fh1, c1, c2,
-flo1, flo2, z, r*h) rounded to the compute dtype.
+flo1, flo2, z, r*h) rounded to the compute dtype; the flow head's tap
+columns are f32, as the TPU kernel's z9 slab.
 
 Weights are packed once per model and dtype (`models/update.py`
 `MultiUpdateBlock.fused_weights`) in the layout the kernels read: a conv
 weight (O, I, k, k) becomes (O, k*k, I), so that its K index is
-tap * I + c; biases are f32.  The TPU's 128-lane padding, its tap-stacked
-flow head and the caller-built flow columns (`make_flowcols`) are TPU
-layout and have no counterpart.
+tap * I + c; biases are f32.  The TPU's 128-lane padding and the
+caller-built flow columns (`make_flowcols`) are TPU layout and have no
+counterpart; the flow head's tap columns (the JAX package's `tap_stack`)
+are kept, as the form in which K7 computes conv2's one output channel.
 """
 from __future__ import annotations
 
@@ -141,9 +144,13 @@ def flow_x(coords: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def flow_head_ref(h: torch.Tensor, coords: torch.Tensor, w: HeadWeights) -> torch.Tensor:
-    """Plain version of K7: h (B,H,W,128), coords (B,H,W) f32 -> coords + delta-x."""
+    """Plain version of K7: h (B,H,W,128), coords (B,H,W) f32 -> coords + delta-x.
+    conv2 in the TPU kernel's tap-column form: z9 = fh1 . w2[tap] in f32,
+    zero outside the plane, then the 9 shifted columns summed in tap order."""
     fh1 = torch.relu(_conv(h.float(), w.w1) + w.b1).to(h.dtype)
-    delta = _conv(fh1.float(), w.w2.reshape(1, 9, -1))[..., 0]
+    z9 = F.pad(fh1.float() @ w.w2.float().t(), (0, 0, 1, 1, 1, 1))  # (B, H+2, W+2, 9)
+    hh, ww = coords.shape[1:]
+    delta = sum(z9[:, dy:dy + hh, dx:dx + ww, 3 * dy + dx] for dy in range(3) for dx in range(3))
     return coords + (delta + w.b2)
 
 

@@ -5,9 +5,11 @@ The port of the JAX package's `serve/pipeline.py` (single-graph mode):
    antialiased Keys cubic (a=-0.5) and run DAv2 on them as one batch;
 2. resize the depth back (antialiased bilinear), joint min-max normalize;
 3. edge-pad to a multiple of 32, run StereoAnywhere, unpad.
-`serve_http` keeps the JAX request format: POST /infer with an
-X-Meta-Length JSON header ({"h", "w"}) and float32 (2, H, W, 3) pixels,
-answered with uint16 disparity x256.
+`two_stage=True` runs the mono stage and the stereo stage apart with the
+depth moved through host memory between them, as the JAX pipeline's
+two-stage mode does.  `serve_http` keeps the JAX request format: POST
+/infer with an X-Meta-Length JSON header ({"h", "w"}) and float32
+(2, H, W, 3) pixels, answered with uint16 disparity x256.
 """
 from __future__ import annotations
 
@@ -36,8 +38,11 @@ class StereoAnywherePipeline:
     """(B,H,W,3) pair in [0,1] -> (B,H,W,1) positive disparity (f32).
 
     `mono=None` runs stereo-only with mono depth given by the caller (or
-    zeros).  `device` defaults to the card and raises without one unless
-    "cpu" is asked for; the models are moved there.
+    zeros); with a mono model loaded, depth is always computed and the
+    caller's is ignored, as in the JAX pipeline.  `two_stage=True` moves the
+    depth through host memory between the stages (`mono_stage`, then
+    `stereo_stage`).  `device` defaults to the card and raises without one
+    unless "cpu" is asked for; the models are moved there.
     """
 
     def __init__(
@@ -47,12 +52,14 @@ class StereoAnywherePipeline:
         iters: int = 32,
         mono_size: tuple[int, int] = (518, 518),
         device: str | torch.device = "cuda",
+        two_stage: bool = False,
     ):
         self.device = resolve_device(device)
         self.stereo = stereo.to(self.device)
         self.mono = mono.to(self.device) if mono is not None else None
         self.iters = iters
         self.mono_size = mono_size
+        self.two_stage = two_stage
 
     def _tensor(self, x) -> torch.Tensor:
         if not torch.is_tensor(x):
@@ -60,9 +67,9 @@ class StereoAnywherePipeline:
         return x.to(self.device, torch.float32)
 
     @torch.inference_mode()
-    def mono_depth(self, im2, im3) -> tuple[torch.Tensor, torch.Tensor]:
-        """The mono stage alone: DAv2 on both views as one batch, at the
-        DAv2 input size, resized back.  (B,H,W,3) -> two (B,H,W,1), f32."""
+    def mono_stage(self, im2, im3) -> tuple[torch.Tensor, torch.Tensor]:
+        """DAv2 on both views as one batch, at the DAv2 input size, resized
+        back.  (B,H,W,3) -> two (B,H,W,1), f32."""
         im2, im3 = self._tensor(im2), self._tensor(im3)
         b, h, w, _ = im2.shape
         fh, fw = dav2_input_size(h, w, self.mono_size[0], self.mono_size[1])
@@ -73,21 +80,32 @@ class StereoAnywherePipeline:
         return depth[:b], depth[b:]
 
     @torch.inference_mode()
-    def __call__(self, im2, im3, mde2=None, mde3=None) -> torch.Tensor:
+    def stereo_stage(self, im2, im3, mde2, mde3) -> torch.Tensor:
+        """Joint min-max normalize the depth pair, edge-pad to a multiple of
+        32, run StereoAnywhere, unpad.  (B,H,W,3) views and (B,H,W,1) depth
+        -> (B,H,W,1) disparity, f32."""
         im2, im3 = self._tensor(im2), self._tensor(im3)
-        b, h, w, _ = im2.shape
+        _, h, w, _ = im2.shape
         t, bot, l, r = _pad_sizes(h, w)
-        if mde2 is None and self.mono is not None:
-            mde2, mde3 = self.mono_depth(im2, im3)
-        elif mde2 is None:
-            mde2 = mde3 = torch.zeros((b, h, w, 1), device=self.device)
         mde2, mde3 = joint_minmax_normalize([self._tensor(m).permute(0, 3, 1, 2) for m in (mde2, mde3)])
-
         pad = lambda x: F.pad(x, (l, r, t, bot), mode="replicate").permute(0, 2, 3, 1)  # noqa: E731
         out = self.stereo(
             pad(im2.permute(0, 3, 1, 2)), pad(im3.permute(0, 3, 1, 2)), pad(mde2), pad(mde3), iters=self.iters
         )
         return out["disparity"][:, t : t + h, l : l + w].float()
+
+    @torch.inference_mode()
+    def __call__(self, im2, im3, mde2=None, mde3=None) -> torch.Tensor:
+        im2, im3 = self._tensor(im2), self._tensor(im3)
+        if self.mono is None:
+            if mde2 is None:
+                mde2 = mde3 = torch.zeros((*im2.shape[:3], 1), device=self.device)
+            return self.stereo_stage(im2, im3, mde2, mde3)
+        two_stage = self.two_stage and mde2 is None  # JAX's rule: given depth takes the one-graph path
+        mde2, mde3 = self.mono_stage(im2, im3)
+        if two_stage:  # the host round trip between the stages
+            mde2, mde3 = mde2.cpu().numpy(), mde3.cpu().numpy()
+        return self.stereo_stage(im2, im3, mde2, mde3)
 
 
 def build_pipeline(
@@ -99,11 +117,14 @@ def build_pipeline(
     seed: int = 0,
     stereo_variables=None,
     mono_variables=None,
+    two_stage: bool = False,
 ) -> StereoAnywherePipeline:
     """A pipeline with fresh models: random weights from `seed`, or the JAX
     package's variable trees (nested dicts of numpy arrays) when given.
     `mono_cfg=None` builds it stereo-only.  DAv2 runs in the stereo compute
-    dtype."""
+    dtype, activations included, where the JAX pipeline keeps the image's
+    f32; in bf16 the port's depth stays within twice JAX's own bf16 error
+    (`tests/test_torch_bf16.py`)."""
     from stereoanywhere_tpu_torch.compat.from_jax import load_dav2_variables, load_stereo_variables
     from stereoanywhere_tpu_torch.device import torch_dtype
 
@@ -119,7 +140,7 @@ def build_pipeline(
         )
         if mono_variables is not None:
             load_dav2_variables(mono, mono_variables)
-    return StereoAnywherePipeline(stereo, mono, iters, mono_size, dev)
+    return StereoAnywherePipeline(stereo, mono, iters, mono_size, dev, two_stage)
 
 
 def make_http_server(pipeline: StereoAnywherePipeline, host: str = "0.0.0.0", port: int = 8008) -> HTTPServer:

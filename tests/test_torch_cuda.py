@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (K1-K4, and K5, K7, K8, K9 with the K6
 interface) against their plain PyTorch versions, and the launch geometry of
-the wgmma + TMA bodies (K1-K4, K8, K9), on the card.  Every test
+the wgmma + TMA bodies (K1-K4, K7, K8, K9), on the card.  Every test
 here needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the test conftest's fixtures, so that it
@@ -217,6 +217,16 @@ def test_wgmma_kernels_launch_geometry(cuda):
             assert g["tiles"] == -(-w // g["bw"]) * -(-h // g["bh"]) * (n // g["bn"])
             assert g["blocks"] == min(sms, g["tiles"]) and g["threads"] == 128 * (g["bm"] // 64 + 1)
             assert g["smem"] <= 232448 and g["stages"] >= 2
+    # K7's conv1 (N 256)
+    for h, w in ((128, 128), (96, 320), (24, 80), (13, 6)):
+        g = port_step.flow_head_geometry(1, h, w)
+        assert g["bw"] * g["bh"] == g["bm"] and g["bm"] in (64, 128) and g["bn"] in (64, 128, 256)
+        assert g["tiles"] == -(-w // g["bw"]) * -(-h // g["bh"]) * (256 // g["bn"])
+        assert g["blocks"] == min(sms, g["tiles"]) and g["smem"] <= 232448 and g["stages"] >= 2
+    if sms == 132:  # all 256 channels of a pixel in one tile at both requests' planes: 1 and 1.8 rounds
+        assert [(g["bm"], g["bn"], g["tiles"]) for g in (port_step.flow_head_geometry(1, 128, 128),
+                                                         port_step.flow_head_geometry(1, 96, 320))] == [
+            (128, 256, 128), (128, 256, 240)]
     if sms == 132:  # 128-pixel patches at both requests' planes
         assert [(g["bm"], g["bn"]) for g in port_step.motion_geometry(1, 128, 128)] == [(128, 64), (128, 128)]
         assert [(g["bm"], g["bn"]) for g in port_step.motion_geometry(1, 96, 320)] == [(128, 64), (128, 128)]
@@ -295,6 +305,70 @@ def test_flow_head_kernel(cuda, dtype, border):
         h = _border(h)
     c = torch.from_numpy(rng.standard_normal((1, H4, W4)).astype(np.float32) * 0.1).cuda()
     _check(port_step.flow_head, port_sf.flow_head_ref, (h, c, w), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hh,ww", [(1, 128, 128), (1, 96, 320), (1, 24, 80), (2, 24, 80), (1, 13, 6)],
+                         ids=["512-plane", "kitti-plane", "narrow", "batch-two", "narrower-than-a-patch"])
+def test_flow_head_kernel_planes(cuda, dtype, b, hh, ww):
+    """K7 at the quarter-resolution planes of the 512^2 and 375x1242
+    requests, a narrow one, B = 2 and a plane narrower than a patch, with
+    border values: conv1's zero padding, and conv2's, the tap columns of
+    pixels outside the plane, keep the answer right."""
+    from stereoanywhere_tpu_torch.models.update import FlowHead
+
+    rng = np.random.default_rng(hh * ww + b + 1)
+    w = _packed(FlowHead(128, 256, 2), lambda m, dt: port_sf.pack_head_weights(m.conv1, m.conv2, dt), dtype, 5)
+    h = _border(_rand(rng, dtype, b, hh, ww, 128))
+    c = torch.from_numpy(rng.standard_normal((b, hh, ww)).astype(np.float32) * 0.1).cuda()
+    _check(port_step.flow_head, port_sf.flow_head_ref, (h, c, w), dtype)
+
+
+@pytest.mark.cuda
+def test_flow_head_keeps_fh1_out_of_device_memory(cuda):
+    """The bf16 body allocates no fh1 (M x 256 bf16, 8.4 MB at the 512^2
+    request's plane): what a call allocates is the tap columns' scratch
+    (at most 4 sets of 9 f32 a pixel) and the coordinates."""
+    from stereoanywhere_tpu_torch.models.update import FlowHead
+
+    rng = np.random.default_rng(13)
+    w = _packed(FlowHead(128, 256, 2), lambda m, dt: port_sf.pack_head_weights(m.conv1, m.conv2, dt), "bfloat16", 5)
+    h = _rand(rng, "bfloat16", 1, 128, 128, 128)
+    c = torch.zeros((1, 128, 128), device="cuda")
+    port_step.flow_head(h, c, w)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    port_step.flow_head(h, c, w)
+    torch.cuda.synchronize()
+    m = 128 * 128
+    assert torch.cuda.max_memory_allocated() - base <= 4 * 9 * m * 4 + m * 4 + 4096 < m * 256 * 2
+
+
+@pytest.mark.cuda
+def test_flow_head_forced_tiles_agree(cuda):
+    """Every tile K7's bf16 conv1 may take (forced through the library's
+    diagnostic entry point, uncounted), on a plane no patch divides: tiles
+    narrower than 256 channels write partial tap-column sets that the tap
+    sum adds."""
+    from stereoanywhere_tpu_torch.models.update import FlowHead
+
+    rng = np.random.default_rng(14)
+    b, hh, ww = 2, 20, 36
+    w = _packed(FlowHead(128, 256, 2), lambda m, dt: port_sf.pack_head_weights(m.conv1, m.conv2, dt), "bfloat16", 6)
+    h = _border(_rand(rng, "bfloat16", b, hh, ww, 128))
+    c = torch.from_numpy(rng.standard_normal((b, hh, ww)).astype(np.float32)).cuda()
+    want = port_sf.flow_head_ref(h, c, w)
+    launches = port_step.flow_head.launches
+    for tile in range(1, 6):  # 128x256, 128x128, 64x128, 64x64, 128x64
+        got = port_step.flow_head_forced_tile(h, c, w, tile)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        assert err <= 1e-2 * want.abs().max().item(), (tile, err)
+    assert port_step.flow_head.launches == launches
+    with pytest.raises(ValueError):
+        port_step.flow_head_forced_tile(h, c, w, 6)
 
 
 @pytest.mark.cuda

@@ -11,7 +11,11 @@ Tolerances: 1e-5 for the lookup (the same products and sums; relative to
 max |output|), 1e-4 for the convolutional kernels and the forward (the
 same f32 arithmetic with sums in another order: XLA's dots against
 MKL-DNN's convolutions), as `tests/test_pallas_kernel.py` and
-`tests/test_model_forward.py` hold the JAX package's own kernels.
+`tests/test_model_forward.py` hold the JAX package's own kernels.  In bf16
+(the `_bf16` tests, K5, K7, K8 and K9): max |port - JAX| <= 1e-2 max |JAX|,
+the card's bf16 tolerance (`test_torch_kernels.py`): both round at the
+same points from f32 sums taken in another order, so a rounded
+intermediate may differ by one bf16 ulp.
 """
 import numpy as np
 import pytest
@@ -140,6 +144,91 @@ def test_flow_head_matches_jax(rng):
                             for i in range(4)], -1)
     close(inter, np.asarray(cf)[..., :72], 1e-4)
     close(inter, np.asarray(cf_r)[..., :72], 1e-4)
+
+
+def _bf16_close(got, want, rel=1e-2):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert np.isfinite(got).all()
+    err, scale = np.abs(got - want).max(), np.abs(want).max()
+    assert scale > 0 and err <= rel * scale, (err, scale)
+
+
+def test_flow_head_matches_jax_bf16(rng):
+    """K7 in bf16: fh1 rounded to bf16 as the TPU kernel's slab, the tap
+    columns and their sum in f32; the x-delta (coords' - coords) against
+    the TPU kernel's.  Then K5's bf16 plain version against the head's
+    lookup half (the TPU kernel `step_fused.py:462`), at the TPU kernel's
+    new coordinates."""
+    from stereoanywhere_tpu.ops.pallas import step_fused as sf
+
+    from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import dual_lookup
+    from stereoanywhere_tpu_torch.ops.cuda.step_fused import flow_head
+
+    h, _, coords, la, lb = _sf_inputs(rng)
+    kf1, bf1 = _arr(rng, 3, 3, 128, 256, scale=0.05), _arr(rng, 256, scale=0.1)
+    k2, b2 = _arr(rng, 3, 3, 256, 2, scale=0.05), _arr(rng, 2, scale=0.1)
+    hw = sf.pack_head_weights(*map(jnp.asarray, (kf1, bf1, k2, b2)), jnp.bfloat16)
+    jl, jb = [jnp.asarray(x, jnp.bfloat16) for x in la], [jnp.asarray(x, jnp.bfloat16) for x in lb]
+    cn, cf = sf.fused_step_head(jnp.asarray(h, jnp.bfloat16), jnp.asarray(coords), jl, jb, hw, interpret=True)
+
+    pw = P.pack_head_weights(conv_module(kf1, bf1), conv_module(k2, b2), torch.bfloat16)
+    got = flow_head(t(h).bfloat16(), t(coords), pw)
+    assert got.dtype == torch.float32
+    _bf16_close(got.numpy() - coords, np.asarray(cn) - coords)
+    ca, cb = dual_lookup([t(x).bfloat16() for x in la], [t(x).bfloat16() for x in lb], t(np.asarray(cn)), 4)
+    assert ca.dtype == torch.bfloat16
+    inter = np.concatenate([np.concatenate([ca[..., 9 * i: 9 * i + 9].float(), cb[..., 9 * i: 9 * i + 9].float()], -1)
+                            for i in range(4)], -1)
+    _bf16_close(inter, np.asarray(cf.astype(jnp.float32))[..., :72])
+
+
+@pytest.mark.parametrize("impl", ["mxu", "barrel"])
+def test_dual_lookup_matches_jax_bf16(rng, impl):
+    """K5 in bf16 against the TPU lookups `corr_mxu.py` and `corr_barrel.py`
+    (interpret mode), coordinates inside every level and past both ends."""
+    from stereoanywhere_tpu.ops.pallas.corr_barrel import dual_lookup_barrel
+    from stereoanywhere_tpu.ops.pallas.corr_mxu import dual_lookup_mxu
+
+    from stereoanywhere_tpu_torch.ops.corr_lookup import lookup_corr_pyramid_pair
+
+    b, h, w2, wl0, r = 1, 8, 16, 32, 4
+    la, lb = _levels(rng, b, h, w2, wl0)
+    c = _coords_past_both_ends(rng, b, h, w2, wl0)
+    fn = dual_lookup_mxu if impl == "mxu" else dual_lookup_barrel
+    want = fn(tuple(jnp.asarray(x, jnp.bfloat16) for x in la), tuple(jnp.asarray(x, jnp.bfloat16) for x in lb),
+              jnp.asarray(c), r, interpret=True)
+    got = lookup_corr_pyramid_pair([t(x).bfloat16() for x in la], [t(x).bfloat16() for x in lb], t(c), r, impl)
+    for g, wnt in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        _bf16_close(g.float().numpy(), wnt.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("nx", [1, 2], ids=["gru32-nx1", "gru08-gru16-nx2"])
+def test_conv_gru_matches_jax_bf16(rng, nx):
+    """K9 in bf16: z and r*h rounded to bf16 as the TPU kernel's slabs, h'
+    rounded once."""
+    from stereoanywhere_tpu.ops.pallas import step_fused as sf
+
+    from stereoanywhere_tpu_torch.models.update import ConvGRU
+    from stereoanywhere_tpu_torch.ops.cuda.step_fused import conv_gru
+
+    h = np.tanh(_arr(rng, 1, 32, 64, 128))
+    xs = [_arr(rng, 1, 32, 64, 128, scale=0.5) for _ in range(nx)]
+    czrq = _arr(rng, 1, 32, 64, 384, scale=0.3)
+    cin = 128 * (1 + nx)
+    kz, bz = _arr(rng, 3, 3, cin, 128, scale=0.05), _arr(rng, 128, scale=0.1)
+    kr, br = _arr(rng, 3, 3, cin, 128, scale=0.05), _arr(rng, 128, scale=0.1)
+    kq, bq = _arr(rng, 3, 3, cin, 128, scale=0.05), _arr(rng, 128, scale=0.1)
+    gw = sf.pack_gru_weights(*map(jnp.asarray, (kz, bz, kr, br, kq, bq)), jnp.bfloat16)
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    want = sf.fused_step_gru(bf(h), [bf(x) for x in xs], bf(czrq), gw, interpret=True)
+
+    gru = ConvGRU(128, 128 * nx)
+    gru.convz, gru.convr, gru.convq = conv_module(kz, bz), conv_module(kr, br), conv_module(kq, bq)
+    got = conv_gru(t(h).bfloat16(), [t(x).bfloat16() for x in xs], t(czrq).bfloat16(),
+                   P.pack_gru_weights(gru, torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    _bf16_close(got.float().numpy(), want.astype(jnp.float32))
 
 
 def _motion_weights(rng):

@@ -47,6 +47,18 @@ def test_ln_dense_plain_matches_pallas(rng):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+def test_ln_dense_plain_matches_pallas_bf16(rng):
+    """K1 in bf16: LN in f32, its output rounded to bf16 for the product,
+    the f32 sum plus bias rounded once; ViT-S's width (D 384, F 3D)."""
+    from stereoanywhere_tpu.ops.pallas.vit_dense import ln_dense
+
+    x, g, be, w, bias = _inputs(rng, 2, 37, 384, 1152)
+    want = ln_dense(*[jnp.asarray(a, jnp.bfloat16) for a in (x, g, be, w.T, bias)], block_t=16, interpret=True)
+    got = port_dense.ln_dense(*[a.bfloat16() for a in _t(x, g, be, w, bias)])
+    assert got.dtype == torch.bfloat16
+    _bf16_close(got.float().numpy(), want.astype(jnp.float32))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_dense_scale_residual_plain_matches_pallas(rng, dtype):
     """K3; in bf16 the rounding point the card's kernel keeps: x + gamma y

@@ -54,6 +54,45 @@ def test_pipeline_matches_jax(pipelines, h, w):
     np.testing.assert_allclose(got, want, rtol=5e-5, atol=1e-3)
 
 
+def test_mono_loaded_pipeline_ignores_callers_depth(pipelines):
+    """With the mono model loaded, depth passed by the caller is ignored:
+    the JAX pipeline recomputes it, and so does the port."""
+    jp, pp = pipelines
+    rng = np.random.default_rng(5)
+    im2, im3 = (rng.uniform(0, 1, (1, 32, 64, 3)).astype(np.float32) for _ in range(2))
+    mde = rng.uniform(0, 1, (1, 32, 64, 1)).astype(np.float32)
+    j_given = np.asarray(jp(jnp.asarray(im2), jnp.asarray(im3), jnp.asarray(mde), jnp.asarray(1 - mde)))
+    np.testing.assert_array_equal(j_given, np.asarray(jp(jnp.asarray(im2), jnp.asarray(im3))))
+    got = pp(im2, im3, mde, 1 - mde).numpy()
+    np.testing.assert_array_equal(got, pp(im2, im3).numpy())
+    np.testing.assert_allclose(got, j_given, rtol=5e-5, atol=1e-3)
+
+
+def test_two_stage_matches_one_graph(pipelines, monkeypatch):
+    """`two_stage=True`: `mono_stage`, the depth through host memory, then
+    `stereo_stage`; the same answer as the one-call path and as the JAX
+    two-stage pipeline."""
+    from stereoanywhere_tpu.serve.pipeline import StereoAnywherePipeline as JPipe
+
+    from stereoanywhere_tpu_torch.serve.pipeline import StereoAnywherePipeline
+
+    jp, pp = pipelines
+    rng = np.random.default_rng(6)
+    im2, im3 = (rng.uniform(0, 1, (1, 32, 64, 3)).astype(np.float32) for _ in range(2))
+    two = StereoAnywherePipeline(pp.stereo, pp.mono, pp.iters, pp.mono_size, "cpu", two_stage=True)
+    depths = []
+    stage = two.stereo_stage
+    monkeypatch.setattr(two, "stereo_stage", lambda a, b, m2, m3: depths.append((m2, m3)) or stage(a, b, m2, m3))
+    got = two(im2, im3).numpy()
+    assert len(depths) == 1 and all(isinstance(d, np.ndarray) for d in depths[0])  # the host round trip
+    one = pp(im2, im3).numpy()
+    np.testing.assert_allclose(got, one, rtol=5e-5, atol=1e-3)
+    np.testing.assert_allclose(pp.stereo_stage(im2, im3, *pp.mono_stage(im2, im3)).numpy(), one, rtol=0, atol=0)
+    jtwo = JPipe(jp.stereo_variables, jp.mono_variables, jp.stereo.cfg, jp.mono.cfg, iters=jp.iters,
+                 mono_size=jp.mono_size, two_stage=True)
+    np.testing.assert_allclose(got, np.asarray(jtwo(jnp.asarray(im2), jnp.asarray(im3))), rtol=5e-5, atol=1e-3)
+
+
 def test_http_server_roundtrip():
     """serve_http's request format through the port's server and client,
     on a stereo-only CPU pipeline."""
