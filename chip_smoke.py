@@ -26,8 +26,12 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    motion encoder, K9 ConvGRU at its three scales, and K9 behind the K6
    interface) at the quarter-resolution planes of the same requests, in
    both dtypes, against their plain versions, also on inputs where only
-   the zero padding keeps them right, timed beside the port's unfused
-   modules for the same function (cuDNN convolutions, the plain lookup);
+   the zero padding keeps them right (K5: coordinates far outside every
+   level, and level rows whose stride is no multiple of 16 bytes, B = 2,
+   an odd pixel count; held to 0, bit for bit), timed beside the port's
+   unfused modules for the same function (cuDNN convolutions; for K5 the
+   plain gather, which the port no longer runs on the card), K5 with its
+   sector-granular bound beside the window's;
    K9's time, TFLOP/s and bound per scale and plane; K8's device time by
    launch (c1/f1, the grouped 3x3 stage, the merge conv); the launch
    geometry (tile, pixel patch, grid) of K9 per scale and plane and of K8's
@@ -36,12 +40,17 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    seeded random weights) behind `serve_http` on 127.0.0.1, answering two
    512x512 pairs and two 375x1242 pairs, first in the default
    configuration, then with `fused_level0="on"`; each kernel's launches a
-   request are asserted (K1-K4 24; K5, K7, K8 31 and K9 93 on the fused
-   path, none on the default one); then, per configuration and shape, the
-   warm request and its mono and stereo stages timed in interleaved
-   rounds (the stages through `mono_stage` and `stereo_stage`), and one
-   request traced with `torch.profiler` for the device's busy time, idle
-   share, time by kernel family and aten::conv3d's device time; then the
+   request are asserted (K1-K4 24 and K5 32 in both configurations, one
+   lookup an iteration; K7, K8 31 and K9 93 on the fused path, none on
+   the default one); then, per configuration and shape, the warm request
+   and its mono and stereo stages timed in interleaved rounds (the stages
+   through `mono_stage` and `stereo_stage`), and one request traced with
+   `torch.profiler` for the device's busy time, idle share, time by kernel
+   family, aten::conv3d's device time and device time by module (the
+   model's parts wrapped in `record_function` ranges for that request
+   only: DAv2's ViT and DPT head, the extractors, the volumes, the
+   hourglass and classifiers, the refinement loop and, inside it, its
+   pool/interp glue); then the
    mono hourglass and classifiers of a bf16 model alone at both requests'
    volumes, with f32 depth pyramids (as the model runs them: f32 past the
    first gate) and with bf16 ones (all in bf16), in turns;
@@ -71,6 +80,7 @@ ms, device ms and host ms (K8 also its device ms by launch).
 """
 from __future__ import annotations
 
+import bisect
 import json
 import re
 import shutil
@@ -79,15 +89,18 @@ import sys
 import threading
 import time
 from collections import defaultdict
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 import stereoanywhere_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 from stereoanywhere_tpu_torch.config import MonoConfig, StereoAnywhereConfig
+from stereoanywhere_tpu_torch.models import stereoanywhere as sa_model
+from stereoanywhere_tpu_torch.models import update as sa_update
 from stereoanywhere_tpu_torch.models.dpt import INTERMEDIATE_LAYER_IDX, DepthAnythingV2, dav2_input_size
 from stereoanywhere_tpu_torch.models.layers import conv_in_dtype, init_weights
 from stereoanywhere_tpu_torch.models.stereoanywhere import StereoAnywhere
@@ -104,6 +117,10 @@ PEAK_BYTES = 3.35e12
 # at most 2^-7), and the LN / gelu intermediates are rounded to bf16 on
 # both sides
 REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# kernels held tighter: K5 computes each tap with the plain gather's f32
+# operations in the same order and rounds to bf16 where it rounds, so the
+# two agree bit for bit
+KERNEL_TOL = {"dual_lookup": 0.0}
 VIT_L = dict(d=1024, heads=16, hidden=4096, depth=24)
 KITTI = (375, 1242)
 # quarter-resolution planes (H4, W4) of the two requests: 512^2, and
@@ -267,11 +284,13 @@ def key_tail_qkv(dtype, t: int, g: torch.Generator) -> torch.Tensor:
     return qkv.to("cuda", dtype)
 
 
-def check(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> tuple[float, float]:
-    """max |got - want| and max |want|; raises past REL_TOL * max |want|."""
+def check(name: str, got: torch.Tensor, want: torch.Tensor, dtype, tol: float | None = None) -> tuple[float, float]:
+    """max |got - want| and max |want|; raises past tol * max |want| (by
+    default REL_TOL of the dtype)."""
+    tol = REL_TOL[dtype] if tol is None else tol
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
-    if not (scale > 0 and err <= REL_TOL[dtype] * scale and bool(torch.isfinite(got).all())):
+    if not (scale > 0 and err <= tol * scale and bool(torch.isfinite(got).all())):
         raise AssertionError(f"{name} disagrees with its plain version: {err} (max|plain| {scale})")
     return err, scale
 
@@ -409,10 +428,60 @@ def _window_bytes(coords: torch.Tensor, wls, radius: int, itemsize: int) -> int:
     return 2 * total * itemsize
 
 
-def step_cases(dtype, h4: int, w4: int, g: torch.Generator, border: bool):
+def _window_sector_bytes(coords: torch.Tensor, wls, radius: int, itemsize: int) -> int:
+    """The same windows counted in the card's 32-byte sectors: each sector
+    of a level that holds an entry of some window, once (a 20-byte bf16
+    window spans one or two)."""
+    total = 0
+    rows = torch.arange(coords.numel(), device=coords.device, dtype=torch.int64)
+    for lvl, wl in enumerate(wls):
+        x0 = (torch.floor(coords.reshape(-1) / 2 ** lvl) - radius).clamp(-2 * radius - 2, wl).long()
+        inside = (x0 + 2 * radius + 1 >= 0) & (x0 <= wl - 1)
+        row, x0 = rows[inside] * wl, x0[inside]
+        s0 = (row + x0.clamp(0, wl - 1)) * itemsize // 32
+        s1 = (row + (x0 + 2 * radius + 1).clamp(0, wl - 1)) * itemsize // 32
+        span = int((s1 - s0).max().item()) + 1 if s0.numel() else 0
+        ids = torch.cat([torch.where(s0 + k <= s1, s0 + k, s0) for k in range(span)]) if span else s0
+        total += int(ids.unique().numel())
+    return 2 * total * 32
+
+
+def lookup_host_split(pyr, c: torch.Tensor, r: int) -> dict:
+    """The host's least time (ms) for the parts of a K5 call: the output's
+    allocation, the launch (the stream query, ctypes and
+    cudaLaunchKernelEx) and the split into the two pyramids' views; what
+    the wrapper takes beyond them is its checks and Python."""
+    shape = (2, *pyr.shape, len(pyr.widths) * (2 * r + 1))
+    out = torch.empty(shape, device="cuda", dtype=pyr.dtype)
+    parts = {"torch.empty": lambda: torch.empty(shape, device="cuda", dtype=pyr.dtype),
+             "launch": lambda: pyr._call(c.data_ptr(), out.data_ptr(), r),
+             "unbind": lambda: out.unbind(0)}
+    return {name: host_ms(fn, iters=100) for name, fn in parts.items()}
+
+
+def lookup_edge_cases(dtype, g: torch.Generator):
+    """K5 where only its edge handling keeps it right, not timed: level
+    widths 40/20/10/5 (bf16 rows of 80, 40, 20 and 10 bytes, only the
+    first a multiple of 16) at B = 2, near and far outside every level;
+    and 33/16/8/4 with an odd pixel count (in bf16 the second pyramid's
+    output then starts mid-chunk)."""
+    for label, (b, h, w), far in (("B=2 widths 40-5", (2, 24, 40), False), ("B=2 widths 40-5 far", (2, 24, 40), True),
+                                  ("odd pixel count, widths 33-4", (1, 3, 33), True)):
+        wls = [w // 2 ** i for i in range(4)]
+        la, lb = ([torch.randn((b, h, w, wl), generator=g).to("cuda", dtype) for wl in wls] for _ in range(2))
+        spread = 30.0 if far else 3.0
+        c = (torch.arange(w, dtype=torch.float32) + torch.randn((b, h, w), generator=g) * spread).cuda()
+        if far:
+            c[0, 0, :4] = torch.tensor([-1e4, 1e4, -0.5, w - 0.5])
+        yield label, (corr_lookup.DualPyramid(la, lb), c, 4)
+
+
+def step_cases(dtype, h4: int, w4: int, g: torch.Generator, border: bool, lookup: bool = True):
     """(name, wrapper, plain, args, flops, bytes moved, operand dtype of the
     flops, the unfused module's call or None) at one quarter-res plane, B=1.
-    border: inputs where only the zero padding keeps the result right."""
+    border: inputs where only the zero padding keeps the result right.
+    lookup: with K5 (--ab leaves it out: an older checkout's K5 took the
+    two lists of levels, not a DualPyramid)."""
     dev = "cuda"
     m4 = h4 * w4
 
@@ -440,8 +509,8 @@ def step_cases(dtype, h4: int, w4: int, g: torch.Generator, border: bool):
     else:
         c = xs - (torch.randn((1, h4, w4), generator=g).abs() * w4 / 8).to(dev)
     moved = _window_bytes(c, wls, 4, es) + nbytes(c) + 2 * m4 * 36 * es
-    cases.append(("dual_lookup", corr_lookup.dual_lookup, corr_lookup.dual_lookup_ref, (la, lb, c, 4),
-                  2 * m4 * 4 * 9 * 4.0, moved, torch.float32, None))
+    cases += [] if not lookup else [("dual_lookup", corr_lookup.dual_lookup, corr_lookup.dual_lookup_ref,
+                  (corr_lookup.DualPyramid(la, lb), c, 4), 2 * m4 * 4 * 9 * 4.0, moved, torch.float32, None)]
 
     # K7: flow head + coords (small coords, so the output is the delta)
     fh = module(FlowHead(128, 256, 2), 11)
@@ -660,30 +729,48 @@ def step_kernel_phase() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator().manual_seed(1)
     records = {}
+
+    def checked(name, what, fn, ref, args, dtype):
+        got = fn(*args)
+        torch.cuda.synchronize()
+        want = ref(*args)
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        tol = KERNEL_TOL.get(name, REL_TOL[dtype])
+        err, scale = map(max, zip(*[check(what, a, b, dtype, tol) for a, b in pairs]))
+        return err, f"max_abs_err {err:.3e} (max|plain| {scale:.3e}, tol {tol:.0e} rel)"
+
     for dtype in (torch.bfloat16, torch.float32):
+        for label, args in lookup_edge_cases(dtype, torch.Generator().manual_seed(2)):
+            _, text = checked("dual_lookup", f"dual_lookup {dtype} {label}", corr_lookup.dual_lookup,
+                              corr_lookup.dual_lookup_ref, args, dtype)
+            print(f"kernel dual_lookup {str(dtype)[6:]} {label}: {text}", flush=True)
         for plane, (h4, w4) in STEP_PLANES.items():
             for border in (False, True):
                 for name, fn, ref, args, flops, moved, op_dtype, unfused in step_cases(dtype, h4, w4, g, border):
-                    got = fn(*args)
-                    torch.cuda.synchronize()
-                    want = ref(*args)
-                    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-                    err, scale = map(max, zip(*[check(f"{name} ({dtype}, {plane}, border={border})", a, b, dtype)
-                                               for a, b in pairs]))
                     what = f"kernel {name} {str(dtype)[6:]} {plane}"
+                    err, text = checked(name, f"{name} ({dtype}, {plane}, border={border})", fn, ref, args, dtype)
                     if border:
-                        print(f"{what} border case: max_abs_err {err:.3e} (max|plain| {scale:.3e}, "
-                              f"tol {REL_TOL[dtype]:.0e} rel)", flush=True)
+                        print(f"{what} border case: {text}", flush=True)
                         continue
                     prof = device_profile(lambda: fn(*args))
                     row = dict(ms=cuda_ms(lambda: fn(*args)), device_ms=None if prof is None else prof[0],
                                host_ms=host_ms(lambda: fn(*args)), plain_ms=cuda_ms(lambda: ref(*args)),
                                unfused_ms=cuda_ms(unfused) if unfused is not None else None,
                                library_ms=None, max_abs_err=err)
-                    if row["unfused_ms"] is None:  # the unfused path's lookup is the plain version
+                    if row["unfused_ms"] is None:  # the lookup the unfused loop ran before K5: the plain gather
                         row["unfused_ms"] = row["plain_ms"]
                     row["bound_ms"], row["bound_by"] = bound_ms(flops, moved, op_dtype)
-                    print(f"{what}: max_abs_err {err:.3e} (max|plain| {scale:.3e}, tol {REL_TOL[dtype]:.0e} rel) "
+                    if name == "dual_lookup":  # the windows in whole 32-byte sectors
+                        pyr, c, r = args
+                        es = pyr.levels_a[0].element_size()
+                        sectors = moved - _window_bytes(c, pyr.widths, r, es) + _window_sector_bytes(c, pyr.widths, r, es)
+                        row["sector_bound_ms"] = sectors / PEAK_BYTES * 1e3
+                        print(f"{what}: sector bound_ms {row['sector_bound_ms']:.4f} ({sectors / 1e6:.2f} MB in "
+                              "32-byte sectors)", flush=True)
+                        split = lookup_host_split(*args)
+                        print(f"{what}: host ms a call by part: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                              + f"; checks and Python {row['host_ms'] - sum(split.values()):.4f}", flush=True)
+                    print(f"{what}: {text} "
                           f"ms {fmt(row['ms'], flops)} device_ms {fmt(row['device_ms'], flops)} "
                           f"host_ms {row['host_ms']:.4f} plain_ms {row['plain_ms']:.4f} "
                           f"unfused_ms {row['unfused_ms']:.4f} "
@@ -718,12 +805,15 @@ COUNTERS = {
     "motion_encoder": step_fused.motion_encoder,
     "conv_gru": step_fused.conv_gru,
 }
-# launches a request: the ViT's kernels once a block; on the fused path the
-# step kernels once a rotated body (K9 at three scales), ITERS - 1 bodies
-VIT_LAUNCHES = {n: VIT_L["depth"] for n in ("ln_dense", "vit_attention", "dense_scale_residual", "vit_mlp")}
+# launches a request: the ViT's kernels once a block; K5 once an iteration
+# in both configurations (the fused one: its pre-step and ITERS - 1
+# rotated bodies); on the fused path the other step kernels once a rotated
+# body (K9 at three scales)
+MAIN_PATH = {**{n: VIT_L["depth"] for n in ("ln_dense", "vit_attention", "dense_scale_residual", "vit_mlp")},
+             "dual_lookup": ITERS}
 EXPECTED = {
-    "default": {n: VIT_LAUNCHES.get(n, 0) for n in COUNTERS},
-    "fused": {**{n: VIT_LAUNCHES.get(n, 0) for n in COUNTERS}, "dual_lookup": ITERS - 1, "flow_head": ITERS - 1,
+    "default": {n: MAIN_PATH.get(n, 0) for n in COUNTERS},
+    "fused": {**{n: MAIN_PATH.get(n, 0) for n in COUNTERS}, "flow_head": ITERS - 1,
               "motion_encoder": ITERS - 1, "conv_gru": 3 * (ITERS - 1)},
 }
 
@@ -815,6 +905,64 @@ def hourglass_phase() -> None:
         print(f"hourglass {shape} (volume 8x{w4}x{h4}x{w4}), ms a call in turns: " + "; ".join(parts), flush=True)
 
 
+# the model's parts, each wrapped in a record_function range of this name
+# for a traced request: (owner, attribute) pairs, an nn.Module's forward
+# or a function the forward calls by its module-level name.  The loop's
+# functions are the ones the forward calls (refinement_step calls its own
+# module's update_nets, which stays unwrapped, so no range nests in one of
+# its own name); the glue ranges lie inside the loop's
+def module_parts(pipe) -> dict:
+    st, mono = pipe.stereo, pipe.mono
+    return {
+        "DAv2 ViT": [(mono.pretrained, "forward")],
+        "DAv2 DPT head": [(mono.depth_head, "forward")],
+        "extractors": [(st.cnet, "forward"), (st.fnet, "forward")],
+        "volumes": [(sa_model, n) for n in ("all_pairs_correlation", "generate_masks", "masked_volume",
+                                            "truncate_corr_volume", "build_corr_pyramid")],
+        "hourglass and classifiers": [(st.hourglass_mono, "forward"), (sa_model, "conv_in_dtype")],
+        "refinement loop": [(sa_model, n) for n in ("update_nets", "refinement_step", "fused_refinement_step",
+                                                    "refinement_tail")],
+        "loop glue (pool/interp)": [(sa_update, n) for n in ("pool2x", "interp_like", "pool2x_nhwc",
+                                                             "interp_like_nhwc")],
+    }
+
+
+@contextmanager
+def module_ranges(pipe):
+    """Wrap the parts of module_parts in their ranges; restored after."""
+    saved = []
+    for range_name, parts in module_parts(pipe).items():
+        for owner, attr in parts:
+            fn = getattr(owner, attr)
+
+            def ranged(*a, _fn=fn, _name=range_name, **k):
+                with record_function(_name):
+                    return _fn(*a, **k)
+            saved.append((owner, attr, attr in vars(owner), fn))
+            setattr(owner, attr, ranged)
+    try:
+        yield
+    finally:
+        for owner, attr, own, fn in reversed(saved):
+            if own:
+                setattr(owner, attr, fn)
+            else:  # a module's forward: back to its class's
+                delattr(owner, attr)
+
+
+def kernels_within(kernels, spans) -> float:
+    """Busy ms of the kernels that lie inside one of the spans (which do
+    not overlap one another)."""
+    spans = sorted(spans)
+    starts = [s for s, _ in spans]
+    inside = []
+    for e in kernels:
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.end <= spans[i][1]:
+            inside.append((e.time_range.start, e.time_range.end))
+    return busy_us(inside) / 1e3
+
+
 def split_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> None:
     """The warm request and its two stages alone, timed in interleaved
     rounds so that drift of the shared host hits all three alike; then one
@@ -832,9 +980,17 @@ def split_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> None:
     print(f"split {label} {h}x{w}, ms, first call on this thread {first:.1f}; median [min-max] of {SPLIT_ROUNDS} "
           "interleaved rounds after it: " + "; ".join(f"{k} {np.median(v):.1f} [{min(v):.1f}-{max(v):.1f}]" for k, v in times.items()), flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, module_ranges(pipe):
         traced = sync_ms(lambda: pipe(im2, im3))
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the ranges show on the device too, as spans from their first kernel
+    # to their last: kept apart from the kernels
+    parts = module_parts(pipe)
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in device_events if e.name not in parts]
+    spans = defaultdict(list)
+    for e in device_events:
+        if e.name in parts:
+            spans[e.name].append((e.time_range.start, e.time_range.end))
     if not kernels:
         print(f"trace {label} {h}x{w}: device busy time not measured (the profiler saw no device events)", flush=True)
         return
@@ -863,6 +1019,14 @@ def split_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> None:
         by_family[fam] += (e.time_range.end - e.time_range.start) / 1e3
     print("  device ms by family: " +", ".join(f"{f} {ms:.2f}" for f, ms in
                                                  sorted(by_family.items(), key=lambda kv: -kv[1])), flush=True)
+    by_module = {name: kernels_within(kernels, spans[name]) for name in parts}
+    if not any(spans.values()):
+        print("  device ms by module: not measured (the profiler showed no ranges on the device)", flush=True)
+        return
+    outer = sum(ms for name, ms in by_module.items() if name != "loop glue (pool/interp)")
+    print("  device ms by module (busy time of the kernels inside each range): "
+          + ", ".join(f"{n} {ms:.2f}" for n, ms in by_module.items())
+          + f"; the rest {busy - outer:.2f} (the glue lies inside the loop)", flush=True)
 
 
 def pipeline_phase(label: str, cfg: StereoAnywhereConfig) -> dict:
@@ -1012,7 +1176,7 @@ def ab_rows() -> list[dict]:
                 measure(name, f"T={t}", fn, ref, args, flops)
     g = torch.Generator().manual_seed(1)
     for plane, (h4, w4) in STEP_PLANES.items():
-        for name, fn, ref, args, flops, *_ in step_cases(bf16, h4, w4, g, border=False):
+        for name, fn, ref, args, flops, *_ in step_cases(bf16, h4, w4, g, border=False, lookup=False):
             if name.startswith(("flow_head", "motion_encoder", "conv_gru/", "gru_fused")):
                 measure(name, plane, fn, ref, args, flops)
     return rows
@@ -1090,12 +1254,14 @@ def main() -> int:
     kernels = []
     for name, row in records.items():
         src, replaces = SOURCE[name]
-        # each kernel's launches on the path that runs it
-        n = launches[name] if name in VIT_LAUNCHES else fused[name]
+        # each kernel's launches on the main path (the default
+        # configuration) where it runs there, else on the fused one
+        n = launches[name] if name in MAIN_PATH else fused[name]
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces, launches=n,
                             max_abs_err=row["max_abs_err"], ms=row["ms"], device_ms=row["device_ms"],
-                            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                            library_ms=row["library_ms"], unfused_ms=row.get("unfused_ms")))
+                            host_ms=row["host_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                            bound_by=row["bound_by"], library_ms=row["library_ms"], unfused_ms=row.get("unfused_ms"),
+                            **({"sector_bound_ms": row["sector_bound_ms"]} if "sector_bound_ms" in row else {})))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 A copy of the JAX package's `StereoAnywhereConfig` and `MonoConfig`, keeping
 the fields that change the inference math, and the two switches that
 select the kernels of the refinement loop:
-- `lookup_impl` (the correlation lookup: "auto" and the XLA formulations
-  run the plain gather, "mxu" and "barrel" the K5 kernel);
+- `lookup_impl` (the correlation lookup: every value computes one
+  function, which the K5 kernel runs on the card and its plain version,
+  the gather, on the CPU);
 - `fused_level0` (the rotated refinement loop whose quarter-resolution
   plane runs in the K7, K5, K8 and K9 kernels).
 Their values and defaults are the JAX package's; its CPU-test mode
@@ -60,10 +61,10 @@ class StereoAnywhereConfig:
     width_pad_align: int = 64
     width_pad_min: int = 640
     # GRU-loop correlation lookup: "auto" resolves to the windowed XLA
-    # formulation in the JAX package, the plain gather here; "inline",
-    # "lagged", "window" are XLA formulations of the same function (the
-    # gather here); "mxu" and "barrel" are Pallas kernels there and the K5
-    # kernel here (ops/corr_lookup.py).
+    # formulation in the JAX package; "inline", "lagged", "window" are XLA
+    # formulations of the same function there, "mxu" and "barrel" Pallas
+    # kernels.  Here every value runs the K5 kernel on the card and the
+    # plain gather on the CPU (ops/corr_lookup.py).
     lookup_impl: str = "auto"
     # Rotated, fused refinement loop (models/stereoanywhere.py): "on" runs
     # its quarter-resolution plane in the K7/K5/K8/K9 kernels; "auto"

@@ -34,6 +34,7 @@ from stereoanywhere_tpu_torch.models.update import (
     update_nets,
 )
 from stereoanywhere_tpu_torch.ops.corr_lookup import build_corr_pyramid
+from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import DualPyramid
 from stereoanywhere_tpu_torch.ops.fuzzy import fuzzy_and
 from stereoanywhere_tpu_torch.ops.geometry import estimate_normals, joint_minmax_normalize, softlrc
 from stereoanywhere_tpu_torch.ops.interp import resize_bilinear_align_corners
@@ -193,9 +194,10 @@ class StereoAnywhere(nn.Module):
             trunc_mask = truncate_corr_volume(scaled_mde2_low, mirror_conf, None, cfg.mirror_attenuation)
             stereo_vol = trunc_mask * stereo_vol
         mono_src = agg_disp if cfg.use_aggregate_mono_vol else mono_vol
-        # contiguous levels: the K5 kernel reads rows of them
-        stereo_pyr = build_corr_pyramid(stereo_vol.to(cdt).contiguous(), cfg.corr_levels)
-        mono_pyr = build_corr_pyramid(mono_src.to(cdt).contiguous(), cfg.corr_levels)
+        # contiguous levels: the K5 kernel reads rows of them.  Checked, and
+        # its pointer arrays built, once for all the forward's lookups
+        pyramids = DualPyramid(build_corr_pyramid(stereo_vol.to(cdt).contiguous(), cfg.corr_levels),
+                               build_corr_pyramid(mono_src.to(cdt).contiguous(), cfg.corr_levels))
 
         # iterative refinement (the JAX nn.scan, as a loop)
         coords0 = torch.arange(w4, device=image2.device, dtype=torch.float32).view(1, 1, 1, w4).expand(b, 1, h4, w4)
@@ -205,22 +207,21 @@ class StereoAnywhere(nn.Module):
         lookup_impl = cfg.resolved_lookup_impl
         mask = None
         if iters >= 1 and self.fused_step_used(net[0].shape):
-            net = update_nets(self.update_block, net, inp, stereo_pyr, mono_pyr, coords1, coords0, cfg.corr_radius,
-                              lookup_impl)
+            net = update_nets(self.update_block, net, inp, pyramids, coords1, coords0, cfg.corr_radius, lookup_impl)
             if iters > 1:
                 ws = self.update_block.fused_weights(cdt)
                 net_h = [n.permute(0, 2, 3, 1).contiguous() for n in net]
                 czrq = [torch.cat(triple, dim=1).permute(0, 2, 3, 1).contiguous() for triple in inp]
                 x = coords1[:, 0].contiguous()
                 for _ in range(iters - 1):
-                    net_h, x = fused_refinement_step(ws, net_h, czrq, stereo_pyr, mono_pyr, x, cfg.corr_radius)
+                    net_h, x = fused_refinement_step(ws, net_h, czrq, pyramids, x, cfg.corr_radius)
                 net = [n.permute(0, 3, 1, 2) for n in net_h]
                 coords1 = x[:, None]
             net, coords1, mask = refinement_tail(self.update_block, net, coords1, compute_mask=True)
         else:
             for it in range(iters):
                 net, coords1, mask = refinement_step(
-                    self.update_block, net, inp, stereo_pyr, mono_pyr, coords1, coords0, cfg.corr_radius,
+                    self.update_block, net, inp, pyramids, coords1, coords0, cfg.corr_radius,
                     compute_mask=it == iters - 1, lookup_impl=lookup_impl,
                 )
 

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from stereoanywhere_tpu_torch.ops import step_fused as sf
 from stereoanywhere_tpu_torch.ops.corr_lookup import lookup_corr_pyramid_pair
-from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import dual_lookup
+from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import DualPyramid, dual_lookup
 from stereoanywhere_tpu_torch.ops.cuda.step_fused import conv_gru, flow_head, motion_encoder
 from stereoanywhere_tpu_torch.ops.interp import interp_like, interp_like_nhwc, pool2x, pool2x_nhwc
 
@@ -141,13 +141,16 @@ class MultiUpdateBlock(nn.Module):
         return net
 
 
-def update_nets(block: MultiUpdateBlock, net, inp, stereo_pyr, mono_pyr, coords1, coords0, radius: int,
+def update_nets(block: MultiUpdateBlock, net, inp, pyramids: DualPyramid, coords1, coords0, radius: int,
                 lookup_impl: str = "window"):
-    """Look both pyramids up at coords1 (B,1,H,W) f32, encode the motion and
-    run the cascade: a GRU iteration without its flow head (the JAX
-    `skip_flow_head` pre-step).  net/inp/pyramids are in the compute dtype."""
+    """Look the stereo and mono pyramids up at coords1 (B,1,H,W) f32, encode
+    the motion and run the cascade: a GRU iteration without its flow head
+    (the JAX `skip_flow_head` pre-step).  net/inp/pyramids are in the
+    compute dtype."""
     cdt = net[0].dtype
-    stereo_corr, mono_corr = lookup_corr_pyramid_pair(stereo_pyr, mono_pyr, coords1[:, 0], radius, lookup_impl)
+    # coords1 may be the expanded coords0 (init_disparity_zero): K5 reads
+    # its x-coordinates as a contiguous plane
+    stereo_corr, mono_corr = lookup_corr_pyramid_pair(pyramids, coords1[:, 0].contiguous(), radius, lookup_impl)
     stereo_corr = stereo_corr.permute(0, 3, 1, 2).to(cdt)
     mono_corr = mono_corr.permute(0, 3, 1, 2).to(cdt)
     flow_x = coords1 - coords0
@@ -164,17 +167,18 @@ def refinement_tail(block: MultiUpdateBlock, net, coords1, compute_mask: bool):
     return net, coords1 + delta_x.float(), mask
 
 
-def refinement_step(block: MultiUpdateBlock, net, inp, stereo_pyr, mono_pyr, coords1, coords0, radius: int,
+def refinement_step(block: MultiUpdateBlock, net, inp, pyramids: DualPyramid, coords1, coords0, radius: int,
                     compute_mask: bool, lookup_impl: str = "window"):
     """One GRU iteration of the test-mode loop (the JAX `RefinementStep`):
     look both pyramids up at coords1 (B,1,H,W) f32, run the update block, move
     coords1 by the x-delta.  net/inp/pyramids are in the compute dtype.
     Returns (net, coords1, mask logits or None)."""
-    net = update_nets(block, net, inp, stereo_pyr, mono_pyr, coords1, coords0, radius, lookup_impl)
+    net = update_nets(block, net, inp, pyramids, coords1, coords0, radius, lookup_impl)
     return refinement_tail(block, net, coords1, compute_mask)
 
 
-def fused_refinement_step(ws: sf.FusedWeights, net, czrq, stereo_pyr, mono_pyr, coords1: torch.Tensor, radius: int):
+def fused_refinement_step(ws: sf.FusedWeights, net, czrq, pyramids: DualPyramid, coords1: torch.Tensor,
+                          radius: int):
     """The rotated body of the fused loop (JAX `FusedRefinementStep`):
 
         coords += flow_head(net0)                      K7
@@ -188,7 +192,7 @@ def fused_refinement_step(ws: sf.FusedWeights, net, czrq, stereo_pyr, mono_pyr, 
     scale's context injections [cz | cr | cq], NHWC; coords1 (B,H4,W4) f32,
     the x-coordinate.  Returns (net, coords1)."""
     coords1 = flow_head(net[0], coords1, ws.head)
-    corr_a, corr_b = dual_lookup(stereo_pyr, mono_pyr, coords1, radius)
+    corr_a, corr_b = dual_lookup(pyramids, coords1, radius)
     net = list(net)
     net[2] = conv_gru(net[2], [pool2x_nhwc(net[1])], czrq[2], ws.gru[2])
     net[1] = conv_gru(net[1], [pool2x_nhwc(net[0]), interp_like_nhwc(net[2], net[1])], czrq[1], ws.gru[1])

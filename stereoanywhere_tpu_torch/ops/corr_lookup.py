@@ -2,19 +2,21 @@
 
 `lookup_corr_pyramid` is plain PyTorch in the gather form (the JAX
 package's `_lookup_level_gather`).  `lookup_corr_pyramid_pair` looks both
-pyramids up at shared coordinates and dispatches on `lookup_impl` as the
-JAX package's `lookup_corr_pyramid_pair` does: its XLA formulations
-("inline", "lagged", "window") compute one function, which the port has
-once, in the gather form; its Pallas kernels ("mxu", "barrel") become the
-K5 kernel (`ops/cuda/corr_lookup.py` `dual_lookup`), which looks every level
-of both pyramids up in one launch.  On the card "barrel" needs no packing
-step: the TPU's volume-interleaved layout (`pack_pyramid_pair`) and its
-bf16-only and (B*H) % 4 conditions are TPU layout, not the function.
+pyramids up at shared coordinates.  Every `lookup_impl` of the JAX package
+computes one function: its XLA formulations ("inline", "lagged",
+"window", and "auto", which resolves to "window") and its Pallas kernels
+("mxu", "barrel") differ only in how a TPU evaluates it.  So every impl
+takes the K5 kernel (`ops/cuda/corr_lookup.py` `dual_lookup`, every level
+of both pyramids in one launch) on a CUDA tensor, and its plain version,
+the gather, on a CPU one.  On the card "barrel" needs no packing step: the
+TPU's volume-interleaved layout (`pack_pyramid_pair`) and its bf16-only
+and (B*H) % 4 conditions are TPU layout, not the function.
 """
 from __future__ import annotations
 
 import torch
 
+from stereoanywhere_tpu_torch.config import LOOKUP_IMPLS
 from stereoanywhere_tpu_torch.ops.interp import avg_pool_last_axis_2
 
 
@@ -44,10 +46,6 @@ def _lookup_level(level: torch.Tensor, coords: torch.Tensor, radius: int) -> tor
     return tap(x0i, 1.0 - frac) + tap(x0i + 1, frac)
 
 
-XLA_IMPLS = ("inline", "lagged", "window")
-KERNEL_IMPLS = ("mxu", "barrel")
-
-
 def lookup_corr_pyramid(levels: list[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
     """Index every level i at coords/2^i (coords (B,H,W2), the right-image x).
     Returns (B,H,W2, levels*(2r+1)), level-major."""
@@ -56,15 +54,13 @@ def lookup_corr_pyramid(levels: list[torch.Tensor], coords: torch.Tensor, radius
     )
 
 
-def lookup_corr_pyramid_pair(levels_a, levels_b, coords: torch.Tensor, radius: int, impl: str = "window"):
-    """Both pyramids (same shapes) looked up at coords (B,H,W2) f32:
-    (corr_a, corr_b), each (B,H,W2, levels*(2r+1)).  impl: one of
-    XLA_IMPLS (the gather, twice) or KERNEL_IMPLS (the K5 kernel on a CUDA
-    tensor, its plain version, the same gather, on a CPU one)."""
-    if impl in XLA_IMPLS:
-        return lookup_corr_pyramid(levels_a, coords, radius), lookup_corr_pyramid(levels_b, coords, radius)
-    if impl in KERNEL_IMPLS:
-        from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import dual_lookup
+def lookup_corr_pyramid_pair(pyramids, coords: torch.Tensor, radius: int, impl: str = "window"):
+    """Both pyramids of `pyramids` (an `ops.cuda.corr_lookup.DualPyramid`)
+    looked up at coords (B,H,W2) f32: (corr_a, corr_b), each (B,H,W2,
+    levels*(2r+1)).  impl: one of LOOKUP_IMPLS, all the same function: the
+    K5 kernel on a CUDA tensor, its plain version on a CPU one."""
+    if impl not in LOOKUP_IMPLS:
+        raise ValueError(f"unknown lookup impl {impl!r}; use one of {LOOKUP_IMPLS}")
+    from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import dual_lookup
 
-        return dual_lookup(levels_a, levels_b, coords, radius)
-    raise ValueError(f"unknown lookup impl {impl!r}; use one of {XLA_IMPLS + KERNEL_IMPLS}")
+    return dual_lookup(pyramids, coords, radius)

@@ -109,7 +109,10 @@ def check_status(name: str, what: str, status: int) -> None:
 
 
 def current_stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current CUDA stream, as the launchers take it
+    (`torch.cuda.current_stream().cuda_stream`, without building the
+    Stream object: a few microseconds less for every launch)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def check_operands(what: str, *tensors: torch.Tensor) -> int:

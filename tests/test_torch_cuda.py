@@ -17,7 +17,12 @@ padding keeps the result right.  Tolerance:
 max |kernel - plain| <= tol * max |plain|, tol 1e-5 in f32 (the same f32
 arithmetic, sums in another order) and 1e-2 in bf16 (one bf16 rounding of
 the output, at most 2^-8 of it, and the bf16 operands of the tensor-core
-products).
+products).  K5 (the dual lookup) is held to 0 in both dtypes: it computes
+each tap with the plain gather's f32 operations in the same order and
+rounds to bf16 where the plain version does (the weights f and 1 - f,
+each product, the sum), so the two agree bit for bit; so does the small
+model whose lookups it serves, against the same model with the plain
+lookup.
 """
 import numpy as np
 import pytest
@@ -48,7 +53,8 @@ def _rand(rng, dtype, *shape, scale=1.0, shift=0.0):
     return torch.from_numpy(a).cuda().to(getattr(torch, dtype))
 
 
-def _check(fn, ref, args, dtype):
+def _check(fn, ref, args, dtype, tol=None):
+    tol = TOL[dtype] if tol is None else tol
     launches = fn.launches
     got = fn(*args)
     torch.cuda.synchronize()
@@ -58,7 +64,7 @@ def _check(fn, ref, args, dtype):
         assert g.shape == w.shape and g.dtype == w.dtype
         err = (g.float() - w.float()).abs().max().item()
         scale = w.float().abs().max().item()
-        assert scale > 0 and err <= TOL[dtype] * scale, (fn.__name__, err, scale)
+        assert scale > 0 and err <= tol * scale, (fn.__name__, err, scale)
 
 
 @pytest.mark.cuda
@@ -280,15 +286,90 @@ def _packed(module, pack, dtype, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("far", [False, True], ids=["near", "far-outside"])
-def test_dual_lookup_kernel(cuda, dtype, far):
+@pytest.mark.parametrize("b,h,w", [(1, H4, W4), (2, H4, W4), (1, 7, 320), (1, 3, 33)],
+                         ids=["wl40-5", "wl40-5-b2", "wl320-40", "wl33-4-odd"])
+def test_dual_lookup_kernel(cuda, dtype, far, b, h, w):
+    """Level widths w / 2^l: 40/20/10/5 (bf16 rows of 80, 40, 20 and 10
+    bytes: only the first a multiple of 16), the 375x1242 plane's
+    320/160/80/40, and 33/16/8/4 with an odd pixel count (the second
+    pyramid's output starts mid-chunk in bf16).  Coordinates straddle both
+    ends of every level, and far outside it."""
     rng = np.random.default_rng(5)
-    wls = [W4 // 2 ** i for i in range(4)]  # 40, 20, 10, 5
-    la = [_rand(rng, dtype, 1, H4, W4, wl) for wl in wls]
-    lb = [_rand(rng, dtype, 1, H4, W4, wl) for wl in wls]
-    c = _coords(rng, 1, H4, W4, spread=30.0 if far else 3.0) - (0.0 if far else 4.0)
+    wls = [w // 2 ** i for i in range(4)]
+    la = [_rand(rng, dtype, b, h, w, wl) for wl in wls]
+    lb = [_rand(rng, dtype, b, h, w, wl) for wl in wls]
+    c = _coords(rng, b, h, w, spread=30.0 if far else 3.0) - (0.0 if far else 4.0)
     if far:  # every level read past both ends, and far outside
-        c[0, 0, :4] = torch.tensor([-1e4, 1e4, -0.5, W4 - 0.5])
-    _check(port_lookup.dual_lookup, port_lookup.dual_lookup_ref, (la, lb, c, 4), dtype)
+        c[0, 0, :4] = torch.tensor([-1e4, 1e4, -0.5, w - 0.5])
+    _check(port_lookup.dual_lookup, port_lookup.dual_lookup_ref, (port_lookup.DualPyramid(la, lb), c, 4), dtype,
+           tol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("radius", [0, 1, 3, 8])
+def test_dual_lookup_kernel_radii(cuda, dtype, radius):
+    """Every radius the kernel is built for, coordinates just below an
+    integer (where c / 2^l + t rounds up to the next one) among them."""
+    rng = np.random.default_rng(radius)
+    wls = [W4 // 2 ** i for i in range(4)]
+    la, lb = ([_rand(rng, dtype, 1, H4, W4, wl) for wl in wls] for _ in range(2))
+    c = _coords(rng, 1, H4, W4, spread=6.0)
+    c[0, 1, :8] = torch.from_numpy(np.nextafter(np.arange(8, 16, dtype=np.float32), np.float32(0)) * 8).cuda()
+    _check(port_lookup.dual_lookup, port_lookup.dual_lookup_ref, (port_lookup.DualPyramid(la, lb), c, radius),
+           dtype, tol=0.0)
+
+
+@pytest.mark.cuda
+def test_dual_lookup_refuses_grad_and_other_inputs(cuda):
+    """No backward pass: a level or coordinates that require grad raise,
+    as does what the kernel does not take."""
+    lv = [torch.zeros(1, 4, 8, 8, device="cuda")]
+    c = torch.zeros(1, 4, 8, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        port_lookup.DualPyramid([lv[0].requires_grad_()], lv)
+    pyr = port_lookup.DualPyramid([torch.zeros(1, 4, 8, 8, device="cuda")], [torch.zeros(1, 4, 8, 8, device="cuda")])
+    with pytest.raises(RuntimeError, match="no backward"):
+        port_lookup.dual_lookup(pyr, c.clone().requires_grad_(), 4)
+    with pytest.raises(TypeError):  # coords not contiguous
+        port_lookup.dual_lookup(pyr, torch.zeros(1, 8, 4, device="cuda").transpose(1, 2), 4)
+    with pytest.raises(ValueError):
+        port_lookup.dual_lookup(pyr, c, 9)  # radius past the kernel's 8
+    with pytest.raises(TypeError):  # a level that is a view at an odd offset
+        port_lookup.DualPyramid([torch.zeros(1 * 4 * 8 * 8 + 1, device="cuda")[1:].view(1, 4, 8, 8)],
+                                [torch.zeros(1, 4, 8, 8, device="cuda")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("zero_init", [False, True], ids=["mono-init", "zero-init"])
+@pytest.mark.parametrize("fused", ["off", "on"])
+def test_model_runs_k5_every_iteration(cuda, monkeypatch, dtype, zero_init, fused):
+    """A small stereo model (no mono network; 64x96, so the fused gate
+    holds) on the card launches K5 once an iteration, in the default loop
+    and in the fused one (its pre-step and rotated bodies), also where
+    coords1 is the expanded coords0 view (init_disparity_zero); and gives
+    the disparity of the same model whose lookups take the plain gather on
+    the card (tolerance 0: see the module's note)."""
+    from stereoanywhere_tpu_torch.config import StereoAnywhereConfig
+    from stereoanywhere_tpu_torch.models import update as update_mod
+    from stereoanywhere_tpu_torch.models.stereoanywhere import StereoAnywhere
+
+    cfg = StereoAnywhereConfig(compute_dtype=dtype, init_disparity_zero=zero_init, fused_level0=fused)
+    model = StereoAnywhere(cfg, device="cuda", generator=torch.Generator().manual_seed(8))
+    rng = np.random.default_rng(9)
+    ins = [torch.from_numpy(rng.uniform(0, 1, (1, 64, 96, ch)).astype(np.float32)).cuda() for ch in (3, 3, 1, 1)]
+    iters = 3
+    before = port_lookup.dual_lookup.launches
+    got = model(*ins, iters=iters)["disparity"]
+    torch.cuda.synchronize()
+    assert port_lookup.dual_lookup.launches - before == iters
+    monkeypatch.setattr(port_lookup, "dual_lookup", port_lookup.dual_lookup_ref)
+    monkeypatch.setattr(update_mod, "dual_lookup", port_lookup.dual_lookup_ref)
+    want = model(*ins, iters=iters)["disparity"]
+    assert got.shape == want.shape == (1, 64, 96, 1) and bool(torch.isfinite(got).all())
+    err = (got - want).abs().max().item()
+    assert err == 0.0, (err, want.abs().max().item())
 
 
 @pytest.mark.cuda
@@ -503,7 +584,8 @@ def test_step_kernels_batch_two(cuda, dtype):
     c = _coords(rng, 2, H4, W4)
     wls = [W4 // 2 ** i for i in range(4)]
     la, lb = ([_rand(rng, dtype, 2, H4, W4, wl) for wl in wls] for _ in range(2))
-    _check(port_lookup.dual_lookup, port_lookup.dual_lookup_ref, (la, lb, c - 3.0, 4), dtype)
+    _check(port_lookup.dual_lookup, port_lookup.dual_lookup_ref, (port_lookup.DualPyramid(la, lb), c - 3.0, 4),
+           dtype, tol=0.0)
     hw = _packed(FlowHead(128, 256, 2), lambda m, dt: port_sf.pack_head_weights(m.conv1, m.conv2, dt), dtype, 1)
     h = _border(_rand(rng, dtype, 2, H4, W4, 128))
     _check(port_step.flow_head, port_sf.flow_head_ref, (h, c - torch.arange(W4, device="cuda"), hw), dtype)
@@ -528,5 +610,8 @@ def test_step_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         port_step.conv_gru(h, [torch.zeros(1, 16, 16, 100, device="cuda")], czrq, w)
     with pytest.raises(TypeError):  # mixed dtypes
         port_step.conv_gru(h.half(), [h], czrq, w)
+    with pytest.raises(TypeError):  # levels must be contiguous
+        port_lookup.DualPyramid([h[..., :8]], [h[..., :8]])
+    pyr = port_lookup.DualPyramid([h[..., :8].contiguous()], [h[..., :8].contiguous()])
     with pytest.raises(TypeError):  # coords must be float32
-        port_lookup.dual_lookup([h[..., :8]], [h[..., :8]], torch.zeros(1, 16, 16, device="cuda").half(), 4)
+        port_lookup.dual_lookup(pyr, torch.zeros(1, 16, 16, device="cuda").half(), 4)

@@ -26,6 +26,7 @@ import torch
 
 from stereoanywhere_tpu_torch.compat import from_jax
 from stereoanywhere_tpu_torch.ops import step_fused as P
+from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import DualPyramid, dual_lookup
 
 torch.set_num_threads(2)
 
@@ -89,7 +90,7 @@ def test_dual_lookup_matches_jax(rng, impl):
     else:
         want = tuple(lookup_corr_pyramid(CorrPyramid(tuple(map(jnp.asarray, lv)), r), jnp.asarray(c))
                      for lv in (la, lb))
-    got = lookup_corr_pyramid_pair([t(x) for x in la], [t(x) for x in lb], t(c), r, impl)
+    got = lookup_corr_pyramid_pair(DualPyramid([t(x) for x in la], [t(x) for x in lb]), t(c), r, impl)
     for g, wnt in zip(got, want):
         assert g.shape == (b, h, w2, 4 * (2 * r + 1))
         close(g.numpy(), wnt, 1e-5)
@@ -101,7 +102,79 @@ def test_dual_lookup_rejects_unknown_impl():
     from stereoanywhere_tpu_torch.ops.corr_lookup import lookup_corr_pyramid_pair
 
     with pytest.raises(ValueError, match="unknown lookup impl"):
-        lookup_corr_pyramid_pair([torch.zeros(1, 1, 1, 4)], [torch.zeros(1, 1, 1, 4)], torch.zeros(1, 1, 1), 1, "x")
+        lookup_corr_pyramid_pair(DualPyramid([torch.zeros(1, 1, 1, 4)], [torch.zeros(1, 1, 1, 4)]),
+                                 torch.zeros(1, 1, 1), 1, "x")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lookup_pair_gives_one_result_for_every_impl(rng, dtype):
+    """Every `lookup_impl` is one function: on the CPU each gives the plain
+    gather's result, bit for bit, and that result is JAX's
+    `lookup_corr_pyramid_pair` for each of its impls and JAX's XLA pair
+    formulations (the TPU's window, inline-tent and lagged forms, here
+    evaluated on the CPU) level by level.  f32: 1e-5 (the tent forms sum
+    the same products with zero-weight terms added); bf16: 1e-2 of max
+    |JAX| (the tent forms round the weight 1 - |j - pos| to bf16 from f32,
+    the gather 1 - f from bf16 f: one bf16 ulp apart at most)."""
+    from stereoanywhere_tpu.ops import corr_lookup as J
+
+    from stereoanywhere_tpu_torch.config import LOOKUP_IMPLS
+    from stereoanywhere_tpu_torch.ops.corr_lookup import lookup_corr_pyramid_pair
+
+    b, h, w2, wl0, r = 1, 4, 16, 64, 4
+    la, lb = _levels(rng, b, h, w2, wl0)
+    c = _coords_past_both_ends(rng, b, h, w2, wl0)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    pyr = DualPyramid([t(x).to(tdt) for x in la], [t(x).to(tdt) for x in lb])
+    got = {impl: lookup_corr_pyramid_pair(pyr, t(c), r, impl) for impl in LOOKUP_IMPLS}
+    for impl in LOOKUP_IMPLS:
+        for g, ref in zip(got[impl], got["window"]):
+            assert g.dtype == tdt and torch.equal(g, ref), impl
+    check = close if dtype == "float32" else _bf16_close
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    ja, jb = (J.CorrPyramid(tuple(jnp.asarray(x, jdt) for x in lv), r) for lv in (la, lb))
+    for impl in ("lagged", "inline", "window", "mxu"):
+        for g, wnt in zip(got["window"], J.lookup_corr_pyramid_pair(ja, jb, jnp.asarray(c), impl)):
+            check(g.float().numpy(), np.asarray(wnt.astype(jnp.float32)), tol)
+    for pair_fn in (J._lookup_level_window_pair, J._lookup_level_inline_tent_pair, J._lookup_level_lagged_pair):
+        outs = [pair_fn(x, y, jnp.asarray(c) / 2 ** i, r) for i, (x, y) in enumerate(zip(ja.levels, jb.levels))]
+        for p in range(2):
+            want = np.concatenate([np.asarray(o[p].astype(jnp.float32)) for o in outs], -1)
+            check(got["window"][p].float().numpy(), want, tol)
+
+
+def test_dual_lookup_refuses_grad():
+    """K5 has no backward pass, and its plain version stands in for it on
+    the CPU: both refuse a tensor that requires grad (a differentiable
+    forward calls the gather itself)."""
+    lv = [torch.zeros(1, 2, 4, 8)]
+    with pytest.raises(RuntimeError, match="no backward"):
+        DualPyramid([torch.zeros(1, 2, 4, 8, requires_grad=True)], lv)
+    with pytest.raises(RuntimeError, match="no backward"):
+        dual_lookup(DualPyramid(lv, lv), torch.zeros(1, 2, 4, requires_grad=True), 4)
+
+
+def test_update_nets_takes_the_expanded_coords0(rng):
+    """With init_disparity_zero the loop starts from coords1 = coords0, an
+    expanded view whose x-plane is not contiguous: update_nets gives the
+    result of a contiguous copy (on the card K5 reads a contiguous plane)."""
+    from stereoanywhere_tpu_torch.models.layers import init_weights
+    from stereoanywhere_tpu_torch.models.update import MultiUpdateBlock, update_nets
+
+    b, h, w = 2, 8, 16
+    block = MultiUpdateBlock()
+    init_weights(block, torch.Generator().manual_seed(0))
+    net = [torch.tanh(t(rng.standard_normal((b, 128, h // 2 ** i, w // 2 ** i)))) for i in range(3)]
+    inp = [tuple(t(rng.standard_normal((b, 128, h // 2 ** i, w // 2 ** i))) for _ in range(3)) for i in range(3)]
+    la, lb = _levels(rng, b, h, w, w)
+    pyr = DualPyramid([t(x) for x in la], [t(x) for x in lb])
+    coords0 = torch.arange(w, dtype=torch.float32).view(1, 1, 1, w).expand(b, 1, h, w)
+    assert not coords0[:, 0].is_contiguous()
+    with torch.no_grad():
+        want = update_nets(block, net, inp, pyr, coords0.contiguous(), coords0, 4)
+        got = update_nets(block, net, inp, pyr, coords0, coords0, 4)
+    for g, wnt in zip(got, want):
+        assert torch.equal(g, wnt)
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +196,6 @@ def _arr(rng, *shape, scale=1.0):
 def test_flow_head_matches_jax(rng):
     from stereoanywhere_tpu.ops.pallas import step_fused as sf
 
-    from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import dual_lookup
     from stereoanywhere_tpu_torch.ops.cuda.step_fused import flow_head
 
     h, _, coords, la, lb = _sf_inputs(rng)
@@ -139,7 +211,7 @@ def test_flow_head_matches_jax(rng):
     close(got.numpy(), cn, 1e-4)
     close(got.numpy(), cn_r, 1e-4)
     # the head's lookup half (K5g), in the TPU kernel's interleaved layout
-    ca, cb = dual_lookup([t(x) for x in la], [t(x) for x in lb], got, 4)
+    ca, cb = dual_lookup(DualPyramid([t(x) for x in la], [t(x) for x in lb]), got, 4)
     inter = np.concatenate([np.concatenate([ca[..., 9 * i: 9 * i + 9], cb[..., 9 * i: 9 * i + 9]], -1)
                             for i in range(4)], -1)
     close(inter, np.asarray(cf)[..., :72], 1e-4)
@@ -161,7 +233,6 @@ def test_flow_head_matches_jax_bf16(rng):
     new coordinates."""
     from stereoanywhere_tpu.ops.pallas import step_fused as sf
 
-    from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import dual_lookup
     from stereoanywhere_tpu_torch.ops.cuda.step_fused import flow_head
 
     h, _, coords, la, lb = _sf_inputs(rng)
@@ -175,7 +246,8 @@ def test_flow_head_matches_jax_bf16(rng):
     got = flow_head(t(h).bfloat16(), t(coords), pw)
     assert got.dtype == torch.float32
     _bf16_close(got.numpy() - coords, np.asarray(cn) - coords)
-    ca, cb = dual_lookup([t(x).bfloat16() for x in la], [t(x).bfloat16() for x in lb], t(np.asarray(cn)), 4)
+    ca, cb = dual_lookup(DualPyramid([t(x).bfloat16() for x in la], [t(x).bfloat16() for x in lb]),
+                         t(np.asarray(cn)), 4)
     assert ca.dtype == torch.bfloat16
     inter = np.concatenate([np.concatenate([ca[..., 9 * i: 9 * i + 9].float(), cb[..., 9 * i: 9 * i + 9].float()], -1)
                             for i in range(4)], -1)
@@ -197,7 +269,8 @@ def test_dual_lookup_matches_jax_bf16(rng, impl):
     fn = dual_lookup_mxu if impl == "mxu" else dual_lookup_barrel
     want = fn(tuple(jnp.asarray(x, jnp.bfloat16) for x in la), tuple(jnp.asarray(x, jnp.bfloat16) for x in lb),
               jnp.asarray(c), r, interpret=True)
-    got = lookup_corr_pyramid_pair([t(x).bfloat16() for x in la], [t(x).bfloat16() for x in lb], t(c), r, impl)
+    got = lookup_corr_pyramid_pair(DualPyramid([t(x).bfloat16() for x in la], [t(x).bfloat16() for x in lb]), t(c),
+                                   r, impl)
     for g, wnt in zip(got, want):
         assert g.dtype == torch.bfloat16
         _bf16_close(g.float().numpy(), wnt.astype(jnp.float32))

@@ -214,6 +214,7 @@ def test_refinement_step(rng):
 
     from stereoanywhere_tpu_torch.models.update import MultiUpdateBlock, refinement_step
     from stereoanywhere_tpu_torch.ops.corr_lookup import build_corr_pyramid as pyr
+    from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import DualPyramid
 
     b, h, w = 1, 8, 16
     net = [np.tanh(rng.standard_normal((b, h // 2 ** i, w // 2 ** i, 128))).astype(np.float32) for i in range(3)]
@@ -232,7 +233,8 @@ def test_refinement_step(rng):
     with torch.no_grad():
         pnet, pc1, pmask = refinement_step(
             block, [nchw(n) for n in net], [tuple(nchw(t) for t in tr) for tr in inp],
-            pyr(torch.from_numpy(svol), 4), pyr(torch.from_numpy(mvol), 4), nchw(coords1), nchw(coords0), 4, True,
+            DualPyramid(pyr(torch.from_numpy(svol), 4), pyr(torch.from_numpy(mvol), 4)), nchw(coords1), nchw(coords0),
+            4, True,
         )
     for g, wnt in zip(pnet, jnet):
         close(nhwc(g), wnt)
