@@ -36,29 +36,44 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    launch (c1/f1, the grouped 3x3 stage, the merge conv); the launch
    geometry (tile, pixel patch, grid) of K9 per scale and plane and of K8's
    two 3x3 stages per plane;
-3. pipelines: DAv2 ViT-L + StereoAnywhere (bf16, 32 GRU iterations,
-   seeded random weights) behind `serve_http` on 127.0.0.1, answering two
-   512x512 pairs and two 375x1242 pairs, first in the default
-   configuration, then with `fused_level0="on"`; each kernel's launches a
-   request are asserted (K1-K4 24 and K5 32 in both configurations, one
-   lookup an iteration; K7, K8 31 and K9 93 on the fused path, none on
-   the default one); then, per configuration and shape, the warm request
-   and its mono and stereo stages timed in interleaved rounds (the stages
-   through `mono_stage` and `stereo_stage`), and one request traced with
-   `torch.profiler` for the device's busy time, idle share, time by kernel
-   family, aten::conv3d's device time and device time by module (the
-   model's parts wrapped in `record_function` ranges for that request
-   only: DAv2's ViT and DPT head, the extractors, the volumes, the
-   hourglass and classifiers, the refinement loop and, inside it, its
-   pool/interp glue); then the
-   mono hourglass and classifiers of a bf16 model alone at both requests'
-   volumes, with f32 depth pyramids (as the model runs them: f32 past the
-   first gate) and with bf16 ones (all in bf16), in turns;
-4. whole-model checks: DAv2 ViT-L at 140x140 in f32 (backbone tokens and
+3. CUDA graphs: the runtime and driver versions; K1-K4 and the step
+   kernels captured in one graph, its edges by type (the launchers'
+   programmatic launches should capture as programmatic edges) and its
+   replay against the eager calls, held to 0;
+4. pipelines: DAv2 ViT-L + StereoAnywhere (bf16, 32 GRU iterations,
+   seeded random weights) behind `serve_http` on 127.0.0.1 on its CUDA
+   graphs, answering two 512x512 pairs and two 375x1242 pairs (the first
+   of a shape runs eagerly and captures, the second replays), first in the
+   default configuration, then with `fused_level0="on"`; the kernel
+   wrappers' calls are asserted (twice a forward's on a shape's first
+   request: the warm-up and the capture; none on a replay), and each
+   capture's time and the graph pool printed; then per configuration and
+   shape the replay against an eager call held to max |delta| = 0: (1) on
+   the served images, (2) on other images, (3) the first result intact
+   after the second request; the warm graph request, the warm eager
+   request and the eager mono and stereo stages timed in interleaved
+   rounds; one replayed request traced with `torch.profiler` (busy time,
+   idle share, launches, and each kernel's launches read from its kernels'
+   names: K1-K4 24 and K5 32 in both configurations; K7, K8 31 and K9 93
+   on the fused path, none on the default one); one eager request traced
+   (the same, time by kernel family, aten::conv3d's device time and device
+   time by module: the model's parts wrapped in `record_function` ranges
+   for that request only, which a replay would not show: DAv2's ViT and
+   DPT head, the extractors, the volumes, the hourglass and classifiers,
+   the refinement loop and, inside it, its pool/interp glue); (4) the
+   two-stage graphs against eager two-stage, with the graph pools of one
+   graph and of the two-stage pair at each shape; (5) after every
+   parameter is loaded anew, and (6) after the device constants' cache
+   has evicted every constant the graphs read, replay against eager again;
+   then the mono hourglass and classifiers of a bf16 model alone at both
+   requests' volumes, with f32 depth pyramids (as the model runs them: f32
+   past the first gate) and with bf16 ones (all in bf16), in turns;
+5. whole-model checks: DAv2 ViT-L at 140x140 in f32 (backbone tokens and
    depth), the whole pipeline (ViT-S, 64x96) on the card against the CPU
    through the plain versions, in the default and the fused configuration,
-   in f32 and in bf16, and the fused pipeline against the default one on
-   the card in f32.
+   in f32 and in bf16 (eagerly: the card's graphs are held to its eager
+   path above), and the fused pipeline against the default one on the card
+   in f32.
 It prints a `{"kernels": [...]}` line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
 
@@ -81,6 +96,7 @@ ms, device ms and host ms (K8 also its device ms by launch).
 from __future__ import annotations
 
 import bisect
+import ctypes
 import json
 import re
 import shutil
@@ -98,6 +114,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import stereoanywhere_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+from stereoanywhere_tpu_torch import device as port_device
 from stereoanywhere_tpu_torch.config import MonoConfig, StereoAnywhereConfig
 from stereoanywhere_tpu_torch.models import stereoanywhere as sa_model
 from stereoanywhere_tpu_torch.models import update as sa_update
@@ -106,8 +123,10 @@ from stereoanywhere_tpu_torch.models.layers import conv_in_dtype, init_weights
 from stereoanywhere_tpu_torch.models.stereoanywhere import StereoAnywhere
 from stereoanywhere_tpu_torch.models.update import ConvGRU, FlowHead, MotionEncoder
 from stereoanywhere_tpu_torch.ops import step_fused as sf
+from stereoanywhere_tpu_torch.ops.interp import resize_jax_image
 from stereoanywhere_tpu_torch.ops.cuda import build, corr_lookup, step_fused, vit_attention, vit_dense, vit_mlp
-from stereoanywhere_tpu_torch.serve.pipeline import build_pipeline, infer_remote, make_http_server
+from stereoanywhere_tpu_torch.serve.pipeline import (
+    StereoAnywherePipeline, build_pipeline, infer_remote, make_http_server)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): FLOP/s by operand type, HBM bytes/s
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -795,6 +814,55 @@ def step_kernel_phase() -> dict:
     return records
 
 
+def capture_phase() -> None:
+    """The CUDA runtime and driver versions, then one ViT-L block's K1-K4
+    and one rotated step's K5, K7, K8 and K9 (bf16, the 512^2 request's
+    shapes) captured in one graph, after a warm-up call: the types of its
+    dependency edges (the launchers ask for programmatic stream
+    serialisation, which a capture should keep as programmatic edges), and
+    its replay against the eager calls, held to 0."""
+    lib = build.library("corr_lookup")
+    versions = (ctypes.c_int * 3)()
+    build.check_status("corr_lookup", "sa_cuda_versions", lib.sa_cuda_versions(versions))
+    driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                            capture_output=True, text=True, check=True).stdout.strip()
+    print(f"CUDA: kernels built against runtime {versions[0]}, running on runtime {versions[1]}, driver CUDA "
+          f"{versions[2]} (driver {driver}); torch {torch.__version__} built for CUDA {torch.version.cuda}", flush=True)
+    g = torch.Generator().manual_seed(7)
+    vit = [(fn, args) for _, fn, _, _, args, *_ in kernel_cases(torch.bfloat16, tokens_of(512, 512), g)]
+    step = [(fn, args) for name, fn, _, args, *_ in step_cases(torch.bfloat16, *STEP_PLANES["512x512"], g, False)
+            if name in ("dual_lookup", "flow_head", "motion_encoder", "conv_gru/08")]
+    calls = vit + step
+
+    def run():
+        return [fn(*args) for fn, args in calls]
+
+    want = run()  # the warm-up
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        graph = None
+        print("capture: this torch keeps no captured graph (no keep_graph); edge types not measured", flush=True)
+    if graph is not None:
+        with torch.cuda.graph(graph):
+            outs = run()
+        graph.instantiate()
+        counts = (ctypes.c_longlong * 3)()
+        lib.sa_graph_edge_types.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        status = lib.sa_graph_edge_types(ctypes.c_void_p(graph.raw_cuda_graph()), counts)
+        print(f"capture of {len(calls)} kernel calls (K1-K4, K5, K7, K8, K9): " + (
+            f"{counts[0]} edges, {counts[1]} programmatic, {counts[2]} from a launch-completion port"
+            if status == 0 else f"edge types not measured ({lib.sa_error_string(status).decode()})"), flush=True)
+        graph.replay()
+        torch.cuda.synchronize()
+        for (fn, _), a, b in zip(calls, outs, want):
+            for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{fn.__name__}: the replay differs from the eager call")
+        print("capture: the replay equals the eager calls bit for bit", flush=True)
+
+
 COUNTERS = {
     "ln_dense": vit_dense.ln_dense,
     "vit_attention": vit_attention.vit_attention,
@@ -820,7 +888,7 @@ EXPECTED = {
 
 class _Recorder:
     """Pipeline wrapper that keeps each request's float disparity and the
-    kernel launches it made."""
+    kernel wrappers' calls it made."""
 
     def __init__(self, pipeline):
         self.pipeline, self.outputs, self.launches, self.seconds = pipeline, [], [], []
@@ -834,6 +902,28 @@ class _Recorder:
         self.launches.append({n: f.launches - before[n] for n, f in COUNTERS.items()})
         self.outputs.append(out.cpu())
         return out
+
+
+def trace_launches(names) -> dict:
+    """Each wrapper's calls in a trace, from its bf16 body's kernels: K2 its
+    attention kernel, K3 the products with the residual epilogue (2), K4
+    those with the GELU epilogue (1), K1 the bias-epilogue products (0) less
+    K4's second product; K5 its lookup kernel; K7, K8 and K9 the convolutions
+    of their epilogues 4 (flow head), 3 (motion merge) and 1 (GRU z/r).  A
+    replayed graph calls no wrapper, so its launches are read here."""
+    gemm, conv, other = defaultdict(int), defaultdict(int), defaultdict(int)
+    for n in names:
+        if m := re.search(r"wgmma_gemm_kernel<\d+,\s*(\d+)>", n):
+            gemm[int(m.group(1))] += 1
+        elif m := re.search(r"conv_wgmma_kernel<\d+,\s*\d+,\s*(\d+)>", n):
+            conv[int(m.group(1))] += 1
+        elif "attn_kernel_wgmma" in n:
+            other["attention"] += 1
+        elif "dual_lookup_kernel" in n:
+            other["lookup"] += 1
+    return {"ln_dense": gemm[0] - gemm[1], "vit_attention": other["attention"], "dense_scale_residual": gemm[2],
+            "vit_mlp": gemm[1], "dual_lookup": other["lookup"], "flow_head": conv[4], "motion_encoder": conv[3],
+            "conv_gru": conv[1]}
 
 
 SPLIT_ROUNDS = 10
@@ -963,25 +1053,66 @@ def kernels_within(kernels, spans) -> float:
     return busy_us(inside) / 1e3
 
 
-def split_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> None:
-    """The warm request and its two stages alone, timed in interleaved
-    rounds so that drift of the shared host hits all three alike; then one
-    traced request: the device's busy time (union of its kernels'
-    intervals), its idle share of the untraced median, and time by family."""
-    # the requests ran on the server's thread; the first call on this one
-    # is timed apart, as it may repeat cuDNN's per-thread algorithm search
-    first = sync_ms(lambda: pipe(im2, im3))
+def eager(pipe, *args):
+    """One eager call of the pipeline (kernel by kernel), graphs back on after."""
+    pipe.graphs = False
+    try:
+        return pipe(*args)
+    finally:
+        pipe.graphs = True
+
+
+def traced(fn) -> tuple:
+    """(profiler, device kernels, the traced call's wall ms) of one call."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = sync_ms(fn)
+    return prof, [e for e in prof.events() if e.device_type == DeviceType.CUDA], wall
+
+
+def time_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> dict:
+    """The warm graph request, the warm eager request and the eager mono and
+    stereo stages alone, timed in interleaved rounds so that drift of the
+    shared host hits all alike; then one traced graph request (its replay's
+    kernels: busy time, idle share, launches, each wrapper's launches, which
+    must be the expected ones) and one traced eager request (the same, time
+    by family, aten::conv3d, device time by module).  Returns the graph
+    request's launches by wrapper."""
+    # the first eager call is timed apart: a capture empties the caching
+    # allocator, whose blocks the eager call then allocates anew
+    first = sync_ms(lambda: eager(pipe, im2, im3))
     mde2, mde3 = pipe.mono_stage(im2, im3)
-    times = {"pipeline": [], "mono stage": [], "stereo stage": []}
+    times = {"graph request": [], "eager request": [], "mono stage": [], "stereo stage": []}
     for _ in range(SPLIT_ROUNDS):
-        times["pipeline"].append(sync_ms(lambda: pipe(im2, im3)))
+        times["graph request"].append(sync_ms(lambda: pipe(im2, im3)))
+        times["eager request"].append(sync_ms(lambda: eager(pipe, im2, im3)))
         times["mono stage"].append(sync_ms(lambda: pipe.mono_stage(im2, im3)))
         times["stereo stage"].append(sync_ms(lambda: pipe.stereo_stage(im2, im3, mde2, mde3)))
-    print(f"split {label} {h}x{w}, ms, first call on this thread {first:.1f}; median [min-max] of {SPLIT_ROUNDS} "
-          "interleaved rounds after it: " + "; ".join(f"{k} {np.median(v):.1f} [{min(v):.1f}-{max(v):.1f}]" for k, v in times.items()), flush=True)
+    print(f"split {label} {h}x{w}, ms, first eager call on this thread {first:.1f}; median [min-max] of "
+          f"{SPLIT_ROUNDS} interleaved rounds after it: " + "; ".join(
+              f"{k} {np.median(v):.1f} [{min(v):.1f}-{max(v):.1f}]" for k, v in times.items()), flush=True)
 
+    want = EXPECTED[label]
+    # the profiler now and then drops a replay's events: three traces, the
+    # one that kept the most kernels read
+    tries = [traced(lambda: pipe(im2, im3)) for _ in range(3)]
+    _, kernels, wall = max(tries, key=lambda t: len(t[1]))
+    graph_counts = None
+    if kernels:
+        busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+        median = float(np.median(times["graph request"]))
+        graph_counts = trace_launches(e.name for e in kernels)
+        print(f"trace {label} {h}x{w} graph: device busy {busy:.1f} ms, idle share {1 - busy / median:.3f} of the "
+              f"untraced median {median:.1f} ms (traced wall {wall:.1f} ms); {len(kernels)} kernels (the three "
+              f"traces: {[len(k) for _, k, _ in tries]}); launches by wrapper from the trace {graph_counts}", flush=True)
+        if graph_counts != want:
+            raise AssertionError(f"{label} {h}x{w}: the replayed graph launched {graph_counts}, expected {want}")
+    else:
+        print(f"trace {label} {h}x{w} graph: not measured (the profiler saw no device events in the replay); "
+              "launches by wrapper are the capture's", flush=True)
+
+    prof, device_events, traced_wall = None, None, None
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, module_ranges(pipe):
-        traced = sync_ms(lambda: pipe(im2, im3))
+        traced_wall = sync_ms(lambda: eager(pipe, im2, im3))
     # the ranges show on the device too, as spans from their first kernel
     # to their last: kept apart from the kernels
     parts = module_parts(pipe)
@@ -992,10 +1123,14 @@ def split_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> None:
         if e.name in parts:
             spans[e.name].append((e.time_range.start, e.time_range.end))
     if not kernels:
-        print(f"trace {label} {h}x{w}: device busy time not measured (the profiler saw no device events)", flush=True)
-        return
+        print(f"trace {label} {h}x{w} eager: device busy time not measured (the profiler saw no device events)",
+              flush=True)
+        return graph_counts
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
-    wall = float(np.median(times["pipeline"]))
+    median = float(np.median(times["eager request"]))
+    eager_counts = trace_launches(e.name for e in kernels)
+    if eager_counts != want:
+        raise AssertionError(f"{label} {h}x{w}: the eager request launched {eager_counts}, expected {want}")
     # launches of each stage alone
     stage_kernels = {}
     for stage, fn in (("mono", lambda: pipe.mono_stage(im2, im3)),
@@ -1004,10 +1139,10 @@ def split_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> None:
             sync_ms(fn)
         stage_kernels[stage] = sum(1 for e in p.events() if e.device_type == DeviceType.CUDA)
     conv3d = sum(_device_us(e) for e in prof.key_averages() if e.key == "aten::conv3d") / 1e3
-    print(f"trace {label} {h}x{w}: device busy {busy:.1f} ms, idle share {1 - busy / wall:.3f} of the untraced "
-          f"median {wall:.1f} ms (traced wall {traced:.1f} ms); {len(kernels)} kernels (alone: mono stage "
-          f"{stage_kernels['mono']}, stereo stage {stage_kernels['stereo']}); aten::conv3d (the hourglass and "
-          f"its classifiers) {conv3d:.2f} device ms", flush=True)
+    print(f"trace {label} {h}x{w} eager: device busy {busy:.1f} ms, idle share {1 - busy / median:.3f} of the "
+          f"untraced median {median:.1f} ms (traced wall {traced_wall:.1f} ms); {len(kernels)} kernels (alone: mono "
+          f"stage {stage_kernels['mono']}, stereo stage {stage_kernels['stereo']}); launches by wrapper from the "
+          f"trace {eager_counts}; aten::conv3d (the hourglass and its classifiers) {conv3d:.2f} device ms", flush=True)
     counts = defaultdict(int)
     for e in kernels:
         counts[re.sub(r"[<(].*", "", e.name.replace("(anonymous namespace)::", ""))[-48:]] += 1
@@ -1017,34 +1152,138 @@ def split_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> None:
     for e in kernels:
         fam = next((f for f, pat in FAMILIES if re.search(pat, e.name, re.IGNORECASE)), "other")
         by_family[fam] += (e.time_range.end - e.time_range.start) / 1e3
-    print("  device ms by family: " +", ".join(f"{f} {ms:.2f}" for f, ms in
-                                                 sorted(by_family.items(), key=lambda kv: -kv[1])), flush=True)
+    print("  device ms by family: " + ", ".join(f"{f} {ms:.2f}" for f, ms in
+                                                sorted(by_family.items(), key=lambda kv: -kv[1])), flush=True)
     by_module = {name: kernels_within(kernels, spans[name]) for name in parts}
     if not any(spans.values()):
         print("  device ms by module: not measured (the profiler showed no ranges on the device)", flush=True)
-        return
+        return graph_counts
     outer = sum(ms for name, ms in by_module.items() if name != "loop glue (pool/interp)")
     print("  device ms by module (busy time of the kernels inside each range): "
           + ", ".join(f"{n} {ms:.2f}" for n, ms in by_module.items())
           + f"; the rest {busy - outer:.2f} (the glue lies inside the loop)", flush=True)
+    return graph_counts
 
 
-def pipeline_phase(label: str, cfg: StereoAnywhereConfig) -> dict:
-    """Serve the full-width pipeline over HTTP, then split a warm request
-    into its mono and stereo stages.  Returns launches per kernel over the
-    served requests, counted from 0 just before them."""
+GRAPH_FAILURES: list[str] = []
+
+
+def same(what: str, got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Replay against eager: the same kernels and cuDNN algorithms on the
+    same inputs, so max |delta| must be 0.  A difference is recorded and
+    the run goes on, so that one call shows every phase; the run fails at
+    its end."""
+    err = (got.float() - want.float()).abs().max().item()
+    ok = err == 0 and bool(torch.isfinite(got).all())
+    print(f"  {what}: max |graph - eager| {err:.3e} px (held to 0), disparity max {want.abs().max().item():.3f}"
+          + ("" if ok else "  MISMATCH"), flush=True)
+    if not ok:
+        GRAPH_FAILURES.append(f"{what}: the graph's disparity differs from eager's by {err}")
+    return ok
+
+
+def graph_phase(pipe, label: str, images: dict, rng) -> None:
+    """Replay against eager at each shape: (1) the served request's images;
+    (2) a second request of the shape with other images; (3) the first
+    result intact after it."""
+    for (h, w), (im2, im3) in images.items():
+        first = pipe(im2, im3)
+        kept = first.clone()
+        if not same(f"graph {label} {h}x{w} (1) replay", first, eager(pipe, im2, im3)):
+            # the same on a new pipeline over the same models, with cuDNN's
+            # heuristics instead of its benchmarked algorithms
+            torch.backends.cudnn.benchmark = False
+            p = StereoAnywherePipeline(pipe.stereo, pipe.mono, ITERS, device="cuda")
+            p(im2, im3)
+            same(f"graph {label} {h}x{w} (1) replay, cuDNN heuristics (diagnostic)", p(im2, im3), eager(p, im2, im3))
+            torch.backends.cudnn.benchmark = True
+            del p
+        other = [rng.uniform(0, 1, (1, h, w, 3)).astype(np.float32) for _ in range(2)]
+        same(f"graph {label} {h}x{w} (2) second request, other images", pipe(*other), eager(pipe, *other))
+        if not torch.equal(first, kept):
+            raise AssertionError(f"{label} {h}x{w}: request 2 overwrote the result of request 1")
+        print(f"  graph {label} {h}x{w} (3) request 1's result intact after request 2", flush=True)
+
+
+def two_stage_phase(pipe, label: str, images: dict) -> None:
+    """(4) two-stage mode on the same models: its two graphs on one pool
+    against eager two-stage; and the device memory that a pipeline's graphs
+    hold at one shape, one graph against the two-stage pair."""
+    for (h, w), (im2, im3) in images.items():
+        pools = {}
+        for mode in ("one graph", "two-stage"):
+            torch.cuda.empty_cache()
+            p = StereoAnywherePipeline(pipe.stereo, pipe.mono, ITERS, device="cuda", two_stage=mode == "two-stage")
+            p(im2, im3)
+            got = p(im2, im3)
+            programs = p._build_two_stage(1, h, w) if p.two_stage else (p._build(1, h, w),)
+            pools[mode] = p.graph_pool_bytes()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            want = eager(p, im2, im3)
+            peak = torch.cuda.max_memory_allocated() - base
+            print(f"graph {label} {h}x{w} {mode}: pool {pools[mode] / 2 ** 30:.2f} GiB, capture "
+                  + ", ".join(f"{g.capture_ms:.0f}" for g in programs) + f" ms; eager peak above the models "
+                  f"{peak / 2 ** 30:.2f} GiB", flush=True)
+            if p.two_stage:
+                same(f"graph {label} {h}x{w} (4) two-stage replay", got, want)
+            del p, programs
+        print(f"graph {label} {h}x{w}: two-stage pool / one-graph pool {pools['two-stage'] / pools['one graph']:.3f}",
+              flush=True)
+    torch.cuda.empty_cache()
+
+
+def reload_phase(pipe, label: str, images: dict) -> None:
+    """(5) every parameter loaded anew (each scaled by 1 + 2% noise) with
+    `load_state_dict`, then replay against eager at the new weights, which
+    must also have moved the disparity; (6) then the device constants'
+    cache filled with more than 128 other resize sizes, evicting every
+    constant the graphs read, and replay against eager once more: after both."""
+    before = {shape: pipe(*ims) for shape, ims in images.items()}
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for model in (pipe.stereo, pipe.mono):
+        state = {k: v * (1 + 0.02 * torch.randn(v.shape, device=v.device, generator=g)).to(v.dtype)
+                 if v.is_floating_point() else v for k, v in model.state_dict().items()}
+        model.load_state_dict(state)
+    for (h, w), ims in images.items():
+        got = pipe(*ims)
+        moved = (got - before[h, w]).abs().max().item()
+        print(f"  graph {label} {h}x{w} (5) after a weight load: the disparity moved by up to {moved:.3f} px", flush=True)
+        if not moved > 0:
+            raise AssertionError(f"{label} {h}x{w}: the replay did not see the new weights")
+        same(f"graph {label} {h}x{w} (5) replay after a weight load", got, eager(pipe, *ims))
+    x = torch.zeros((1, 1, 4, 4), device="cuda")
+    for n in range(5, 5 + 130):
+        resize_jax_image(x, (4, n), "bilinear")
+    print(f"  constants' cache after 130 other sizes: {port_device._copied.cache_info()}", flush=True)
+    for (h, w), ims in images.items():
+        same(f"graph {label} {h}x{w} (6) replay after the cache evicted its constants", pipe(*ims), eager(pipe, *ims))
+
+
+def pipeline_phase(label: str, cfg: StereoAnywhereConfig) -> tuple[dict, dict]:
+    """Serve the full-width pipeline over HTTP on its graphs, check the
+    replays against eager, time the warm graph request against the eager
+    one and trace both.  Returns the wrappers' calls over the served
+    requests, counted from 0 just before them, and the launches a replayed
+    request makes, from its trace (None where the profiler saw none)."""
     torch.backends.cudnn.benchmark = True
     t0 = time.perf_counter()
     pipe = build_pipeline(cfg, MonoConfig.for_encoder("vitl"), iters=ITERS, device="cuda", seed=0)
     print(f"pipeline {label} built in {time.perf_counter() - t0:.1f} s (ViT-L + StereoAnywhere, bf16, iters {ITERS}, "
-          f"{cfg})", flush=True)
+          f"graphs {pipe.graphs}, {cfg})", flush=True)
+    if not pipe.graphs:
+        raise AssertionError("the pipeline does not take its graphs on the card")
     rec = _Recorder(pipe)
     server = make_http_server(rec, "127.0.0.1", 0)
+    server.timeout = 900
     url = f"http://127.0.0.1:{server.server_address[1]}"
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
     rng = np.random.default_rng(0)
-    # the first request of a shape includes cuDNN's algorithm search
+    # the first request of a shape runs eagerly (cuDNN's algorithm search
+    # included) and captures the shape's graph; the second replays it.  The
+    # server answers on this thread and the client asks from another, so
+    # that every call of the pipeline runs on this thread: cuDNN keeps its
+    # benchmarked algorithms a thread, and the eager calls held against the
+    # replays below must find the algorithms the capture took
     shapes = [(512, 512), (512, 512), KITTI, KITTI]
     images = {}
     for f in COUNTERS.values():
@@ -1053,27 +1292,41 @@ def pipeline_phase(label: str, cfg: StereoAnywhereConfig) -> dict:
         for h, w in shapes:
             im2, im3 = (rng.uniform(0, 1, (h, w, 3)).astype(np.float32) for _ in range(2))
             images[(h, w)] = (im2[None], im3[None])
+            answer = {}
+            client = threading.Thread(target=lambda: answer.update(disp=infer_remote(url, im2, im3)))
             t0 = time.perf_counter()
-            disp = infer_remote(url, im2, im3)
+            client.start()
+            server.handle_request()
+            client.join(timeout=60)
+            if "disp" not in answer:
+                raise AssertionError(f"{label} {h}x{w}: the HTTP request got no answer")
+            disp = answer["disp"]
+            program = pipe._build(1, h, w)
             print(f"request {label} {h}x{w}: {1e3 * (time.perf_counter() - t0):.1f} ms end to end "
-                  f"({1e3 * rec.seconds[-1]:.1f} ms in the pipeline), launches {rec.launches[-1]}", flush=True)
+                  f"({1e3 * rec.seconds[-1]:.1f} ms in the pipeline), wrapper calls {rec.launches[-1]}; capture "
+                  f"{program.capture_ms:.0f} ms, the pipeline's graph pool {pipe.graph_pool_bytes() / 2 ** 30:.2f} GiB",
+                  flush=True)
             out = rec.outputs[-1]
             if disp.shape != (h, w) or tuple(out.shape) != (1, h, w, 1) or not torch.isfinite(out).all():
                 raise AssertionError(f"bad disparity for {h}x{w}: {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
             print(f"  disparity range [{out.min().item():.3f}, {out.max().item():.3f}] px", flush=True)
     finally:
-        server.shutdown()
         server.server_close()
-        thread.join(timeout=30)
     totals = {n: f.launches for n, f in COUNTERS.items()}
+    # wrapper calls: the first request of a shape runs the forward twice
+    # (the warm-up, then the capture), the replay calls no wrapper
     for n, want in EXPECTED[label].items():
         per = [launch[n] for launch in rec.launches]
-        if per != [want] * len(shapes):
-            raise AssertionError(f"{label}: {n} launched {per} times per request, expected {want} each")
+        if per != [2 * want, 0] * 2:
+            raise AssertionError(f"{label}: {n}'s wrapper ran {per} times per request, expected {[2 * want, 0] * 2}")
 
+    graph_phase(pipe, label, images, np.random.default_rng(1))
+    replayed = {}
     for (h, w), (im2, im3) in images.items():
-        split_and_trace(pipe, label, h, w, im2, im3)
-    return totals
+        replayed[h, w] = time_and_trace(pipe, label, h, w, im2, im3)
+    two_stage_phase(pipe, label, images)
+    reload_phase(pipe, label, images)
+    return totals, next(iter(replayed.values()))
 
 
 def compare_phase() -> None:
@@ -1122,7 +1375,7 @@ def compare_phase() -> None:
         for label, fused in (("default", "off"), ("fused", "on")):
             cfg = StereoAnywhereConfig(compute_dtype=dtype, fused_level0=fused)
             kw = dict(stereo_cfg=cfg, mono_cfg=MonoConfig.for_encoder("vits"), iters=4, mono_size=(56, 56), seed=5)
-            pc, pg = build_pipeline(device="cpu", **kw), build_pipeline(device="cuda", **kw)
+            pc, pg = build_pipeline(device="cpu", **kw), build_pipeline(device="cuda", graphs=False, **kw)
             on_cpu[label, dtype] = want = pc(im2, im3)
             before = step_fused.flow_head.launches
             on_card[label, dtype] = got = pg(im2, im3).cpu()
@@ -1245,19 +1498,24 @@ def main() -> int:
                 print(f"  {p.stem}: {line.strip()}", flush=True)
     sass_counts(paths)
     records = {**kernel_phase(), **step_kernel_phase()}
-    launches = pipeline_phase("default", StereoAnywhereConfig(compute_dtype="bfloat16"))
+    capture_phase()
+    launches, replayed = pipeline_phase("default", StereoAnywhereConfig(compute_dtype="bfloat16"))
     torch.cuda.empty_cache()
-    fused = pipeline_phase("fused", StereoAnywhereConfig(compute_dtype="bfloat16", fused_level0="on"))
+    fused, fused_replayed = pipeline_phase("fused", StereoAnywhereConfig(compute_dtype="bfloat16", fused_level0="on"))
     torch.cuda.empty_cache()
     hourglass_phase()
     compare_phase()
+    if GRAPH_FAILURES:
+        raise AssertionError("replays differ from eager: " + "; ".join(GRAPH_FAILURES))
     kernels = []
     for name, row in records.items():
         src, replaces = SOURCE[name]
-        # each kernel's launches on the main path (the default
-        # configuration) where it runs there, else on the fused one
-        n = launches[name] if name in MAIN_PATH else fused[name]
+        # each kernel's wrapper calls on the main path (the default
+        # configuration) where it runs there, else on the fused one; beside
+        # them its launches in one replayed 512^2 request, from the trace
+        n, per_replay = (launches[name], replayed) if name in MAIN_PATH else (fused[name], fused_replayed)
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces, launches=n,
+                            replay_launches=None if per_replay is None else per_replay[name],
                             max_abs_err=row["max_abs_err"], ms=row["ms"], device_ms=row["device_ms"],
                             host_ms=row["host_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"], unfused_ms=row.get("unfused_ms"),

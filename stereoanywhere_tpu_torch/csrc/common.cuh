@@ -17,6 +17,40 @@ enum SaDtype { SA_F32 = 0, SA_BF16 = 1 };
 
 extern "C" const char* sa_error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
 
+// out[0..2]: the CUDA runtime the library was built with, the runtime it
+// runs with, and the driver's CUDA version (1000 * major + 10 * minor)
+extern "C" int sa_cuda_versions(int* out) {
+  out[0] = CUDART_VERSION;
+  cudaError_t e = cudaRuntimeGetVersion(&out[1]);
+  return e != cudaSuccess ? e : cudaDriverGetVersion(&out[2]);
+}
+
+// A captured CUDA graph's dependency edges by type: counts[0] all of them,
+// counts[1] programmatic ones (what a launch with programmatic stream
+// serialisation becomes under capture), counts[2] those leaving a kernel's
+// launch-completion port.  Typed edges came with CUDA 12.3.
+extern "C" int sa_graph_edge_types(void* graph, long long* counts) {
+#if CUDART_VERSION >= 12030
+  auto g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  cudaError_t e = cudaGraphGetEdges_v2(g, nullptr, nullptr, nullptr, &n);
+  if (e != cudaSuccess) return e;
+  std::vector<cudaGraphNode_t> from(n), to(n);
+  std::vector<cudaGraphEdgeData> data(n);
+  e = cudaGraphGetEdges_v2(g, from.data(), to.data(), data.data(), &n);
+  if (e != cudaSuccess) return e;
+  counts[0] = static_cast<long long>(n);
+  counts[1] = counts[2] = 0;
+  for (size_t i = 0; i < n; ++i) {
+    counts[1] += data[i].type == cudaGraphDependencyTypeProgrammatic;
+    counts[2] += data[i].from_port == cudaGraphKernelNodePortLaunchCompletion;
+  }
+  return cudaSuccess;
+#else
+  return cudaErrorNotSupported;
+#endif
+}
+
 namespace {
 // Raises a kernel's dynamic shared-memory limit to `bytes` on the current
 // device once: the (kernel, device) pairs raised are kept, so later

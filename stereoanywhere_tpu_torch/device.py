@@ -1,6 +1,14 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the device-resident
+constants (resize matrices, normalisation statistics) that the forward
+reads."""
 from __future__ import annotations
 
+import functools
+import threading
+from contextlib import contextmanager
+from typing import Callable, Iterator
+
+import numpy as np
 import torch
 
 
@@ -26,3 +34,40 @@ def torch_dtype(name: str) -> torch.dtype:
     if name not in table:
         raise ValueError(f"unsupported compute dtype {name!r}")
     return table[name]
+
+
+@functools.lru_cache(maxsize=128)
+def _copied(make: Callable[..., np.ndarray], args: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.from_numpy(make(*args)).to(device=device, dtype=dtype)
+
+
+_holders = threading.local()
+
+
+def device_constant(make: Callable[..., np.ndarray], args: tuple, device: torch.device,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """`make(*args)`, a numpy array, copied to `device` in `dtype` once and
+    handed out again after.  A copy from pageable host memory waits for the
+    device to drain, and a CUDA graph cannot capture one, so a forward
+    makes none after its first call at a shape.  The cache keeps the 128
+    constants used last, so that a server fed many request sizes does not
+    grow without limit; a graph that reads a constant holds it
+    (`holding_constants`), so an eviction does not free it under the
+    graph."""
+    t = _copied(make, args, torch.device(device), dtype)
+    for held in getattr(_holders, "lists", ()):
+        held.append(t)
+    return t
+
+
+@contextmanager
+def holding_constants() -> Iterator[list]:
+    """Collect every constant that `device_constant` hands out on this
+    thread inside the block into the list it yields."""
+    held: list = []
+    lists = _holders.__dict__.setdefault("lists", [])
+    lists.append(held)
+    try:
+        yield held
+    finally:
+        lists.remove(held)

@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stereoanywhere_tpu_torch.device import device_constant
 from stereoanywhere_tpu_torch.models.layers import LECUN
 from stereoanywhere_tpu_torch.ops.cuda.vit_attention import vit_attention
 from stereoanywhere_tpu_torch.ops.cuda.vit_dense import dense_scale_residual, ln_dense
@@ -64,8 +65,8 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, patch_h: int, patch_w: int, o
     if patch_h * patch_w == n and patch_h == patch_w:
         return pos_embed
     grid = pos_embed[:, 1:].reshape(side, side, -1).float()
-    mh = torch.from_numpy(_bicubic_scale_matrix(side, patch_h, (patch_h + offset) / side)).to(grid.device)
-    mw = torch.from_numpy(_bicubic_scale_matrix(side, patch_w, (patch_w + offset) / side)).to(grid.device)
+    mh = device_constant(_bicubic_scale_matrix, (side, patch_h, (patch_h + offset) / side), grid.device, grid.dtype)
+    mw = device_constant(_bicubic_scale_matrix, (side, patch_w, (patch_w + offset) / side), grid.device, grid.dtype)
     grid = torch.einsum("ph,hwd->pwd", mh, grid)
     grid = torch.einsum("qw,pwd->pqd", mw, grid)
     return torch.cat([pos_embed[:, :1], grid.reshape(1, patch_h * patch_w, -1).to(pos_embed.dtype)], dim=1)

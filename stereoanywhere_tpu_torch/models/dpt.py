@@ -17,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stereoanywhere_tpu_torch.config import MonoConfig
-from stereoanywhere_tpu_torch.device import resolve_device
+from stereoanywhere_tpu_torch.device import device_constant, resolve_device
 from stereoanywhere_tpu_torch.models.dinov2 import VIT_CONFIGS, DinoVisionTransformer
 from stereoanywhere_tpu_torch.models.layers import init_weights
 from stereoanywhere_tpu_torch.ops.interp import resize_bilinear_align_corners, resize_bilinear_halfpix
@@ -133,9 +133,12 @@ class DepthAnythingV2(nn.Module):
 
 def imagenet_normalize(image01: torch.Tensor) -> torch.Tensor:
     """[0,1] NHWC -> ImageNet-normalized."""
-    mean = torch.tensor(IMAGENET_MEAN, device=image01.device, dtype=image01.dtype)
-    std = torch.tensor(IMAGENET_STD, device=image01.device, dtype=image01.dtype)
+    mean, std = device_constant(_imagenet_stats, (), image01.device, image01.dtype)
     return (image01 - mean) / std
+
+
+def _imagenet_stats() -> np.ndarray:
+    return np.array([IMAGENET_MEAN, IMAGENET_STD], np.float32)
 
 
 def dav2_input_size(h: int, w: int, input_size_width: int = 518, input_size_height: int = 518) -> tuple[int, int]:

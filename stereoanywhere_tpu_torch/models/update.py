@@ -85,6 +85,11 @@ class FlowHead(nn.Module):
         return F.conv2d(y, self.conv2.weight[:1], self.conv2.bias[:1], padding=1)
 
 
+def _leaves(packed) -> list[torch.Tensor]:
+    """The tensors of nested tuples of packed weights, in order."""
+    return [packed] if torch.is_tensor(packed) else [t for x in packed for t in _leaves(x)]
+
+
 class MultiUpdateBlock(nn.Module):
     """3-level GRU cascade with cross-scale pooling / interpolation."""
 
@@ -103,26 +108,33 @@ class MultiUpdateBlock(nn.Module):
             nn.Conv2d(hd[2], 256, 3, padding=1), nn.ReLU(inplace=True), nn.Conv2d(256, factor * factor * 9, 1)
         )
         self._fused = {}
+        self.register_load_state_dict_post_hook(MultiUpdateBlock.refresh_fused_weights)
 
     def fused_weights(self, dtype: torch.dtype) -> sf.FusedWeights:
         """The weights in the layout of the rotated step's kernels, packed
-        once per dtype and device and kept until the parameters are loaded
-        anew (`load_state_dict`, `compat.from_jax.load_stereo_variables`)."""
+        once per dtype and device.  A load of the parameters packs them
+        again into the same tensors (`refresh_fused_weights`), so that a
+        CUDA graph that read them reads the new weights."""
         key = (dtype, self.flow_head.conv1.weight.device)
         if key not in self._fused:
-            self._fused[key] = sf.FusedWeights(
-                head=sf.pack_head_weights(self.flow_head.conv1, self.flow_head.conv2, dtype),
-                motion=sf.pack_motion_weights(self.encoder, dtype),
-                gru=tuple(sf.pack_gru_weights(g, dtype) for g in (self.gru08, self.gru16, self.gru32)),
-            )
+            self._fused[key] = self._pack(dtype)
         return self._fused[key]
 
-    def clear_fused_cache(self) -> None:
-        self._fused.clear()
+    def _pack(self, dtype: torch.dtype) -> sf.FusedWeights:
+        return sf.FusedWeights(
+            head=sf.pack_head_weights(self.flow_head.conv1, self.flow_head.conv2, dtype),
+            motion=sf.pack_motion_weights(self.encoder, dtype),
+            gru=tuple(sf.pack_gru_weights(g, dtype) for g in (self.gru08, self.gru16, self.gru32)),
+        )
 
-    def _load_from_state_dict(self, *args, **kwargs):
-        self.clear_fused_cache()
-        super()._load_from_state_dict(*args, **kwargs)
+    @torch.inference_mode()  # the packs may be inference tensors, made inside a served forward
+    def refresh_fused_weights(self, *_) -> None:
+        """Pack the current parameters into the tensors packed before, in
+        place; run after every load (`load_state_dict`, through its hook,
+        and `compat.from_jax.load_stereo_variables`)."""
+        for (dtype, _), packed in self._fused.items():
+            for old, new in zip(_leaves(packed), _leaves(self._pack(dtype))):
+                old.copy_(new)
 
     def cascade(self, net, inp, motion):
         net = list(net)

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from stereoanywhere_tpu_torch.device import device_constant
+
 
 @functools.lru_cache(maxsize=None)
 def _align_corners_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -95,15 +97,6 @@ _MATRICES = {
 }
 
 
-@functools.lru_cache(maxsize=128)
-def _device_matrix(kind: str, in_size: int, out_size: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """The (out, in) matrix of `kind`, built and copied to `device` once.  A
-    copy from pageable host memory waits for the device to drain, so a
-    resize inside the GRU loop must not make one.  The cache is bounded so
-    that a server fed many request sizes does not grow without limit."""
-    return torch.from_numpy(_MATRICES[kind](in_size, out_size)).to(device=device, dtype=dtype)
-
-
 def _resize(x: torch.Tensor, sizes: tuple[int, ...], kind: str, order=None) -> torch.Tensor:
     """Resize the last len(sizes) axes to `sizes` with the matrices of
     `kind`, one axis at a time in `order` (indices into sizes); axes
@@ -112,7 +105,7 @@ def _resize(x: torch.Tensor, sizes: tuple[int, ...], kind: str, order=None) -> t
     for i in range(nd) if order is None else order:
         axis = x.ndim - nd + i
         if x.shape[axis] != sizes[i]:
-            m = _device_matrix(kind, x.shape[axis], sizes[i], x.device, x.dtype)
+            m = device_constant(_MATRICES[kind], (x.shape[axis], sizes[i]), x.device, x.dtype)
             x = torch.movedim(torch.tensordot(x, m, dims=([axis], [1])), -1, axis)
     return x
 

@@ -1,27 +1,42 @@
 """Serving pipeline: image pair in [0,1] -> positive disparity.
 
-The port of the JAX package's `serve/pipeline.py` (single-graph mode):
+The port of the JAX package's `serve/pipeline.py`:
 1. resize both views to the DAv2 input size with `jax.image.resize`'s
    antialiased Keys cubic (a=-0.5) and run DAv2 on them as one batch;
 2. resize the depth back (antialiased bilinear), joint min-max normalize;
 3. edge-pad to a multiple of 32, run StereoAnywhere, unpad.
-`two_stage=True` runs the mono stage and the stereo stage apart with the
-depth moved through host memory between them, as the JAX pipeline's
-two-stage mode does.  `serve_http` keeps the JAX request format: POST
-/infer with an X-Meta-Length JSON header ({"h", "w"}) and float32
-(2, H, W, 3) pixels, answered with uint16 disparity x256.
+
+Where the JAX pipeline compiles one XLA program per input shape (`_build`,
+and the mono and stereo programs of two-stage mode, `_build_two_stage`),
+the port captures one CUDA graph per input shape and batch: the first call
+of a shape runs eagerly, which warms everything a capture must find ready
+(cuDNN's algorithm search, the resize matrices, the kernels' TMA maps and
+shared-memory limits, the fused loop's packed weights), then captures the
+same call; every later call of the shape copies the request into the
+graph's static inputs, replays it and returns a copy of its output.  All
+the graphs of a pipeline share one memory pool, so the two graphs of
+two-stage mode, which replay in turn with the depth moved through host
+memory between them, hold the activations of one branch at a time.  A
+capture or replay that fails raises; nothing falls back to eager.  On the
+CPU, and with `graphs=False`, the same calls run eagerly.
+
+`serve_http` keeps the JAX request format: POST /infer with an
+X-Meta-Length JSON header ({"h", "w"}) and float32 (2, H, W, 3) pixels,
+answered with uint16 disparity x256.
 """
 from __future__ import annotations
 
 import json
+import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
+from typing import Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from stereoanywhere_tpu_torch.config import MonoConfig, StereoAnywhereConfig
-from stereoanywhere_tpu_torch.device import resolve_device
+from stereoanywhere_tpu_torch.device import holding_constants, resolve_device
 from stereoanywhere_tpu_torch.models.dpt import DepthAnythingV2, dav2_input_size, imagenet_normalize
 from stereoanywhere_tpu_torch.models.stereoanywhere import StereoAnywhere
 from stereoanywhere_tpu_torch.ops.geometry import joint_minmax_normalize
@@ -34,15 +49,59 @@ def _pad_sizes(h: int, w: int, multiple: int = 32):
     return ph // 2, ph - ph // 2, pw // 2, pw - pw // 2
 
 
+def _copy(out):
+    return tuple(o.clone() for o in out) if isinstance(out, tuple) else out.clone()
+
+
+class _Program:
+    """One input shape's program: `body` (a tensor or a tuple of tensors
+    from device tensors) and, after its first call, its CUDA graph.
+
+    The graph reads its static inputs, the parameters, the packed weights
+    (refreshed in place by a load) and the device constants it was handed
+    during the capture, which it holds (`held`), so that the constants'
+    cache may evict them.  `capture_ms` is the capture's host time."""
+
+    def __init__(self, body: Callable, pool):
+        self.body, self.pool = body, pool
+        self.graph = None
+
+    def __call__(self, *inputs):
+        if self.graph is None:
+            out = self.body(*inputs)  # the warm-up
+            self._capture(inputs)
+            return out
+        for static, x in zip(self.inputs, inputs):
+            static.copy_(x)
+        self.graph.replay()
+        return _copy(self.output)
+
+    def _capture(self, inputs) -> None:
+        t0 = time.perf_counter()
+        static = [x.clone() for x in inputs]
+        graph = torch.cuda.CUDAGraph()
+        with holding_constants() as held, torch.cuda.graph(graph, pool=self.pool):
+            output = self.body(*static)
+        self.graph, self.inputs, self.output, self.held = graph, static, output, held
+        self.capture_ms = 1e3 * (time.perf_counter() - t0)
+
+
 class StereoAnywherePipeline:
     """(B,H,W,3) pair in [0,1] -> (B,H,W,1) positive disparity (f32).
 
     `mono=None` runs stereo-only with mono depth given by the caller (or
     zeros); with a mono model loaded, depth is always computed and the
-    caller's is ignored, as in the JAX pipeline.  `two_stage=True` moves the
-    depth through host memory between the stages (`mono_stage`, then
-    `stereo_stage`).  `device` defaults to the card and raises without one
-    unless "cpu" is asked for; the models are moved there.
+    caller's is ignored, as in the JAX pipeline.  `two_stage=True` runs the
+    mono stage and the stereo stage as two programs, with the depth moved
+    through host memory between them.  `device` defaults to the card and
+    raises without one unless "cpu" is asked for; the models are moved
+    there.  `graphs` (default: on the card) serves each (B, H, W) from its
+    CUDA graph; `graphs=False` runs every call eagerly (kernel by kernel,
+    as a profiler's module ranges need), and the CPU runs only so.
+    A load of weights into the models is seen by the graphs: parameters
+    are filled in place and the fused loop's packed weights packed anew in
+    place; a load that replaces the parameter tensors (`assign=True`)
+    needs a new pipeline.
     """
 
     def __init__(
@@ -53,6 +112,7 @@ class StereoAnywherePipeline:
         mono_size: tuple[int, int] = (518, 518),
         device: str | torch.device = "cuda",
         two_stage: bool = False,
+        graphs: bool | None = None,
     ):
         self.device = resolve_device(device)
         self.stereo = stereo.to(self.device)
@@ -60,16 +120,61 @@ class StereoAnywherePipeline:
         self.iters = iters
         self.mono_size = mono_size
         self.two_stage = two_stage
+        self.graphs = self.device.type == "cuda" if graphs is None else graphs
+        self._cache: dict = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+
+    @property
+    def graphs(self) -> bool:
+        return self._graphs
+
+    @graphs.setter
+    def graphs(self, on: bool) -> None:
+        if on and self.device.type != "cuda":
+            raise ValueError("CUDA graphs need the card: this pipeline runs on the CPU")
+        self._graphs = bool(on)
+
+    def graph_pool_bytes(self) -> int:
+        """Device memory that the pipeline's graphs hold (their one pool)."""
+        if self._pool is None:
+            return 0
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s["segment_pool_id"]) == tuple(self._pool))
 
     def _tensor(self, x) -> torch.Tensor:
         if not torch.is_tensor(x):
             x = torch.from_numpy(np.array(x, dtype=np.float32))
         return x.to(self.device, torch.float32)
 
+    def _build(self, b: int, h: int, w: int) -> _Program:
+        """The one-graph program of (b, h, w): mono (when loaded), pad and
+        stereo; stereo-only, it takes the depth pair as inputs."""
+        key = (b, h, w)
+        if key not in self._cache:
+            if self.mono is not None:
+                body = lambda im2, im3: self.stereo_stage(im2, im3, *self.mono_stage(im2, im3))  # noqa: E731
+            else:
+                body = lambda *views: self.stereo_stage(*views)  # noqa: E731
+            self._cache[key] = _Program(body, self._pool)
+        return self._cache[key]
+
+    def _build_two_stage(self, b: int, h: int, w: int) -> tuple[_Program, _Program]:
+        """The mono and the stereo program of (b, h, w), on the one pool."""
+        key = ("2s", b, h, w)
+        if key not in self._cache:
+            self._cache[key] = (_Program(lambda im2, im3: self.mono_stage(im2, im3), self._pool),
+                                _Program(lambda *views: self.stereo_stage(*views), self._pool))
+        return self._cache[key]
+
+    def _run(self, program: _Program, *inputs):
+        if not self.graphs:
+            return program.body(*inputs)
+        return program(*(self._tensor(x) for x in inputs))
+
     @torch.inference_mode()
     def mono_stage(self, im2, im3) -> tuple[torch.Tensor, torch.Tensor]:
         """DAv2 on both views as one batch, at the DAv2 input size, resized
-        back.  (B,H,W,3) -> two (B,H,W,1), f32."""
+        back.  (B,H,W,3) -> two (B,H,W,1), f32.  Runs eagerly."""
         im2, im3 = self._tensor(im2), self._tensor(im3)
         b, h, w, _ = im2.shape
         fh, fw = dav2_input_size(h, w, self.mono_size[0], self.mono_size[1])
@@ -83,7 +188,7 @@ class StereoAnywherePipeline:
     def stereo_stage(self, im2, im3, mde2, mde3) -> torch.Tensor:
         """Joint min-max normalize the depth pair, edge-pad to a multiple of
         32, run StereoAnywhere, unpad.  (B,H,W,3) views and (B,H,W,1) depth
-        -> (B,H,W,1) disparity, f32."""
+        -> (B,H,W,1) disparity, f32.  Runs eagerly."""
         im2, im3 = self._tensor(im2), self._tensor(im3)
         _, h, w, _ = im2.shape
         t, bot, l, r = _pad_sizes(h, w)
@@ -97,15 +202,16 @@ class StereoAnywherePipeline:
     @torch.inference_mode()
     def __call__(self, im2, im3, mde2=None, mde3=None) -> torch.Tensor:
         im2, im3 = self._tensor(im2), self._tensor(im3)
+        b, h, w, _ = im2.shape
         if self.mono is None:
             if mde2 is None:
-                mde2 = mde3 = torch.zeros((*im2.shape[:3], 1), device=self.device)
-            return self.stereo_stage(im2, im3, mde2, mde3)
-        two_stage = self.two_stage and mde2 is None  # JAX's rule: given depth takes the one-graph path
-        mde2, mde3 = self.mono_stage(im2, im3)
-        if two_stage:  # the host round trip between the stages
-            mde2, mde3 = mde2.cpu().numpy(), mde3.cpu().numpy()
-        return self.stereo_stage(im2, im3, mde2, mde3)
+                mde2 = mde3 = torch.zeros((b, h, w, 1), device=self.device)
+            return self._run(self._build(b, h, w), im2, im3, mde2, mde3)
+        if self.two_stage and mde2 is None:  # JAX's rule: given depth takes the one-graph path
+            mono, stereo = self._build_two_stage(b, h, w)
+            mde2, mde3 = (d.cpu().numpy() for d in self._run(mono, im2, im3))  # the host round trip
+            return self._run(stereo, im2, im3, mde2, mde3)
+        return self._run(self._build(b, h, w), im2, im3)
 
 
 def build_pipeline(
@@ -118,6 +224,7 @@ def build_pipeline(
     stereo_variables=None,
     mono_variables=None,
     two_stage: bool = False,
+    graphs: bool | None = None,
 ) -> StereoAnywherePipeline:
     """A pipeline with fresh models: random weights from `seed`, or the JAX
     package's variable trees (nested dicts of numpy arrays) when given.
@@ -140,7 +247,7 @@ def build_pipeline(
         )
         if mono_variables is not None:
             load_dav2_variables(mono, mono_variables)
-    return StereoAnywherePipeline(stereo, mono, iters, mono_size, dev, two_stage)
+    return StereoAnywherePipeline(stereo, mono, iters, mono_size, dev, two_stage, graphs)
 
 
 def make_http_server(pipeline: StereoAnywherePipeline, host: str = "0.0.0.0", port: int = 8008) -> HTTPServer:

@@ -615,3 +615,137 @@ def test_step_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     pyr = port_lookup.DualPyramid([h[..., :8].contiguous()], [h[..., :8].contiguous()])
     with pytest.raises(TypeError):  # coords must be float32
         port_lookup.dual_lookup(pyr, torch.zeros(1, 16, 16, device="cuda").half(), 4)
+
+
+# ---------------------------------------------------------------------------
+# the serving pipeline's CUDA graphs: DAv2 ViT-S + StereoAnywhere in bf16 at
+# 256x128 (quarter-resolution plane 64 x 32, which the fused gate takes), 4
+# GRU iterations, with cuDNN's heuristics and with its benchmarked
+# algorithms (which it keeps a thread: the eager calls run on the thread of
+# the capture).  A replay runs the kernels and cuDNN algorithms of the
+# eager call on the same inputs, so the two are held to max |delta| = 0.
+
+GRAPH_HW = (256, 128)
+
+
+@pytest.fixture(scope="module", params=[("off", False), ("on", False), ("off", True), ("on", True)],
+                ids=["default", "fused", "default-benchmark", "fused-benchmark"])
+def graphed(request):
+    """A pipeline on its graphs, and two requests' images."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from stereoanywhere_tpu_torch.config import MonoConfig, StereoAnywhereConfig
+    from stereoanywhere_tpu_torch.serve.pipeline import build_pipeline
+
+    fused, benchmark = request.param
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = benchmark
+    pipe = build_pipeline(StereoAnywhereConfig(compute_dtype="bfloat16", fused_level0=fused),
+                          MonoConfig.for_encoder("vits"), iters=4, mono_size=(56, 56), device="cuda", seed=5)
+    rng = np.random.default_rng(12)
+    images = [[rng.uniform(0, 1, (1, *GRAPH_HW, 3)).astype(np.float32) for _ in range(2)] for _ in range(2)]
+    yield pipe, images
+    torch.backends.cudnn.benchmark = False
+
+
+def _eager(pipe, *args):
+    pipe.graphs = False
+    try:
+        return pipe(*args)
+    finally:
+        pipe.graphs = True
+
+
+def _same(got, want):
+    assert got.shape == want.shape == (1, *GRAPH_HW, 1)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() == 0
+
+
+@pytest.mark.cuda
+def test_graph_replay_equals_eager(graphed):
+    pipe, (a, _) = graphed
+    assert pipe.graphs
+    warm = pipe(*a)  # the warm-up, then the capture
+    program = pipe._build(1, *GRAPH_HW)
+    assert program.graph is not None and program.held
+    _same(warm, _eager(pipe, *a))
+    _same(pipe(*a), _eager(pipe, *a))
+
+
+@pytest.mark.cuda
+def test_graph_second_request_equals_eager(graphed):
+    pipe, (a, b) = graphed
+    pipe(*a)
+    _same(pipe(*b), _eager(pipe, *b))
+
+
+@pytest.mark.cuda
+def test_graph_does_not_overwrite_an_earlier_result(graphed):
+    pipe, (a, b) = graphed
+    first = pipe(*a)
+    kept = first.clone()
+    second = pipe(*b)
+    assert torch.equal(first, kept) and not torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_two_stage_graphs_equal_eager_two_stage(graphed):
+    from stereoanywhere_tpu_torch.serve.pipeline import StereoAnywherePipeline
+
+    pipe, (a, b) = graphed
+    two = StereoAnywherePipeline(pipe.stereo, pipe.mono, pipe.iters, pipe.mono_size, "cuda", two_stage=True)
+    two(*a)
+    mono, stereo = two._build_two_stage(1, *GRAPH_HW)
+    assert mono.graph is not None and stereo.graph is not None and mono.pool == stereo.pool
+    _same(two(*b), _eager(two, *b))
+    _same(two(*a), _eager(two, *a))
+
+
+@pytest.mark.cuda
+def test_graph_replay_after_a_weight_load_equals_eager(graphed):
+    pipe, (a, _) = graphed
+    before = pipe(*a)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for model in (pipe.stereo, pipe.mono):
+        model.load_state_dict({k: v * (1 + 0.05 * torch.randn(v.shape, device="cuda", generator=g)).to(v.dtype)
+                               if v.is_floating_point() else v for k, v in model.state_dict().items()})
+    got = pipe(*a)
+    assert not torch.equal(got, before)
+    _same(got, _eager(pipe, *a))
+
+
+@pytest.mark.cuda
+def test_graph_replay_after_the_constants_cache_evicts_equals_eager(graphed):
+    """More than 128 other resize sizes evict every constant the graph read,
+    after the weight load of the test above: both have happened."""
+    from stereoanywhere_tpu_torch import device as port_device
+    from stereoanywhere_tpu_torch.ops.interp import resize_jax_image
+
+    pipe, (a, b) = graphed
+    pipe(*a)
+    x = torch.zeros((1, 1, 4, 4), device="cuda")
+    for n in range(5, 5 + 130):
+        resize_jax_image(x, (4, n), "bilinear")
+    assert port_device._copied.cache_info().currsize == 128
+    _same(pipe(*a), _eager(pipe, *a))
+    _same(pipe(*b), _eager(pipe, *b))
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda):
+    """A body that reads a value back to the host cannot be captured: the
+    call raises, and the program keeps no graph and runs nothing eagerly
+    in its place."""
+    from stereoanywhere_tpu_torch.serve.pipeline import _Program
+
+    program = _Program(lambda x: x * x.sum().item(), torch.cuda.graph_pool_handle())
+    x = torch.ones(8, device="cuda")
+    try:
+        with pytest.raises(RuntimeError):
+            program(x)
+        assert program.graph is None
+    finally:
+        torch.cuda.set_stream(torch.cuda.default_stream())
+        torch.cuda.synchronize()

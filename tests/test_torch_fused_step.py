@@ -493,18 +493,22 @@ def test_barrel_turns_the_fused_loop_off(stereo64, monkeypatch):
 
 def test_packed_weights_follow_a_reload(stereo64):
     """The fused loop's packed weights are cached per model and packed
-    anew after load_state_dict and load_stereo_variables."""
+    anew after load_state_dict and load_stereo_variables, into the same
+    tensors (a CUDA graph that read them sees the new weights)."""
+    from stereoanywhere_tpu_torch.models.update import _leaves
+
     variables, ins, _ = stereo64
     fused, plain = _port(variables, fused_level0="on"), _port(variables)
     fused(*map(t, ins), iters=2)
     packed = fused.update_block.fused_weights(torch.float32)
     assert fused.update_block.fused_weights(torch.float32) is packed
-    moved = jax.tree.map(lambda a: (a * 1.01).astype(np.float32), variables)
-    for load in (lambda m: from_jax.load_stereo_variables(m, moved),
-                 lambda m: m.load_state_dict(_port(moved).state_dict())):
-        load(fused)
-        assert fused.update_block.fused_weights(torch.float32) is not packed
-        packed = fused.update_block.fused_weights(torch.float32)
+    for scale, load in ((1.01, from_jax.load_stereo_variables),
+                        (1.02, lambda m, v: m.load_state_dict(_port(v).state_dict()))):
+        moved = jax.tree.map(lambda a: (a * scale).astype(np.float32), variables)
+        load(fused, moved)
+        assert fused.update_block.fused_weights(torch.float32) is packed
+        fresh = _port(moved, fused_level0="on").update_block.fused_weights(torch.float32)
+        assert all(torch.equal(a, b) for a, b in zip(_leaves(packed), _leaves(fresh)))
     from_jax.load_stereo_variables(plain, moved)
     close(fused(*map(t, ins), iters=2)["disparity"].numpy(), plain(*map(t, ins), iters=2)["disparity"].numpy(), 1e-4)
 
