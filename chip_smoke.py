@@ -12,7 +12,8 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    step kernels' `step_fused` for K8 and K9) must show HGMMA and UTMALDG in
    their SASS (`cuobjdump -sass`), counted and printed;
 2. kernels: each of K1-K4 at the shapes of the ViT-L 512^2 and 375x1242
-   requests (T = 1370 and 4552 tokens a view), in bf16 and f32, against its
+   requests (T = 1370 and 4552 tokens a view) and of the eval's largest
+   (T = 8141), in bf16 and f32, against its
    plain PyTorch version on the card (TF32 off), timed beside one PyTorch
    call for the same function where one exists, with its TFLOP/s (every
    `ms` is CUDA-event time over 20 calls back to back; beside a kernel's
@@ -73,9 +74,33 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    through the plain versions, in the default and the fused configuration,
    in f32 and in bf16 (eagerly: the card's graphs are held to its eager
    path above), and the fused pipeline against the default one on the card
-   in f32.
-It prints a `{"kernels": [...]}` line, the card's name and power limit,
-and last `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
+   in f32;
+6. the zero-shot evaluation path: `cli eval` as a user runs it, at ViT-L
+   (random weights written as a `.pth` and read through
+   `--mono-checkpoint`) and the default stereo widths, bf16, 32 GRU
+   iterations, `--tries 2` and `--csv`, over a synthetic Middlebury
+   directory (3 scenes: two stereo buckets, three mono shapes, T up to
+   8141) and a synthetic KITTI 2015 one (4 pairs: one bucket, four mono
+   shapes), each written from a seed into a temporary directory.  Each
+   dataset runs four times in turns: eagerly (the process's first visit of
+   these shapes, the reference), on its graphs (a program captures at its
+   key's second call; the kernel wrappers' calls counted from 0 over this
+   run and asserted: K1-K4 24 and K5 32 a body run, two body runs a key),
+   eagerly again, and with every key captured at its first call; every
+   program output of the later runs is held to the first's (max |delta| =
+   0) and so are the metrics.  Printed: per-sample wall ms of the
+   first visit and the repeat, pairs a second over the second try, the
+   stereo buckets and mono shapes with their T and capture ms, the pool,
+   and one more visit of a sample on the warm graphs traced (device busy,
+   idle share, host ms of decode, resize and normalise, programs,
+   metrics).  Then `cli eval` on the card (f32, TF32 off, ViT-S, 4
+   iterations, 2 scenes at 96x160) against the CPU: avgerr and rms within
+   1e-3 relative, disparity within 1e-2 px + 1e-4 relative or twice the
+   CPU's own move under one rounding of its stereo inputs, the larger.  The kernel
+   phase holds K1-K4 at the eval's largest T too.
+It prints a `{"kernels": [...]}` line (with each kernel's wrapper calls on
+the eval path, `eval_launches`), the card's name and power limit, and last
+`{"ok": true, "device": {...}}`.  It imports nothing of JAX.
 
 --tiles: K9's bf16 body at each scale of both planes with each of its five
 tile candidates forced on both launches, K8's with each candidate its
@@ -97,25 +122,32 @@ from __future__ import annotations
 
 import bisect
 import ctypes
+import io
 import json
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stdout
 from pathlib import Path
 
 import numpy as np
 import torch
+from PIL import Image
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import stereoanywhere_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+from stereoanywhere_tpu_torch import cli
 from stereoanywhere_tpu_torch import device as port_device
 from stereoanywhere_tpu_torch.config import MonoConfig, StereoAnywhereConfig
+from stereoanywhere_tpu_torch.data.frame_utils import write_pfm
+from stereoanywhere_tpu_torch.eval import harness
+from stereoanywhere_tpu_torch.eval import programs as eval_programs
 from stereoanywhere_tpu_torch.models import stereoanywhere as sa_model
 from stereoanywhere_tpu_torch.models import update as sa_update
 from stereoanywhere_tpu_torch.models.dpt import INTERMEDIATE_LAYER_IDX, DepthAnythingV2, dav2_input_size
@@ -253,8 +285,9 @@ def attention_bound_ms(flops: float, exps: float, moved: int, dtype) -> tuple[fl
     return terms[term] * 1e3, "bytes" if term == "bytes" else "operations", term
 
 
-def tokens_of(h: int, w: int) -> int:
-    fh, fw = dav2_input_size(h, w)
+def tokens_of(h: int, w: int, size: tuple[int, int] = (518, 518)) -> int:
+    """DAv2's tokens a view at (h, w) for the DAv2 size (width, height)."""
+    fh, fw = dav2_input_size(h, w, *size)
     return (fh // 14) * (fw // 14) + 1
 
 
@@ -353,9 +386,11 @@ def kernel_phase() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
     t512, tkitti = tokens_of(512, 512), tokens_of(*KITTI)
+    # the eval's largest: Middlebury's scenes at its DAv2 size
+    teval = max(tokens_of(h, w, harness.DAV2_SIZES["middlebury"]) for h, w in EVAL_SCENES["middlebury"])
     records = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for t in (t512, tkitti):
+        for t in (t512, tkitti, teval):
             for name, fn, ref, lib, args, flops, moved, product in kernel_cases(dtype, t, g):
                 got = fn(*args)
                 torch.cuda.synchronize()
@@ -391,7 +426,7 @@ def kernel_phase() -> dict:
                   f"max_abs_err {err:.3e} (max|plain| {scale:.3e}, tol {REL_TOL[dtype]:.0e} rel)", flush=True)
     rate, how = exp_rate()
     print(f"SFU exp2 rate {rate / 1e12:.2f} T/s ({how})", flush=True)
-    launch_geometry(t512, tkitti)
+    launch_geometry(t512, tkitti, teval)
     return records
 
 
@@ -1018,11 +1053,13 @@ def module_parts(pipe) -> dict:
 
 
 @contextmanager
-def module_ranges(pipe):
-    """Wrap the parts of module_parts in their ranges; restored after."""
+def module_ranges(parts: dict):
+    """Wrap each (owner, attribute) of `parts` (a range name -> its pairs,
+    as module_parts gives them) in a record_function range of that name;
+    restored after."""
     saved = []
-    for range_name, parts in module_parts(pipe).items():
-        for owner, attr in parts:
+    for range_name, pairs in parts.items():
+        for owner, attr in pairs:
             fn = getattr(owner, attr)
 
             def ranged(*a, _fn=fn, _name=range_name, **k):
@@ -1111,7 +1148,7 @@ def time_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> dict:
               "launches by wrapper are the capture's", flush=True)
 
     prof, device_events, traced_wall = None, None, None
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, module_ranges(pipe):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, module_ranges(module_parts(pipe)):
         traced_wall = sync_ms(lambda: eager(pipe, im2, im3))
     # the ranges show on the device too, as spans from their first kernel
     # to their last: kept apart from the kernels
@@ -1400,6 +1437,364 @@ def compare_phase() -> None:
         raise AssertionError(f"the fused pipeline disagrees with the default one on the card: {err}")
 
 
+# ---------------------------------------------------------------------------
+# The zero-shot evaluation path: `cli eval` on synthetic benchmark directories
+
+# raw sizes of the synthetic scenes, in the readers' order: Middlebury's give
+# two stereo buckets, (384, 512) and (512, 768) shared by the last two (a
+# sample takes the smallest bucket that fits it, so the small scene comes
+# first); KITTI's one, (384, 1280)
+EVAL_SCENES = {"middlebury": [(375, 450), (497, 741), (486, 720)],
+               "kitti2015": [(375, 1242), (370, 1224), (376, 1241), (374, 1238)]}
+EVAL_TRIES = 2
+
+
+def _scene(rng, h: int, w: int, max_disp: float):
+    """A textured left view, the right view that sees it shifted by a smooth
+    positive disparity, and that disparity."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    disp = (0.2 + 0.6 * xx / w + 0.1 * np.sin(yy / 17.0)) * max_disp
+    coarse = rng.uniform(0, 255, (h // 6 + 2, w // 6 + 2, 3)).astype(np.uint8)
+    left = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BICUBIC), np.float32)
+    left = np.clip(left + rng.normal(0, 8, left.shape), 0, 255).astype(np.uint8)
+    src = np.clip(np.round(xx + disp).astype(np.int64), 0, w - 1)
+    right = left[yy.astype(np.int64), src]
+    return left, right, disp
+
+
+def write_eval_dirs(root: Path, rng) -> dict[str, Path]:
+    """Synthetic Middlebury and KITTI 2015 directories in the readers'
+    layouts, with plausible gt, validity and occlusion masks."""
+    out = {}
+    d = root / "middlebury"
+    for i, (h, w) in enumerate(EVAL_SCENES["middlebury"]):
+        scene = d / f"scene{i}"
+        scene.mkdir(parents=True)
+        left, right, disp = _scene(rng, h, w, 120.0)
+        gt = disp.copy()
+        gt[:24, : w // 5] = np.inf  # no gt: the reader zeroes it
+        mask = np.full((h, w), 255, np.uint8)
+        mask[:, :40] = 128  # occluded at the left border
+        mask[~np.isfinite(gt)] = 0
+        Image.fromarray(left).save(scene / "im0.png")
+        Image.fromarray(right).save(scene / "im1.png")
+        Image.fromarray(mask).save(scene / "mask0nocc.png")
+        write_pfm(str(scene / "disp0GT.pfm"), gt)
+    out["middlebury"] = d
+    d = root / "kitti2015"
+    for sub in ("image_2", "image_3", "disp_occ_0", "disp_noc_0"):
+        (d / sub).mkdir(parents=True)
+    for i, (h, w) in enumerate(EVAL_SCENES["kitti2015"]):
+        left, right, disp = _scene(rng, h, w, 90.0)
+        lidar = (rng.uniform(size=(h, w)) < 0.3) & (np.arange(h)[:, None] > 0.4 * h)  # sparse, lower part
+        occ = np.where(lidar, np.round(disp * 256), 0).astype(np.uint16)
+        noc = occ.copy()
+        noc[:, :30] = 0
+        name = f"{i:06d}_10.png"
+        Image.fromarray(left).save(d / "image_2" / name)
+        Image.fromarray(right).save(d / "image_3" / name)
+        Image.fromarray(occ).save(d / "disp_occ_0" / name)
+        Image.fromarray(noc).save(d / "disp_noc_0" / name)
+    out["kitti2015"] = d
+    return out
+
+
+class _EvalRecorder:
+    """Instruments one `cli eval` run: the programs object it builds (with
+    the graphs on or off and a capture policy), each program call's output,
+    each sample's and each try's wall time, and the evaluator."""
+
+    def __init__(self, graphs: bool, capture_at: int = 2):
+        self.graphs, self.capture_at = graphs, capture_at
+        self.programs = self.evaluator = None
+        self.outputs: list[tuple[str, np.ndarray]] = []
+        self.stereo_inputs: list[tuple] = []
+        self.sample_ms: list[list[float]] = []
+        self.try_s: list[float] = []
+
+    @contextmanager
+    def installed(self):
+        rec = self
+        base = eval_programs.EvalPrograms
+
+        class Recording(base):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **{**k, "graphs": rec.graphs, "capture_at": rec.capture_at})
+                rec.programs = self
+
+            def stereo_fn(self, *a):
+                out = super().stereo_fn(*a)
+                rec.outputs.append(("stereo", out))
+                rec.stereo_inputs.append(a)
+                return out
+
+            def mono_fn(self, *a):
+                out = super().mono_fn(*a)
+                rec.outputs.append(("mono", out))
+                return out
+
+        run, run_sample = harness.Evaluator.run, harness.Evaluator.run_sample
+
+        def timed_run(ev, *a, **k):
+            rec.evaluator = ev
+            rec.sample_ms.append([])
+            t0 = time.perf_counter()
+            try:
+                return run(ev, *a, **k)
+            finally:
+                rec.try_s.append(time.perf_counter() - t0)
+
+        def timed_sample(ev, sample):
+            t0 = time.perf_counter()
+            try:
+                return run_sample(ev, sample)
+            finally:
+                rec.sample_ms[-1].append(1e3 * (time.perf_counter() - t0))
+
+        eval_programs.EvalPrograms = Recording
+        harness.Evaluator.run, harness.Evaluator.run_sample = timed_run, timed_sample
+        try:
+            yield self
+        finally:
+            eval_programs.EvalPrograms = base
+            harness.Evaluator.run, harness.Evaluator.run_sample = run, run_sample
+
+
+def run_cli_eval(argv: list[str], rec: _EvalRecorder, show: bool = False) -> dict:
+    """`cli.main(argv)` with the recorder installed; returns its means.  Its
+    printout is shown only with `show`."""
+    with rec.installed(), redirect_stdout(sys.stdout if show else io.StringIO()):
+        return cli.main(argv)
+
+
+def same_metrics(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k])) for k in a)
+
+
+# the host's parts of one sample, each a range in the trace (decode and the
+# programs are ranged where they are called)
+HOST_PARTS = {
+    "resize and normalise": [(harness, n) for n in ("resize_np", "joint_minmax_np", "pad_to_shape", "unpad")],
+    "metrics": [(harness, "guided_metrics"), (harness, "depth_metrics")],
+}
+
+
+def trace_repeat_sample(rec: _EvalRecorder, ds, index: int, label: str) -> None:
+    """One more visit of a sample on the warm programs, traced: device busy
+    ms and idle share of its wall time, and the host ms of its parts:
+    decode, resize and normalise, the programs (their host work, the copies
+    and the wait for the card), metrics."""
+    ev = rec.evaluator
+    stereo_fn, mono_fn = ev.stereo_fn, ev.mono_fn
+
+    def in_range(fn):
+        def call(*a):
+            with record_function("programs"):
+                return fn(*a)
+        return call
+
+    ev.stereo_fn, ev.mono_fn = in_range(stereo_fn), in_range(mono_fn)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, module_ranges(HOST_PARTS):
+            t0 = time.perf_counter()
+            with record_function("decode"):
+                sample = ds[index]
+            ev.run_sample(sample)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+    finally:
+        ev.stereo_fn, ev.mono_fn = stereo_fn, mono_fn
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in
+               ("decode", "programs", *HOST_PARTS)]
+    host = defaultdict(float)
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in ("decode", "programs", *HOST_PARTS):
+            host[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 if kernels else None
+    idle = "not measured" if busy is None else f"{1 - busy / wall:.3f}"
+    print(f"eval trace {label} sample {index} (a repeat, graphs): wall {wall:.1f} ms, device busy ms "
+          f"{fmt(busy)}, idle share {idle}, {len(kernels)} kernels; host ms by part: "
+          + ", ".join(f"{k} {host.get(k, 0.0):.1f}" for k in ("decode", "resize and normalise", "programs", "metrics"))
+          + f"; the rest {wall - sum(host.values()):.1f}", flush=True)
+
+
+def eval_phase() -> dict:
+    """`cli eval` at ViT-L and the default stereo widths, bf16, 32 GRU
+    iterations, 2 tries, over the synthetic Middlebury and KITTI 2015
+    directories, as a user runs it: eagerly (the reference), on its graphs
+    (a key captures at its second call; the kernel wrappers' calls counted
+    from 0 over this run), eagerly again, then with every key captured at
+    its first call, in turns a dataset.  Checks every program output of the
+    later runs against the first's (max |delta| = 0) and the metrics alike;
+    prints the
+    per-sample first-visit and repeat ms, the buckets, mono shapes and
+    captures, the pool, and one traced repeat sample a dataset.  Returns
+    the wrappers' calls over the main runs."""
+    from stereoanywhere_tpu_torch.data.datasets import fetch_dataset
+
+    # what the CLI runs: PyTorch's defaults (convolutions in TF32, products in f32; the bf16 model runs its
+    # hourglass past the first gate in f32), cuDNN's heuristics
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.benchmark = False
+    tmp = Path(tempfile.mkdtemp(prefix="sa_eval_"))
+    launches = {n: 0 for n in COUNTERS}
+    try:
+        dirs = write_eval_dirs(tmp, np.random.default_rng(0))
+        dav2 = tmp / "dav2_vitl.pth"
+        torch.save(DepthAnythingV2(MonoConfig.for_encoder("vitl"), device="cpu",
+                                   generator=torch.Generator().manual_seed(11)).state_dict(), dav2)
+        for dataset, root in dirs.items():
+            size = harness.DAV2_SIZES[dataset]
+            argv = ["eval", "--dataset", dataset, "--datapath", str(root), "--mono-checkpoint", str(dav2),
+                    "--dtype", "bfloat16", "--iters", str(ITERS), "--tries", str(EVAL_TRIES),
+                    "--csv", str(tmp / f"{dataset}.csv")]
+            reference = None
+            # the first run, eager, takes the process's first costs at these shapes (allocations, cuDNN's
+            # heuristics); it is the reference every later run's outputs are held to
+            for label, graphs, capture_at in (("cold, eager", False, 2), ("graphs", True, 2), ("eager", False, 2),
+                                              ("graphs, capture at 1st", True, 1)):
+                rec = _EvalRecorder(graphs, capture_at)
+                for f in COUNTERS.values():
+                    f.launches = 0
+                t0 = time.perf_counter()
+                means = run_cli_eval(argv, rec, show=label == "graphs")
+                total = time.perf_counter() - t0
+                calls = {n: f.launches for n, f in COUNTERS.items()}
+                n = len(EVAL_SCENES[dataset])
+                first, repeat = rec.sample_ms[0], rec.sample_ms[-1]
+                print(f"eval {dataset} ({label}): {total:.1f} s in cli.main (models loaded and built included); "
+                      f"per-sample ms, first visit {[round(x, 1) for x in first]}, repeat "
+                      f"{[round(x, 1) for x in repeat]}; tries {[round(s, 2) for s in rec.try_s]} s; "
+                      f"pairs a second over try {EVAL_TRIES}: {n / rec.try_s[-1]:.2f}; wrapper calls {calls}",
+                      flush=True)
+                p = rec.programs
+                if graphs:
+                    keys = sorted(p.programs, key=str)
+                    print(f"  programs: " + "; ".join(
+                        f"{k[0]} {k[-3]}x{k[-2]}"
+                        + (f" (T {tokens_of(k[-3], k[-2], size)})" if k[0] == "mono" else "")
+                        + f": capture {p.programs[k].capture_ms:.0f} ms" for k in keys)
+                        + f"; pool {p.pool_bytes() / 2 ** 30:.2f} GiB", flush=True)
+                    stereo_keys = sorted({k[-3:-1] for k in keys if k[0] == "stereo"})
+                    want_keys = sorted(set(rec.evaluator.bucketer.buckets))
+                    if stereo_keys != want_keys or not all(p.programs[k].graph is not None for k in keys):
+                        raise AssertionError(f"eval {dataset}: stereo programs {stereo_keys}, buckets {want_keys}")
+                if label == "graphs":
+                    # the main path: every key runs its body twice (the warm-up, the capture), every later call
+                    # replays; DAv2 (K1-K4) once a block, the stereo loop K5 once an iteration
+                    n_mono = sum(k[0] == "mono" for k in p.programs)
+                    n_stereo = sum(k[0] == "stereo" for k in p.programs)
+                    want = {**{k: 2 * n_mono * VIT_L["depth"] for k in ("ln_dense", "vit_attention",
+                                                                          "dense_scale_residual", "vit_mlp")},
+                            "dual_lookup": 2 * n_stereo * ITERS}
+                    want = {k: want.get(k, 0) for k in COUNTERS}
+                    if calls != want:
+                        raise AssertionError(f"eval {dataset}: the wrappers ran {calls}, expected {want}")
+                    for k, v in calls.items():
+                        launches[k] += v
+                    print(f"  metrics: " + ", ".join(f"{k} {v:.4f}" for k, v in means.items()
+                                                     if k in ("bad 2.0", "bad 3.0", "avgerr", "rms", "noc avgerr",
+                                                              "occ avgerr")), flush=True)
+                    if not all(np.isfinite(means[k]) for k in ("avgerr", "rms", "bad 2.0")):
+                        raise AssertionError(f"eval {dataset}: non-finite metrics {means}")
+                    outputs = len(rec.outputs)  # the eval's program calls, the traced one left out
+                    trace_repeat_sample(rec, fetch_dataset(dataset, str(root)), 0, dataset)
+                    del rec.outputs[outputs:]
+                if reference is None:
+                    reference = (rec.outputs, means)
+                else:
+                    if [k for k, _ in rec.outputs] != [k for k, _ in reference[0]]:
+                        raise AssertionError(f"eval {dataset} ({label}): another sequence of program calls")
+                    err = max(float(np.abs(a - b).max()) for (_, a), (_, b) in zip(rec.outputs, reference[0]))
+                    same = same_metrics(means, reference[1])
+                    ok = err == 0 and same
+                    print(f"  against the first run: max |delta| over {len(rec.outputs)} program outputs {err:.3e} "
+                          f"(held to 0); metrics {'equal' if same else 'DIFFER'}" + ("" if ok else "  MISMATCH"),
+                          flush=True)
+                    if not ok:
+                        GRAPH_FAILURES.append(f"eval {dataset} {label}: outputs differ by {err}")
+                rec.programs = rec.evaluator = None
+                del p
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def one_rounding(x: np.ndarray, rng) -> np.ndarray:
+    """x with every element moved by one rounding: scaled by 1 +- 2^-24 in
+    f64, rounded back to f32."""
+    return (x.astype(np.float64) * (1 + rng.choice([-1.0, 1.0], x.shape) * 2.0 ** -24)).astype(np.float32)
+
+
+def eval_compare_phase() -> None:
+    """`cli eval` on the card against the CPU: f32 with TF32 off, ViT-S,
+    4 GRU iterations, a 2-scene 96x160 Middlebury directory (the CPU runs
+    the kernels' plain versions).  avgerr and rms within 1e-3 relative;
+    disparity within 1e-2 px + 1e-4 of its magnitude, or within twice the
+    CPU's own move when its stereo inputs take one rounding, if that is
+    larger (measured here: the model amplifies f32 rounding past that
+    bound).  Printed beside: the mono depth's error, and the stereo
+    program's on the CPU run's inputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    tmp = Path(tempfile.mkdtemp(prefix="sa_eval_cmp_"))
+    try:
+        rng = np.random.default_rng(1)
+        for i in range(2):
+            scene = tmp / "mb" / f"scene{i}"
+            scene.mkdir(parents=True)
+            left, right, disp = _scene(rng, 96, 160, 30.0)
+            Image.fromarray(left).save(scene / "im0.png")
+            Image.fromarray(right).save(scene / "im1.png")
+            write_pfm(str(scene / "disp0GT.pfm"), disp)
+        torch.save(DepthAnythingV2(MonoConfig.for_encoder("vits"), device="cpu",
+                                   generator=torch.Generator().manual_seed(12)).state_dict(), tmp / "dav2.pth")
+        argv = ["eval", "--dataset", "middlebury", "--datapath", str(tmp / "mb"), "--mono-checkpoint",
+                str(tmp / "dav2.pth"), "--mono-encoder", "vits", "--iters", "4"]
+        recs, means = {}, {}
+        for device in ("cuda", "cpu"):
+            recs[device] = _EvalRecorder(graphs=device == "cuda")
+            t0 = time.perf_counter()
+            means[device] = run_cli_eval(argv + ["--device", device], recs[device])
+            print(f"eval card vs CPU: {device} run {time.perf_counter() - t0:.1f} s", flush=True)
+        mc, mp = means["cuda"], means["cpu"]
+        out = {d: {k: [o for kk, o in r.outputs if kk == k] for k in ("mono", "stereo")} for d, r in recs.items()}
+        dc, dp = out["cuda"]["stereo"], out["cpu"]["stereo"]
+        err = max(float(np.abs(a - b).max()) for a, b in zip(dc, dp))
+        scale = max(float(np.abs(b).max()) for b in dp)
+        # the parts: the mono program alone, and the stereo program alone on the CPU run's inputs
+        mono_rel = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(out["cuda"]["mono"],
+                                                                                  out["cpu"]["mono"]))
+        alone = [recs["cuda"].programs.stereo_fn(*a) for a in recs["cpu"].stereo_inputs]
+        alone_err = max(float(np.abs(a - b).max()) for a, b in zip(alone, dp))
+        # the CPU's own distance when every input element moves by one rounding, over three draws: the stereo
+        # model with random weights carries an ulp of its inputs to about 1e-4 of the disparity here, so a
+        # bound under it holds no f32 implementation, the CPU's included
+        floor = 0.0
+        for k in range(3):
+            r = np.random.default_rng(100 + k)
+            for a, b in zip(recs["cpu"].stereo_inputs, dp):
+                moved = recs["cpu"].programs.stereo_fn(*[one_rounding(x, r) for x in a])
+                floor = max(floor, float(np.abs(moved - b).max()))
+        print(f"eval card vs CPU, the parts: mono depth max_abs_err / max|cpu| {mono_rel:.3e}; the stereo program "
+              f"on the CPU run's inputs: max_abs_err {alone_err:.3e} px; the CPU's own move under one rounding of "
+              f"its stereo inputs: {floor:.3e} px", flush=True)
+        tol = max(1e-2 + 1e-4 * scale, 2 * floor)
+        rel = {k: abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in ("avgerr", "rms")}
+        print(f"eval card vs CPU, ViT-S f32 TF32 off, 2 scenes 96x160, iters 4: disparity max_abs_err {err:.3e} px "
+              f"(max|cpu| {scale:.3e}; tol {tol:.3e}, the larger of 1e-2 px + 1e-4 rel. and twice the CPU's own "
+              f"move); avgerr {mc['avgerr']:.5f} / {mp['avgerr']:.5f}, rms {mc['rms']:.5f} / {mp['rms']:.5f} "
+              f"(rel. {rel['avgerr']:.2e}, {rel['rms']:.2e}, tol 1e-3)", flush=True)
+        if not (len(dc) == len(dp) == 2 and err <= tol and max(rel.values()) <= 1e-3):
+            raise AssertionError("cli eval on the card disagrees with the CPU")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def ab_rows() -> list[dict]:
     """One --ab run over the package this process imported: K1 and K3 at
     both token counts, K7, K8 (with its device ms by launch), K9 at each
@@ -1505,6 +1900,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     hourglass_phase()
     compare_phase()
+    evaluated = eval_phase()
+    eval_compare_phase()
     if GRAPH_FAILURES:
         raise AssertionError("replays differ from eager: " + "; ".join(GRAPH_FAILURES))
     kernels = []
@@ -1516,6 +1913,7 @@ def main() -> int:
         n, per_replay = (launches[name], replayed) if name in MAIN_PATH else (fused[name], fused_replayed)
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces, launches=n,
                             replay_launches=None if per_replay is None else per_replay[name],
+                            eval_launches=evaluated[name],
                             max_abs_err=row["max_abs_err"], ms=row["ms"], device_ms=row["device_ms"],
                             host_ms=row["host_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"], unfused_ms=row.get("unfused_ms"),

@@ -1,24 +1,38 @@
-"""Command-line entry points of the port: `infer` and `serve`.
+"""Command-line entry points of the port: `eval`, `precompute-mono`,
+`infer` and `serve`.
 
-The counterparts of the JAX package's `cli.py` `infer` and `serve`, with
-its flags and a `--device` (default the card; "cpu" runs eagerly there):
+The counterparts of the JAX package's `cli.py` subcommands of those names,
+with its flags and a `--device` (default the card; "cpu" runs eagerly
+there):
 
+  python -m stereoanywhere_tpu_torch.cli eval --dataset middlebury --datapath ... \\
+      --checkpoint sceneflow.tar --mono-checkpoint depth_anything_v2_vitl.pth
+  python -m stereoanywhere_tpu_torch.cli precompute-mono --dataset middlebury --datapath ... \\
+      --mono-checkpoint depth_anything_v2_vitl.pth
   python -m stereoanywhere_tpu_torch.cli infer left.png right.png -o out \\
       --checkpoint sceneflow.tar --mono-checkpoint depth_anything_v2_vitl.pth
   python -m stereoanywhere_tpu_torch.cli serve --checkpoint ... --port 8008
 
 Checkpoints are the reference's PyTorch files (`.pth` / `.tar`), read
 straight into the port's modules under the reference parameter names.
-Without `--checkpoint` the stereo model gets seeded random weights; without
-`--mono-checkpoint` the pipeline runs stereo-only on zero depth, as the JAX
-CLI does.  On the card both commands serve each input shape from its CUDA
-graph.  Not ported yet, and refused: flax `.msgpack` checkpoints and
-`--shard-rows` (row sharding over several cards).
+Without `--checkpoint` the stereo model gets seeded random weights (`eval`
+first looks for `$SA_CHECKPOINT`, else `sceneflow.tar` in the working
+directory); without `--mono-checkpoint` `infer` and `serve` run stereo-only
+on zero depth and `eval` reads the dataset's precomputed mono depth
+(`--mono-precomputed`), as the JAX CLI does.  On the card `infer` and
+`serve` serve each input shape from its CUDA graph, and `eval` runs its
+programs on graphs too (`eval/programs.py`).  With `--dtype float32` the
+card runs cuDNN's convolutions in TF32 (PyTorch's default,
+`torch.backends.cudnn.allow_tf32`) and the matrix products in f32.  Not
+ported yet, and refused: flax `.msgpack` checkpoints and `--shard-rows`
+(row sharding over several cards).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import time
 
 import torch
 
@@ -58,6 +72,125 @@ def _pipeline(args, two_stage: bool = False):
     stereo = _load_stereo(args.checkpoint, cfg, args.device)
     mono = _load_mono(args.mono_checkpoint, args.mono_encoder, args.device, torch_dtype(args.dtype))
     return StereoAnywherePipeline(stereo, mono, iters=args.iters, device=args.device, two_stage=two_stage)
+
+
+def cmd_eval(args):
+    from stereoanywhere_tpu_torch.data.datasets import fetch_dataset
+    from stereoanywhere_tpu_torch.eval.harness import DAV2_SIZES, Evaluator, eval_preset
+    from stereoanywhere_tpu_torch.eval.programs import EvalPrograms
+
+    preset = eval_preset(args.dataset)
+    iscale = preset["iscale"] if args.iscale is None else args.iscale
+    oscale = preset["oscale"] if args.oscale is None else args.oscale
+    cfg = StereoAnywhereConfig(compute_dtype=args.dtype)
+    ckpt = args.checkpoint
+    if ckpt is None:
+        # a released checkpoint dropped in ($SA_CHECKPOINT, or sceneflow.tar
+        # in the working directory) runs the published-weights eval
+        cand = os.environ.get("SA_CHECKPOINT", "sceneflow.tar")
+        if os.path.exists(cand):
+            print(f"auto-detected checkpoint: {cand}")
+            ckpt = cand
+    stereo = _load_stereo(ckpt, cfg, args.device)
+    mono = _load_mono(args.mono_checkpoint, args.mono_encoder, args.device, torch_dtype(args.dtype))
+    programs = EvalPrograms(stereo, mono, iters=args.iters, dav2_size=DAV2_SIZES.get(args.dataset, (518, 518)),
+                            device=args.device)
+
+    # iscale/oscale run inside the evaluator (nearest image downscale, gt
+    # downscale and /oscale, metrics at the reduced resolution), not through
+    # the readers' scale_factor, which the published tables do not use
+    ds = fetch_dataset(args.dataset, args.datapath, test=True, overfit=args.overfit, mono=args.mono_precomputed)
+    print(f"evaluating {args.dataset}: {len(ds)} pairs")
+    ev = Evaluator(programs.stereo_fn, programs.mono_fn if mono is not None else None, args.dataset,
+                   iscale=iscale, oscale=oscale, save_images_dir=args.save_images)
+    t0 = time.time()
+    if args.tries > 1:
+        # repeatability loop with mean/std reporting (reference test.py:287-392)
+        from stereoanywhere_tpu_torch.eval.report import run_tries
+
+        res = None
+
+        def once():
+            nonlocal res
+            res = ev.run(ds, max_samples=args.max_samples)
+            return res.mean()
+
+        means, stds = run_tries(once, args.tries)
+        dt = time.time() - t0
+        print(json.dumps({k: round(v, 4) for k, v in means.items()}, indent=2))
+        print(json.dumps({f"std:{k}": round(v, 4) for k, v in stds.items()}, indent=2))
+    else:
+        res = ev.run(ds, max_samples=args.max_samples)
+        dt = time.time() - t0
+        means = res.mean()
+        print(json.dumps({k: round(v, 4) for k, v in means.items()}, indent=2))
+    print(f"({len(res.per_sample)} samples in {dt:.1f}s)")
+    if args.csv:
+        res.to_csv(args.csv, {"dataset": args.dataset, "iters": args.iters, "tries": args.tries})
+    _print_published_comparison(args.dataset, means, bool(ckpt))
+    return means
+
+
+# Published zero-shot tables for the released SceneFlow checkpoint (the
+# JAX CLI's copy of the paper's Tables 2-4), printed beside an eval
+PUBLISHED = {
+    "middlebury": {"bad 2.0": 0.0696, "avgerr": 0.94},
+    "middlebury2021": {"bad 2.0": 0.0797, "avgerr": 1.08},
+    "eth3d": {"bad 1.0": 0.0166, "avgerr": 0.24},
+    "kitti2012": {"bad 3.0": 0.0390, "avgerr": 0.83},
+    "kitti2015": {"bad 3.0": 0.0393, "avgerr": 0.97},
+    "booster": {"bad 2.0": 0.0901, "bad 4.0": 0.0540, "bad 6.0": 0.0412,
+                "bad 8.0": 0.0334, "avgerr": 1.21},
+    "layeredflow": {"bad 1.0": 0.8183, "bad 3.0": 0.5766, "bad 5.0": 0.4512,
+                    "avgerr": 11.20},
+    "monotrap": {"depth/absrel": 0.0350, "depth/rmse": 0.06},
+}
+
+
+def _print_published_comparison(dataset: str, means: dict, have_ckpt: bool):
+    pub = PUBLISHED.get(dataset)
+    if not pub:
+        return
+    tag = "" if have_ckpt else "  [random init — comparison meaningless]"
+    print(f"published ({dataset}, SceneFlow ckpt, paper Tables 2-4):{tag}")
+    for k, v in pub.items():
+        got = means.get(k)
+        got_s = f"{got:.4f}" if got is not None else "-"
+        print(f"  {k:14s} paper {v:.4f}   ours {got_s}")
+
+
+def cmd_precompute_mono(args):
+    """Offline DAv2 (reference mono_sceneflow.py:85-106): each view's depth
+    at DAv2's default size, normalised to [0,1], as a 16-bit PNG.  Without
+    `--outdir` the files go where the dataset's reader opens them with
+    `--mono-precomputed <tag>` (the tag is printed); with it, as the JAX
+    CLI writes them: `<outdir>/<index>_<view>_<tag>.png`."""
+    import numpy as np
+
+    from stereoanywhere_tpu_torch.data.datasets import fetch_dataset
+    from stereoanywhere_tpu_torch.data.frame_utils import write_mono16
+    from stereoanywhere_tpu_torch.models.dpt import infer_mono_depth
+
+    mono = _load_mono(args.mono_checkpoint, args.mono_encoder, args.device, torch_dtype(args.dtype))
+    if mono is None:
+        raise SystemExit("precompute-mono: --mono-checkpoint required")
+    ds = fetch_dataset(args.dataset, args.datapath, test=True)
+    tag = f"DAv2_{args.mono_encoder}" if args.mono_encoder != "vitl" else "DAv2"
+    dev = next(mono.parameters()).device
+    for i in range(len(ds)):
+        s = ds[i]
+        targets = ds.mono_paths(i, tag) if args.outdir is None else [
+            os.path.join(args.outdir, f"{i:06d}_{key}_{tag}.png") for key in ("im2", "im3")]
+        for img, out in zip((s["im2"], s["im3"]), targets):
+            with torch.inference_mode():
+                d = infer_mono_depth(mono, torch.from_numpy(img[None]).to(dev)).cpu().numpy()[0, ..., 0]
+            d = (d - d.min()) / max(d.max() - d.min(), 1e-6)
+            os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+            write_mono16(out, d)
+        if i % 50 == 0:
+            print(f"{i}/{len(ds)}")
+    print(f"wrote the mono depth of {len(ds)} pairs: eval reads it with --mono-precomputed {tag}"
+          if args.outdir is None else f"wrote the mono depth of {len(ds)} pairs to {args.outdir}")
 
 
 def cmd_infer(args):
@@ -107,9 +240,39 @@ def main(argv=None):
         sp.add_argument("--checkpoint", default=None)
         sp.add_argument("--mono-checkpoint", default=None)
         sp.add_argument("--mono-encoder", default="vitl")
-        sp.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+        sp.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                        help="compute dtype; float32 on the card runs cuDNN's convolutions in TF32")
         sp.add_argument("--iters", type=int, default=32)
         sp.add_argument("--device", default="cuda", help="cuda (CUDA graphs) or cpu (eager)")
+
+    pe = sub.add_parser("eval", help="zero-shot benchmark evaluation (the reference's test.py protocol)")
+    common(pe)
+    pe.add_argument("--dataset", required=True)
+    pe.add_argument("--datapath", required=True)
+    pe.add_argument("--iscale", type=float, default=None,
+                    help="input downscale; default = the dataset's shipped "
+                    "bundle (booster 4, layeredflow 8, others 1)")
+    pe.add_argument("--oscale", type=float, default=None,
+                    help="output/eval scale; default = the dataset's shipped bundle")
+    pe.add_argument("--overfit", action="store_true")
+    pe.add_argument("--max-samples", type=int, default=None)
+    pe.add_argument("--mono-precomputed", default=None,
+                    help="tag of the precomputed mono files to read (precompute-mono prints it)")
+    pe.add_argument("--tries", type=int, default=1,
+                    help="repeat the whole eval N times, report mean/std")
+    pe.add_argument("--save-images", default=None,
+                    help="dump qualitative PNG grids per sample to this dir")
+    pe.add_argument("--csv", default=None)
+    pe.set_defaults(fn=cmd_eval)
+
+    pm = sub.add_parser("precompute-mono", help="DAv2 depth of every view as 16-bit PNGs")
+    common(pm)
+    pm.add_argument("--dataset", required=True)
+    pm.add_argument("--datapath", required=True)
+    pm.add_argument("--outdir", default=None,
+                    help="write <index>_<view>_<tag>.png here (the JAX CLI's names); "
+                         "default: beside the images, where --mono-precomputed reads them")
+    pm.set_defaults(fn=cmd_precompute_mono)
 
     pi = sub.add_parser("infer", help="file-pair inference -> .npy + colormap PNG")
     common(pi)

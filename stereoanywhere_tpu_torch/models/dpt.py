@@ -20,7 +20,8 @@ from stereoanywhere_tpu_torch.config import MonoConfig
 from stereoanywhere_tpu_torch.device import device_constant, resolve_device
 from stereoanywhere_tpu_torch.models.dinov2 import VIT_CONFIGS, DinoVisionTransformer
 from stereoanywhere_tpu_torch.models.layers import init_weights
-from stereoanywhere_tpu_torch.ops.interp import resize_bilinear_align_corners, resize_bilinear_halfpix
+from stereoanywhere_tpu_torch.ops.interp import (
+    resize_bicubic_halfpix, resize_bilinear_align_corners, resize_bilinear_halfpix)
 
 INTERMEDIATE_LAYER_IDX = {
     "vits": (2, 5, 8, 11),
@@ -160,3 +161,17 @@ def dav2_input_size(h: int, w: int, input_size_width: int = 518, input_size_heig
         return y
 
     return constrain(scale_h * h, input_size_height), constrain(scale_w * w, input_size_width)
+
+
+def infer_mono_depth(model: DepthAnythingV2, image01: torch.Tensor, input_size_width: int = 518,
+                     input_size_height: int = 518) -> torch.Tensor:
+    """The reference's `infer_image` (its `dpt.py:188-238`), as the JAX
+    package's `infer_mono_depth`: (B,H,W,3) in [0,1] -> (B,H,W,1) f32 depth.
+    Bicubic (a=-0.75, half-pixel, no antialias) to `dav2_input_size`,
+    ImageNet normalisation, DAv2 (in its weights' dtype), then half-pixel
+    bilinear back to (H, W)."""
+    _, h, w, _ = image01.shape
+    fh, fw = dav2_input_size(h, w, input_size_width, input_size_height)
+    x = resize_bicubic_halfpix(image01.permute(0, 3, 1, 2), (fh, fw)).permute(0, 2, 3, 1)
+    depth = model(imagenet_normalize(x)).float().permute(0, 3, 1, 2)
+    return resize_bilinear_halfpix(depth, (h, w)).permute(0, 2, 3, 1)

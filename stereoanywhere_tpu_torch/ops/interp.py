@@ -5,10 +5,13 @@ matrices contracted over the trailing spatial axes, exactly as the JAX
 package computes it, so the two agree to float rounding.  The functions act
 on the LAST two (or three) axes: NCHW / NCDHW tensors inside the port.
 
-Three families:
+Four families:
 - align-corners bilinear / trilinear: torch `F.interpolate(...,
   align_corners=True)` semantics, used throughout the stereo branch;
 - half-pixel bilinear without antialiasing: the DPT head's final upsample;
+- half-pixel bicubic with a=-0.75, clamped border taps and no antialiasing
+  (torch `F.interpolate(mode='bicubic')`): DAv2's input resize in
+  `infer_mono_depth`, as the reference's `infer_image` does it;
 - `jax.image.resize` semantics (`resize_jax_image`): half-pixel centres,
   Keys cubic with a=-0.5 (not torch's a=-0.75) or the linear tent, and an
   ANTIALIASED kernel when downsampling.  The serving pipeline resizes with
@@ -58,6 +61,30 @@ def _halfpix_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=None)
+def _bicubic_halfpix_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) half-pixel bicubic (a=-0.75) matrix, border taps clamped
+    to the edge, no antialias (the JAX package's
+    `_interp_matrix_bicubic_halfpix`, its f32 arithmetic in its order)."""
+    src = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * np.float32(in_size / out_size) - np.float32(0.5)
+    i0 = np.floor(src)
+    t = src - i0
+    a = np.float32(-0.75)
+    m = np.zeros((out_size, in_size), np.float32)
+    rows = np.arange(out_size)
+    for k in range(-1, 3):
+        d = np.abs(t - np.float32(k))
+        d2, d3 = d * d, d * d * d
+        w = np.where(
+            d <= 1,
+            (a + 2) * d3 - (a + 3) * d2 + 1,
+            np.where(d < 2, a * d3 - 5 * a * d2 + 8 * a * d - 4 * a, np.float32(0.0)),
+        ).astype(np.float32)
+        idx = np.clip(i0.astype(np.int64) + k, 0, in_size - 1)
+        np.add.at(m, (rows, idx), w)
+    return m
+
+
 def _keys_cubic(x: np.ndarray) -> np.ndarray:
     out = ((1.5 * x - 2.5) * x) * x + 1.0
     out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
@@ -71,11 +98,13 @@ def _triangle(x: np.ndarray) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _jax_image_matrix(in_size: int, out_size: int, method: str) -> np.ndarray:
     """(out, in) weights of `jax.image.resize` along one axis (scale out/in,
-    no translation, antialiased when downsampling)."""
+    no translation, antialiased when downsampling).  The sample positions
+    (i + 0.5) * inv_scale - 0.5 are rounded once, as XLA computes them with
+    a fused multiply-add (rounded twice, they are up to 2e-6 off)."""
     kernel = {"cubic": _keys_cubic, "bilinear": _triangle}[method]
     inv_scale = np.float32(1.0 / (out_size / in_size))
     kernel_scale = np.maximum(inv_scale, np.float32(1.0))
-    sample_f = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    sample_f = ((np.arange(out_size) + 0.5) * np.float64(inv_scale) - 0.5).astype(np.float32)
     x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
     w = kernel(x)  # (in, out)
     total = np.sum(w, axis=0, keepdims=True)
@@ -92,6 +121,7 @@ def _jax_image_matrix(in_size: int, out_size: int, method: str) -> np.ndarray:
 _MATRICES = {
     "align_corners": _align_corners_matrix,
     "halfpix": _halfpix_matrix,
+    "bicubic_halfpix": _bicubic_halfpix_matrix,
     "jax_cubic": lambda i, o: _jax_image_matrix(i, o, "cubic"),
     "jax_bilinear": lambda i, o: _jax_image_matrix(i, o, "bilinear"),
 }
@@ -125,6 +155,13 @@ def resize_bilinear_halfpix(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.T
     (torch `F.interpolate(mode='bilinear', align_corners=False)`), W first as
     the JAX package orders it."""
     return _resize(x, tuple(out_hw), "halfpix", order=(1, 0))
+
+
+def resize_bicubic_halfpix(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Half-pixel bicubic resize of the last two axes, a=-0.75, border taps
+    clamped, no antialiasing (torch `F.interpolate(mode='bicubic',
+    align_corners=False)`), W first as the JAX package orders it."""
+    return _resize(x, tuple(out_hw), "bicubic_halfpix", order=(1, 0))
 
 
 def resize_jax_image(x: torch.Tensor, out_hw: tuple[int, int], method: str) -> torch.Tensor:

@@ -55,24 +55,37 @@ def _copy(out):
 
 class _Program:
     """One input shape's program: `body` (a tensor or a tuple of tensors
-    from device tensors) and, after its first call, its CUDA graph.
+    from device tensors) and, once captured, its CUDA graph.
 
-    The graph reads its static inputs, the parameters, the packed weights
-    (refreshed in place by a load) and the device constants it was handed
-    during the capture, which it holds (`held`), so that the constants'
-    cache may evict them.  `capture_ms` is the capture's host time."""
+    `capture_at=1` (the serving pipeline's): the first call runs the body
+    eagerly (the warm-up) and then captures it; later calls replay.
+    `capture_at=2`: the first call runs the body eagerly only; the second
+    captures and replays, so a key called once never pays a capture.  A
+    capture that fails raises, keeps no graph and warms up again at the
+    next call.  The graph reads its static inputs, the parameters, the
+    packed weights (refreshed in place by a load) and the device constants
+    it was handed during the capture, which it holds (`held`), so that the
+    constants' cache may evict them.  `capture_ms` is the capture's host
+    time."""
 
-    def __init__(self, body: Callable, pool):
-        self.body, self.pool = body, pool
-        self.graph = None
+    def __init__(self, body: Callable, pool, capture_at: int = 1):
+        if capture_at not in (1, 2):
+            raise ValueError(f"capture_at {capture_at}: 1 (with the warm-up) or 2 (at the second call)")
+        self.body, self.pool, self.capture_at = body, pool, capture_at
+        self.graph, self.warmed = None, False
 
     def __call__(self, *inputs):
         if self.graph is None:
-            out = self.body(*inputs)  # the warm-up
+            if not self.warmed:
+                out = self.body(*inputs)  # the warm-up
+                self.warmed = True
+                if self.capture_at == 1:
+                    self._capture(inputs)
+                return out
             self._capture(inputs)
-            return out
-        for static, x in zip(self.inputs, inputs):
-            static.copy_(x)
+        else:
+            for static, x in zip(self.inputs, inputs):
+                static.copy_(x)
         self.graph.replay()
         return _copy(self.output)
 
@@ -80,10 +93,22 @@ class _Program:
         t0 = time.perf_counter()
         static = [x.clone() for x in inputs]
         graph = torch.cuda.CUDAGraph()
-        with holding_constants() as held, torch.cuda.graph(graph, pool=self.pool):
-            output = self.body(*static)
+        try:
+            with holding_constants() as held, torch.cuda.graph(graph, pool=self.pool):
+                output = self.body(*static)
+        except BaseException:
+            self.warmed = False
+            raise
         self.graph, self.inputs, self.output, self.held = graph, static, output, held
         self.capture_ms = 1e3 * (time.perf_counter() - t0)
+
+
+def pool_bytes(pool) -> int:
+    """Device memory held in a graph pool (0 for None, the CPU's)."""
+    if pool is None:
+        return 0
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s["segment_pool_id"]) == tuple(pool))
 
 
 class StereoAnywherePipeline:
@@ -136,10 +161,7 @@ class StereoAnywherePipeline:
 
     def graph_pool_bytes(self) -> int:
         """Device memory that the pipeline's graphs hold (their one pool)."""
-        if self._pool is None:
-            return 0
-        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                   if tuple(s["segment_pool_id"]) == tuple(self._pool))
+        return pool_bytes(self._pool)
 
     def _tensor(self, x) -> torch.Tensor:
         if not torch.is_tensor(x):

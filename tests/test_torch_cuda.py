@@ -749,3 +749,92 @@ def test_a_failed_capture_raises(cuda):
     finally:
         torch.cuda.set_stream(torch.cuda.default_stream())
         torch.cuda.synchronize()
+
+
+# The evaluator's programs (eval/programs.py) on the card: ViT-S DAv2 and the
+# stereo model in bf16, 4 iterations.  A key's first call runs eagerly, its
+# second captures and replays; the replays are held to the eager programs'
+# answers (graphs=False, the same models) with max |delta| = 0.
+
+@pytest.fixture(scope="module")
+def eval_programs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from stereoanywhere_tpu_torch.config import MonoConfig, StereoAnywhereConfig
+    from stereoanywhere_tpu_torch.eval.programs import EvalPrograms
+    from stereoanywhere_tpu_torch.models.dpt import DepthAnythingV2
+    from stereoanywhere_tpu_torch.models.stereoanywhere import StereoAnywhere
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    stereo = StereoAnywhere(StereoAnywhereConfig(compute_dtype="bfloat16"), device="cuda",
+                            generator=torch.Generator().manual_seed(5))
+    mono = DepthAnythingV2(MonoConfig.for_encoder("vits"), device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(6))
+    kw = dict(iters=4, dav2_size=(70, 70), device="cuda")
+    return EvalPrograms(stereo, mono, **kw), EvalPrograms(stereo, mono, graphs=False, **kw)
+
+
+def _eval_inputs(rng, h, w):
+    return [rng.uniform(0, 1, (1, h, w, c)).astype(np.float32) for c in (3, 3, 1, 1)]
+
+
+@pytest.mark.cuda
+def test_eval_stereo_program_replays_equal_eager(eval_programs):
+    graphed, eager = eval_programs
+    rng = np.random.default_rng(20)
+    a, b = _eval_inputs(rng, 64, 128), _eval_inputs(rng, 64, 128)
+    first = graphed.stereo_fn(*a)
+    program = graphed.programs[("stereo", 1, 64, 128, 3)]
+    assert program.graph is None  # the first call only warms up
+    second = graphed.stereo_fn(*a)  # captures, then replays
+    assert program.graph is not None and program.held is not None
+    want = eager.stereo_fn(*a)
+    assert first.shape == want.shape == (1, 64, 128, 1) and np.isfinite(want).all()
+    assert np.abs(second - want).max() == 0 and np.abs(first - want).max() == 0
+    assert np.abs(graphed.stereo_fn(*b) - eager.stereo_fn(*b)).max() == 0
+    assert graphed.pool_bytes() > 0 and eager.pool_bytes() == 0 and not eager.programs
+
+
+@pytest.mark.cuda
+def test_eval_mono_programs_of_two_shapes_replay_equal_eager(eval_programs):
+    graphed, eager = eval_programs
+    rng = np.random.default_rng(21)
+    for h, w in ((40, 60), (45, 67)):
+        x = rng.uniform(0, 1, (2, h, w, 3)).astype(np.float32)
+        got = [graphed.mono_fn(x, "middlebury") for _ in range(3)]
+        want = eager.mono_fn(x, "middlebury")
+        assert want.shape == (2, h, w, 1) and np.isfinite(want).all()
+        assert all(np.abs(g - want).max() == 0 for g in got)
+        assert graphed.programs[("mono", (70, 70), 2, h, w, 3)].graph is not None
+
+
+def _eval_samples(rng, sizes):
+    out = []
+    for h, w in sizes:
+        gt = rng.uniform(1, 30, (h, w, 1)).astype(np.float32)
+        out.append({"im2": rng.uniform(0, 1, (h, w, 3)).astype(np.float32),
+                    "im3": rng.uniform(0, 1, (h, w, 3)).astype(np.float32), "gt": gt,
+                    "validgt": np.ones_like(gt), "maskocc": (rng.uniform(size=(h, w, 1)) > 0.8).astype(np.float32)})
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [3, 1], ids=["buckets", "bucket-grows"])
+def test_evaluator_on_the_card_matches_its_eager_run(eval_programs, cap):
+    """Two tries of `Evaluator.run` on the graphed programs against two on
+    the eager ones: every per-sample metric equal, try by try.  With one
+    bucket allowed, the third sample grows it to a shape no sample had (a
+    new stereo key), which the second try then runs every sample at."""
+    from stereoanywhere_tpu_torch.eval.harness import Evaluator, ShapeBucketer
+
+    graphed, eager = eval_programs
+    samples = _eval_samples(np.random.default_rng(22), [(60, 100), (50, 90), (90, 40)])
+    runs = {}
+    for label, programs in (("graphed", graphed), ("eager", eager)):
+        ev = Evaluator(programs.stereo_fn, programs.mono_fn, "middlebury", bucketer=ShapeBucketer(max_buckets=cap))
+        runs[label] = [ev.run(samples).per_sample for _ in range(2)]
+    assert runs["graphed"] == runs["eager"]
+    grown = ("stereo", 1, 96, 128, 3)  # 64x128 and 96x64 joined
+    assert (grown in graphed.programs and graphed.programs[grown].graph is not None) == (cap == 1)
