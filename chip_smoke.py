@@ -98,8 +98,34 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    1e-3 relative, disparity within 1e-2 px + 1e-4 relative or twice the
    CPU's own move under one rounding of its stereo inputs, the larger.  The kernel
    phase holds K1-K4 at the eval's largest T too.
+7. DAv2 ViT-G (40 blocks, D 1536, 24 heads of 64, the SwiGLU FFN in
+   PyTorch): K1-K3 at its widths and T = 1370, 4552 in bf16 and f32
+   against their plain versions, timed beside the cuBLAS product and SDPA
+   with their bounds and launch geometry (after phase 2's kernels); the
+   ViT-G pipeline (random weights drawn on the card, bf16, 32 iterations)
+   served over HTTP on its graphs like phase 4's (two 512^2 and two
+   375x1242 pairs; wrapper calls K1-K3 40 a forward, K4 0, K5 32; replay
+   = eager; the split, one traced replay and eager request, the pool and
+   the device memory peak), without the two-stage and reload checks;
+   ViT-G at depth 40 in f32 on the card against a CPU copy (after phase
+   5's checks);
+8. training (after phase 6): a synthetic FlyingThings-layout directory
+   (8 pairs at 540x960) and a Middlebury one get their mono depth from
+   `cli precompute-mono` (ViT-L), then `cli train` at the reference
+   configuration (f32, crop 320x640, batch 2, 12 iterations, fnet frozen,
+   gt-as-mono and corruption 0.3) for 20 steps with validation on 2
+   samples every 10 and `latest` every 10, then `--resume latest` to step
+   24: losses finite, fnet unchanged and the other groups moved, no
+   kernel wrapper in a train step and K5 32 a validation sample, the
+   step counter continued, `best` written; s/step, pairs/s, the memory
+   peak and one traced step (busy, idle, device ms by phase); then one
+   train step at 64x128 on the card against the CPU (loss, every
+   gradient, every parameter after the step).
 It prints a `{"kernels": [...]}` line (with each kernel's wrapper calls on
-the eval path, `eval_launches`), the card's name and power limit, and last
+the eval path, `eval_launches`, in the ViT-G pipeline's served requests,
+`vitg_launches`, in the train steps, `train_launches`, and in the
+trainer's validations, `validation_launches`; K1-K3 also their ViT-G
+rows, `vitg_*`), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
 
 --tiles: K9's bf16 body at each scale of both planes with each of its five
@@ -173,6 +199,7 @@ REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # two agree bit for bit
 KERNEL_TOL = {"dual_lookup": 0.0}
 VIT_L = dict(d=1024, heads=16, hidden=4096, depth=24)
+VIT_G = dict(d=1536, heads=24, hidden=None, depth=40)  # hidden None: the SwiGLU FFN runs in PyTorch, not K4
 KITTI = (375, 1242)
 # quarter-resolution planes (H4, W4) of the two requests: 512^2, and
 # 375x1242 padded to 384x1248, then width-aligned to 1280
@@ -291,9 +318,10 @@ def tokens_of(h: int, w: int, size: tuple[int, int] = (518, 518)) -> int:
     return (fh // 14) * (fw // 14) + 1
 
 
-def kernel_cases(dtype, t: int, g: torch.Generator):
-    """(name, wrapper, plain, library call or None, args, flops, output-free input list) at B=2, T=t."""
-    d, hd, heads, hidden = VIT_L["d"], VIT_L["d"] // VIT_L["heads"], VIT_L["heads"], VIT_L["hidden"]
+def kernel_cases(dtype, t: int, g: torch.Generator, vit: dict = VIT_L):
+    """(name, wrapper, plain, library call or None, args, flops, bytes moved, the cuBLAS product or None) at
+    B=2, T=t and the widths of `vit`; K4 only where the model has it (ViT-G's FFN is SwiGLU, in PyTorch)."""
+    d, hd, heads, hidden = vit["d"], vit["d"] // vit["heads"], vit["heads"], vit["hidden"]
     m = 2 * t
     dev = "cuda"
 
@@ -305,11 +333,9 @@ def kernel_cases(dtype, t: int, g: torch.Generator):
     wq, bq = rnd(3 * d, d, scale=d ** -0.5), rnd(3 * d, scale=0.1)
     qkv = rnd(2, t, 3 * d)
     o, wp, bp, gam = rnd(2, t, d), rnd(d, d, scale=d ** -0.5), rnd(d, scale=0.1), rnd(d, scale=0.5)
-    w1, b1 = rnd(hidden, d, scale=d ** -0.5), rnd(hidden, scale=0.1)
-    w2, b2 = rnd(d, hidden, scale=hidden ** -0.5), rnd(d, scale=0.1)
     q, k, v = (qkv.view(2, t, 3, heads, hd)[:, :, i].transpose(1, 2) for i in range(3))
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)  # noqa: E731
-    return [
+    cases = [
         ("ln_dense", vit_dense.ln_dense, vit_dense.ln_dense_ref, None, (x, ln_g, ln_b, wq, bq),
          2.0 * m * d * 3 * d, nbytes(x, ln_g, ln_b, wq, bq) + m * 3 * d * x.element_size(),
          lambda: torch.nn.functional.linear(x, wq, bq)),
@@ -318,10 +344,14 @@ def kernel_cases(dtype, t: int, g: torch.Generator):
         ("dense_scale_residual", vit_dense.dense_scale_residual, vit_dense.dense_scale_residual_ref, None,
          (x, o, wp, bp, gam), 2.0 * m * d * d, nbytes(x, o, wp, bp, gam) + m * d * x.element_size(),
          lambda: torch.nn.functional.linear(o, wp, bp)),
-        ("vit_mlp", vit_mlp.vit_mlp, vit_mlp.vit_mlp_ref, None, (x, ln_g, ln_b, w1, b1, w2, b2),
-         4.0 * m * d * hidden, nbytes(x, ln_g, ln_b, w1, b1, w2, b2) + m * d * x.element_size(),
-         lambda: torch.nn.functional.linear(torch.nn.functional.linear(x, w1, b1), w2, b2)),
     ]
+    if hidden:
+        w1, b1 = rnd(hidden, d, scale=d ** -0.5), rnd(hidden, scale=0.1)
+        w2, b2 = rnd(d, hidden, scale=hidden ** -0.5), rnd(d, scale=0.1)
+        cases.append(("vit_mlp", vit_mlp.vit_mlp, vit_mlp.vit_mlp_ref, None, (x, ln_g, ln_b, w1, b1, w2, b2),
+                      4.0 * m * d * hidden, nbytes(x, ln_g, ln_b, w1, b1, w2, b2) + m * d * x.element_size(),
+                      lambda: torch.nn.functional.linear(torch.nn.functional.linear(x, w1, b1), w2, b2)))
+    return cases
 
 
 def key_tail_qkv(dtype, t: int, g: torch.Generator) -> torch.Tensor:
@@ -391,32 +421,9 @@ def kernel_phase() -> dict:
     records = {}
     for dtype in (torch.bfloat16, torch.float32):
         for t in (t512, tkitti, teval):
-            for name, fn, ref, lib, args, flops, moved, product in kernel_cases(dtype, t, g):
-                got = fn(*args)
-                torch.cuda.synchronize()
-                err, scale = check(f"{name} ({dtype}, T={t})", got, ref(*args), dtype)
-                row = dict(
-                    ms=cuda_ms(lambda: fn(*args)),
-                    device_ms=device_ms(lambda: fn(*args)),
-                    host_ms=host_ms(lambda: fn(*args)),
-                    plain_ms=cuda_ms(lambda: ref(*args)),
-                    library_ms=cuda_ms(lib) if lib is not None else None,
-                    cublas_product_ms=cuda_ms(product) if product is not None else None,
-                    max_abs_err=err,
-                )
-                row["bound_ms"], row["bound_by"] = bound_ms(flops, moved, dtype)
-                term = row["bound_by"]
-                if name == "vit_attention":  # one exponential a score
-                    row["bound_ms"], row["bound_by"], term = attention_bound_ms(
-                        flops, 2 * VIT_L["heads"] * t * t, moved, dtype)
-                print(f"kernel {name} {str(dtype)[6:]} T={t}: max_abs_err {err:.3e} (max|plain| {scale:.3e}, "
-                      f"tol {REL_TOL[dtype]:.0e} rel) ms {fmt(row['ms'], flops)} device_ms "
-                      f"{fmt(row['device_ms'], flops)} host_ms {row['host_ms']:.4f} "
-                      f"plain_ms {row['plain_ms']:.4f} library_ms {fmt(row['library_ms'], none='none')} "
-                      f"cublas_product_ms {fmt(row['cublas_product_ms'], none='none')} bound_ms {row['bound_ms']:.4f} ({term})",
-                      flush=True)
-                if dtype == torch.bfloat16 and t == t512:
-                    records[name] = row
+            rows = vit_kernel_rows(dtype, t, g, VIT_L)
+            if dtype == torch.bfloat16 and t == t512:
+                records = rows
             qkv = key_tail_qkv(dtype, t, g)
             got = vit_attention.vit_attention(qkv, VIT_L["heads"])
             torch.cuda.synchronize()
@@ -430,25 +437,60 @@ def kernel_phase() -> dict:
     return records
 
 
-def launch_geometry(*token_counts: int) -> None:
-    """Grid and waves of the bf16 wgmma launches at the ViT-L requests (B = 2)."""
+def vit_kernel_rows(dtype, t: int, g: torch.Generator, vit: dict, label: str = "") -> dict:
+    """Each ViT kernel of `vit`'s widths at B = 2, T = t: held against its
+    plain version, timed (CUDA events, device, host) beside the plain
+    version, the library call and the cuBLAS product, with its bound.
+    Returns the rows by kernel name."""
+    rows = {}
+    for name, fn, ref, lib, args, flops, moved, product in kernel_cases(dtype, t, g, vit):
+        got = fn(*args)
+        torch.cuda.synchronize()
+        err, scale = check(f"{label}{name} ({dtype}, T={t})", got, ref(*args), dtype)
+        row = dict(
+            ms=cuda_ms(lambda: fn(*args)),
+            device_ms=device_ms(lambda: fn(*args)),
+            host_ms=host_ms(lambda: fn(*args)),
+            plain_ms=cuda_ms(lambda: ref(*args)),
+            library_ms=cuda_ms(lib) if lib is not None else None,
+            cublas_product_ms=cuda_ms(product) if product is not None else None,
+            max_abs_err=err,
+        )
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, moved, dtype)
+        term = row["bound_by"]
+        if name == "vit_attention":  # one exponential a score
+            row["bound_ms"], row["bound_by"], term = attention_bound_ms(flops, 2 * vit["heads"] * t * t, moved, dtype)
+        print(f"kernel {label}{name} {str(dtype)[6:]} T={t}: max_abs_err {err:.3e} (max|plain| {scale:.3e}, "
+              f"tol {REL_TOL[dtype]:.0e} rel) ms {fmt(row['ms'], flops)} device_ms "
+              f"{fmt(row['device_ms'], flops)} host_ms {row['host_ms']:.4f} "
+              f"plain_ms {row['plain_ms']:.4f} library_ms {fmt(row['library_ms'], none='none')} "
+              f"cublas_product_ms {fmt(row['cublas_product_ms'], none='none')} bound_ms {row['bound_ms']:.4f} ({term})",
+              flush=True)
+        rows[name] = row
+    return rows
+
+
+def launch_geometry(*token_counts: int, vit: dict = VIT_L, label: str = "") -> None:
+    """Grid and waves of the bf16 wgmma launches at the requests' token counts (B = 2) and `vit`'s widths."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    d, heads, hidden = VIT_L["d"], VIT_L["heads"], VIT_L["hidden"]
+    d, heads, hidden = vit["d"], vit["heads"], vit["hidden"]
     for t in token_counts:
         a = vit_attention.launch_geometry(2, t, heads, d // heads)
         blocks = a["grid"][0] * a["grid"][1] * a["grid"][2]
-        print(f"geometry vit_attention T={t}: grid {a['grid']} = {blocks} blocks of {a['threads']} threads, "
+        print(f"geometry {label}vit_attention T={t}: grid {a['grid']} = {blocks} blocks of {a['threads']} threads, "
               f"{a['smem']} B shared, {a['blocks_per_sm']} resident an SM: "
               f"{blocks / (sms * a['blocks_per_sm']):.2f} waves on {sms} SMs", flush=True)
         k1 = vit_dense.launch_geometry(2 * t, 3 * d)
-        print(f"geometry ln_dense T={t}: 128x{k1['bn']} tiles, {k1['tiles']} of them on a persistent grid of "
+        print(f"geometry {label}ln_dense T={t}: 128x{k1['bn']} tiles, {k1['tiles']} of them on a persistent grid of "
               f"{k1['blocks']} blocks ({k1['threads']} threads, {k1['smem']} B shared, one an SM): "
               f"{k1['tiles'] / sms:.2f} waves of tiles; LN pass {k1['ln_blocks']} blocks of {k1['ln_threads']}",
               flush=True)
         k3 = vit_dense.residual_geometry(2 * t, d)
-        print(f"geometry dense_scale_residual T={t}: 128x{k3['bn']} tiles, {k3['tiles']} of them on a persistent "
+        print(f"geometry {label}dense_scale_residual T={t}: 128x{k3['bn']} tiles, {k3['tiles']} of them on a persistent "
               f"grid of {k3['blocks']} blocks ({k3['threads']} threads, {k3['smem']} B shared, one an SM): "
               f"{k3['tiles'] / sms:.2f} waves of tiles", flush=True)
+        if not hidden:
+            continue
         m = vit_mlp.launch_geometry(2 * t, d, hidden)
         for i, p in enumerate(m["products"], 1):
             print(f"geometry vit_mlp T={t} product {i}: 128x{p['bn']} tiles, {p['tiles']} of them on a persistent "
@@ -916,6 +958,10 @@ MAIN_PATH = {**{n: VIT_L["depth"] for n in ("ln_dense", "vit_attention", "dense_
              "dual_lookup": ITERS}
 EXPECTED = {
     "default": {n: MAIN_PATH.get(n, 0) for n in COUNTERS},
+    # DAv2 ViT-G: K1-K3 once a block, its SwiGLU FFN in PyTorch (no K4)
+    "vitg": {**{n: 0 for n in COUNTERS}, **{n: VIT_G["depth"] for n in ("ln_dense", "vit_attention",
+                                                                         "dense_scale_residual")},
+             "dual_lookup": ITERS},
     "fused": {**{n: MAIN_PATH.get(n, 0) for n in COUNTERS}, "flow_head": ITERS - 1,
               "motion_encoder": ITERS - 1, "conv_gru": 3 * (ITERS - 1)},
 }
@@ -1297,17 +1343,23 @@ def reload_phase(pipe, label: str, images: dict) -> None:
         same(f"graph {label} {h}x{w} (6) replay after the cache evicted its constants", pipe(*ims), eager(pipe, *ims))
 
 
-def pipeline_phase(label: str, cfg: StereoAnywhereConfig) -> tuple[dict, dict]:
-    """Serve the full-width pipeline over HTTP on its graphs, check the
-    replays against eager, time the warm graph request against the eager
-    one and trace both.  Returns the wrappers' calls over the served
-    requests, counted from 0 just before them, and the launches a replayed
-    request makes, from its trace (None where the profiler saw none)."""
+def pipeline_phase(label: str, cfg: StereoAnywhereConfig, encoder: str = "vitl",
+                   extras: bool = True) -> tuple[dict, dict]:
+    """Serve the full-width pipeline (DAv2 `encoder` + StereoAnywhere) over
+    HTTP on its graphs, check the replays against eager, time the warm
+    graph request against the eager one and trace both; with `extras`, the
+    two-stage and weight-reload checks too.  Returns the wrappers' calls
+    over the served requests, counted from 0 just before them, and the
+    launches a replayed request makes, from its trace (None where the
+    profiler saw none)."""
     torch.backends.cudnn.benchmark = True
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    pipe = build_pipeline(cfg, MonoConfig.for_encoder("vitl"), iters=ITERS, device="cuda", seed=0)
-    print(f"pipeline {label} built in {time.perf_counter() - t0:.1f} s (ViT-L + StereoAnywhere, bf16, iters {ITERS}, "
-          f"graphs {pipe.graphs}, {cfg})", flush=True)
+    pipe = build_pipeline(cfg, MonoConfig.for_encoder(encoder), iters=ITERS, device="cuda", seed=0)
+    mono_bytes = sum(p.numel() * p.element_size() for p in pipe.mono.parameters())
+    print(f"pipeline {label} built in {time.perf_counter() - t0:.1f} s (DAv2 {encoder} "
+          f"({mono_bytes / 1e9:.2f} GB of weights) + StereoAnywhere, bf16, iters {ITERS}, graphs {pipe.graphs}, "
+          f"{cfg})", flush=True)
     if not pipe.graphs:
         raise AssertionError("the pipeline does not take its graphs on the card")
     rec = _Recorder(pipe)
@@ -1357,12 +1409,17 @@ def pipeline_phase(label: str, cfg: StereoAnywhereConfig) -> tuple[dict, dict]:
         if per != [2 * want, 0] * 2:
             raise AssertionError(f"{label}: {n}'s wrapper ran {per} times per request, expected {[2 * want, 0] * 2}")
 
+    print(f"pipeline {label}: device memory peak over the served requests {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"GB (models, activations and the graphs' pool)", flush=True)
     graph_phase(pipe, label, images, np.random.default_rng(1))
     replayed = {}
     for (h, w), (im2, im3) in images.items():
         replayed[h, w] = time_and_trace(pipe, label, h, w, im2, im3)
-    two_stage_phase(pipe, label, images)
-    reload_phase(pipe, label, images)
+    if extras:
+        two_stage_phase(pipe, label, images)
+        reload_phase(pipe, label, images)
+    print(f"pipeline {label}: device memory peak over the phase {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
     return totals, next(iter(replayed.values()))
 
 
@@ -1795,6 +1852,332 @@ def eval_compare_phase() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# DAv2 ViT-G: K1-K3 at D 1536, 24 heads of 64
+
+
+def vitg_kernel_phase() -> dict:
+    """K1-K3 at ViT-G's widths (D 1536, QKV N 4608, 24 heads of 64) and the
+    token counts of the 512^2 and 375x1242 requests, in bf16 and f32,
+    against their plain versions, timed beside the cuBLAS product and SDPA
+    with their bounds; and the bf16 launch geometry.  Returns the bf16 rows
+    at T = 1370."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(20)
+    t512, tkitti = tokens_of(512, 512), tokens_of(*KITTI)
+    records = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for t in (t512, tkitti):
+            rows = vit_kernel_rows(dtype, t, g, VIT_G, "ViT-G ")
+            if dtype == torch.bfloat16 and t == t512:
+                records = rows
+    launch_geometry(t512, tkitti, vit=VIT_G, label="ViT-G ")
+    return records
+
+
+def vitg_compare_phase() -> None:
+    """DAv2 ViT-G (depth 40, random weights drawn on the card) in f32 with
+    TF32 off at 140x140, on the card against a CPU copy of the same
+    weights: the taken layers' tokens and the depth before the head's last
+    ReLU, each within 1e-4 of its magnitude (as ViT-L in compare_phase)."""
+    import copy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    t0 = time.perf_counter()
+    gpu = DepthAnythingV2(MonoConfig.for_encoder("vitg"), device="cuda", generator=torch.Generator().manual_seed(13))
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    cpu = copy.deepcopy(gpu).cpu()
+    x = torch.from_numpy(np.random.default_rng(5).normal(0, 1, (2, 140, 140, 3)).astype(np.float32))
+    layers = INTERMEDIATE_LAYER_IDX["vitg"]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = torch.cat([t for t, _ in cpu.pretrained(x.permute(0, 3, 1, 2), layers)])
+        cpu_s = time.perf_counter() - t0
+        got = torch.cat([t for t, _ in gpu.pretrained(x.cuda().permute(0, 3, 1, 2), layers)]).cpu()
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    print(f"DAv2 ViT-G 140x140 f32 backbone tokens (40 blocks; built on the card in {built:.1f} s, the CPU's "
+          f"backbone {cpu_s:.1f} s), card vs CPU: max_abs_err {err:.3e} (max|cpu| {scale:.3e})", flush=True)
+    if not (scale > 0 and err <= 1e-4 * scale):
+        raise AssertionError(f"the ViT-G backbone on the card disagrees with the CPU: {err} (scale {scale})")
+    for m in (cpu, gpu):
+        m.depth_head.scratch.output_conv2[3] = torch.nn.Identity()
+    want, got = cpu(x), gpu(x.cuda()).cpu()
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    print(f"DAv2 ViT-G 140x140 f32 depth before the last ReLU, card vs CPU: max_abs_err {err:.3e} "
+          f"(max|cpu| {scale:.3e})", flush=True)
+    if not (scale > 0 and err <= 1e-4 * scale):
+        raise AssertionError(f"DAv2 ViT-G on the card disagrees with the CPU: {err} (scale {scale})")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# training: `cli train` at the reference configuration, and one step card vs CPU
+
+TRAIN_PAIRS, TRAIN_SIZE, TRAIN_STEPS, TRAIN_RESUMED = 8, (540, 960), 20, 24
+TRAIN_GROUPS = {"cnet": ("cnet", "context_zqr_convs"),
+                "monoagg": ("hourglass_mono", "classifier_mono", "classifier_monoconf"),
+                "update_block": ("update_block",)}
+TRAIN_PHASES = ("train: forward", "train: loss", "train: backward", "train: optimizer")
+
+
+def write_flyingthings(root: Path, rng, n: int, size: tuple[int, int]) -> Path:
+    """A FlyingThings3D-layout directory (image_clean/{left,right}/*.png,
+    disparity/{left,right}/*.pfm, the left disparity negated as the
+    reader expects) of n synthetic pairs."""
+    h, w = size
+    for side in ("left", "right"):
+        (root / "image_clean" / side).mkdir(parents=True)
+        (root / "disparity" / side).mkdir(parents=True)
+    for i in range(n):
+        left, right, disp = _scene(rng, h, w, 120.0)
+        Image.fromarray(left).save(root / "image_clean" / "left" / f"{i:04d}.png")
+        Image.fromarray(right).save(root / "image_clean" / "right" / f"{i:04d}.png")
+        write_pfm(str(root / "disparity" / "left" / f"{i:04d}.pfm"), -disp)
+        write_pfm(str(root / "disparity" / "right" / f"{i:04d}.pfm"), disp)
+    return root
+
+
+class _TrainRecorder:
+    """Counts the kernel wrappers' calls inside `Trainer.step` and
+    `Trainer.validate`, and stamps each step's start on the host clock."""
+
+    def __init__(self):
+        self.step_launches = {n: 0 for n in COUNTERS}
+        self.validations: list[tuple[dict, dict]] = []  # (wrapper calls, metrics)
+        self.step_starts: list[tuple[int, float]] = []
+        self.validate_starts: list[float] = []
+
+    @contextmanager
+    def installed(self):
+        from stereoanywhere_tpu_torch.train.trainer import Trainer
+
+        step, validate, rec = Trainer.step, Trainer.validate, self
+
+        def counted(fn, sink):
+            def run(trainer, *a, **k):
+                before = {n: f.launches for n, f in COUNTERS.items()}
+                out = fn(trainer, *a, **k)
+                sink({n: f.launches - before[n] for n, f in COUNTERS.items()}, out)
+                return out
+            return run
+
+        def step_sink(calls, _):
+            for n, c in calls.items():
+                rec.step_launches[n] += c
+
+        def stamped(trainer, *a, **k):
+            rec.step_starts.append((trainer.step_count, time.perf_counter()))
+            return counted(step, step_sink)(trainer, *a, **k)
+
+        def validated(trainer, *a, **k):
+            rec.validate_starts.append(time.perf_counter())
+            return counted(validate, lambda calls, out: rec.validations.append((calls, out)))(trainer, *a, **k)
+
+        Trainer.step, Trainer.validate = stamped, validated
+        try:
+            yield self
+        finally:
+            Trainer.step, Trainer.validate = step, validate
+
+
+def traced_train_step(trainer, batch) -> None:
+    """One train step traced: device busy, idle share of its wall time, and
+    device ms by phase (the step's record_function ranges; the backward's
+    kernels, which the autograd engine launches from its own thread, are
+    those between the loss's last kernel and the optimizer's first)."""
+    trainer.step(batch)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = sync_ms(lambda: trainer.step(batch))
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in events if e.name not in TRAIN_PHASES]
+    if not kernels:
+        print("train trace: not measured (the profiler saw no device events)", flush=True)
+        return
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+    spans = defaultdict(list)
+    for e in events:
+        if e.name in TRAIN_PHASES:
+            spans[e.name].append((e.time_range.start, e.time_range.end))
+    parts = {name: kernels_within(kernels, spans[name]) if spans[name] else None for name in TRAIN_PHASES}
+    if spans["train: loss"] and spans["train: optimizer"]:
+        lo, hi = max(e for _, e in spans["train: loss"]), min(s for s, _ in spans["train: optimizer"])
+        parts["train: backward"] = busy_us([(e.time_range.start, e.time_range.end) for e in kernels
+                                            if e.time_range.start >= lo and e.time_range.end <= hi]) / 1e3
+    print(f"train trace, one step: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share {1 - busy / wall:.3f}, "
+          f"{len(kernels)} kernels; device ms by phase: " + ", ".join(
+              f"{n.split(': ')[1]} {fmt(ms)}" for n, ms in parts.items()), flush=True)
+    counts = defaultdict(int)
+    for e in kernels:
+        counts[re.sub(r"[<(].*", "", e.name.replace("(anonymous namespace)::", ""))[-48:]] += 1
+    print("  launches by kernel: " + ", ".join(f"{n} {c}" for n, c in sorted(counts.items(), key=lambda kv: -kv[1])[:12]),
+          flush=True)
+    # the host ops whose launches include a device-to-host copy (each one waits for the device)
+    syncs = defaultdict(int)
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and any("DtoH" in k.name for k in getattr(e, "kernels", [])):
+            parent = e.cpu_parent.name if e.cpu_parent is not None else "-"
+            syncs[f"{parent} > {e.name}"] += 1
+    print("  device-to-host copies by host op (parent > op): " + (", ".join(
+        f"{n} {c}" for n, c in sorted(syncs.items(), key=lambda kv: -kv[1])[:8]) or "none seen"), flush=True)
+
+
+def train_phase() -> tuple[dict, dict]:
+    """`cli train` as a user runs it.  A synthetic FlyingThings-layout
+    directory (8 pairs at 540x960) and a synthetic Middlebury one get their
+    mono depth from `cli precompute-mono` (ViT-L, random weights in a
+    .pth); then `cli train --dataset sceneflow --mono-precomputed DAv2` at
+    the reference configuration (default stereo widths, f32, crop 320x640,
+    batch 2, 12 iterations, fnet frozen, gt-as-mono 0.3, corruption 0.3)
+    for 20 steps, saving every 10 and logging every 5, validating on 2
+    Middlebury samples every 10 (the test-mode forward: K5), then
+    `--resume latest` to step 24.  Asserts finite losses at every log, fnet
+    bit-identical to its seeded start and every other group moved, no
+    kernel wrapper called in a train step and K5 32 times a validation
+    sample, the resumed step counter, the `best` checkpoint.  Returns the
+    wrapper calls of the train steps and of the validations."""
+    from stereoanywhere_tpu_torch.data.augmentor import DisparityAugmentor
+    from stereoanywhere_tpu_torch.data.datasets import fetch_dataset
+    from stereoanywhere_tpu_torch.data.loader import default_collate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as the CLI runs
+    torch.backends.cudnn.benchmark = False
+    tmp = Path(tempfile.mkdtemp(prefix="sa_train_"))
+    try:
+        rng = np.random.default_rng(3)
+        t0 = time.perf_counter()
+        ft = write_flyingthings(tmp / "ft", rng, TRAIN_PAIRS, TRAIN_SIZE)
+        (tmp / "empty").mkdir()
+        path = f"{ft};{tmp / 'empty'};{tmp / 'empty'}"
+        mb = write_eval_dirs(tmp / "val", rng)["middlebury"]
+        dav2 = tmp / "dav2_vitl.pth"
+        torch.save(DepthAnythingV2(MonoConfig.for_encoder("vitl"), device="cpu",
+                                   generator=torch.Generator().manual_seed(11)).state_dict(), dav2)
+        for dataset, root in (("sceneflow", path), ("middlebury", str(mb))):
+            with redirect_stdout(io.StringIO()):
+                cli.main(["precompute-mono", "--dataset", dataset, "--datapath", root, "--mono-checkpoint", str(dav2),
+                          "--dtype", "bfloat16"])
+        print(f"train data: {TRAIN_PAIRS} FlyingThings-layout pairs at {TRAIN_SIZE[0]}x{TRAIN_SIZE[1]} and 3 "
+              f"Middlebury scenes written, their mono depth by cli precompute-mono (ViT-L bf16) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        save = tmp / "run"
+        argv = ["train", "--dataset", "sceneflow", "--datapath", path, "--mono-precomputed", "DAv2",
+                "--device", "cuda", "--dtype", "float32", "--crop-h", "320", "--crop-w", "640", "--batch-size", "2",
+                "--iters", "12", "--freeze", "fnet", "--gt-mono-prob", "0.3", "--corruption-prob", "0.3",
+                "--save-every", "10", "--log-every", "5", "--val-datapath", str(mb), "--val-dataset", "middlebury",
+                "--val-every", "10", "--val-samples", "2", "--savedir", str(save)]
+        rec = _TrainRecorder()
+        torch.cuda.reset_peak_memory_stats()
+        log = io.StringIO()
+        with rec.installed():
+            t0 = time.perf_counter()
+            with redirect_stdout(log):
+                trainer = cli.main(argv + ["--num-steps", str(TRAIN_STEPS)])
+            first_s = time.perf_counter() - t0
+            first_starts = list(rec.step_starts)
+            with redirect_stdout(log):
+                resumed = cli.main(argv + ["--num-steps", str(TRAIN_RESUMED), "--resume", "latest"])
+        peak = torch.cuda.max_memory_allocated()
+        for line in log.getvalue().splitlines():
+            print(f"  cli train: {line}", flush=True)
+        rows = [json.loads(line) for line in open(save / "metrics.jsonl")]
+        losses = [r["loss/total"] for r in rows if "loss/total" in r]
+        if not (len(losses) == TRAIN_STEPS // 5 + (TRAIN_RESUMED - TRAIN_STEPS) // 5 and np.isfinite(losses).all()):
+            raise AssertionError(f"cli train: losses at the logs {losses}")
+        if rec.step_starts[len(first_starts)][0] != TRAIN_STEPS or resumed.step_count != TRAIN_RESUMED:
+            raise AssertionError("the resumed run did not continue from the checkpoint's step")
+        if not (save / "best.pt").exists() or not (save / "final.pt").exists():
+            raise AssertionError("cli train wrote no best or final checkpoint")
+        # fnet frozen: bit-identical to the seeded start; every other group moved
+        start = StereoAnywhere(StereoAnywhereConfig(volume_corruption_prob=0.3), device="cpu",
+                               generator=torch.Generator().manual_seed(1337)).state_dict()
+        now = {k: v.cpu() for k, v in resumed.model.state_dict().items()}
+        if not all(torch.equal(now[k], v) for k, v in start.items() if k.startswith("fnet.")):
+            raise AssertionError("a frozen fnet parameter moved")
+        for group, tops in TRAIN_GROUPS.items():
+            if not any(not torch.equal(now[k], v) for k, v in start.items() if k.split(".")[0] in tops):
+                raise AssertionError(f"no parameter of the unfrozen group {group} moved")
+        if any(rec.step_launches.values()):
+            raise AssertionError(f"a kernel wrapper ran inside a train step: {rec.step_launches}")
+        val_calls = {n: 0 for n in COUNTERS}
+        for calls, metrics in rec.validations:
+            want = {n: 0 for n in COUNTERS} | {"dual_lookup": ITERS * 2}
+            if calls != want:
+                raise AssertionError(f"a validation of 2 samples called {calls}, expected {want}")
+            for n, c in calls.items():
+                val_calls[n] += c
+            print("train validation (2 Middlebury samples, 32 iterations): " + ", ".join(
+                f"{k} {metrics[k]:.4f}" for k in ("avgerr", "rms", "bad 2.0", "is_best")), flush=True)
+        # steady state: steps 16-20 of the first run, between two syncs: the log's float() after step 15
+        # (then step 16 starts) and the log's after step 20 (then the validation starts)
+        sps = (rec.validate_starts[1] - dict(first_starts)[15]) / 5
+        print(f"train {TRAIN_STEPS} + {TRAIN_RESUMED - TRAIN_STEPS} steps (crop 320x640, batch 2, 12 iterations, f32): "
+              f"first run {first_s:.1f} s in cli.main; {sps:.3f} s/step over steps 16-20 ({2 / sps:.2f} pairs/s), "
+              f"host clock between the logs' syncs at steps 15 and 20; device memory peak "
+              f"{peak / 1e9:.2f} GB; losses at the logs {[round(x, 3) for x in losses]}; wrapper calls in the "
+              f"train steps {rec.step_launches}", flush=True)
+        aug = DisparityAugmentor(crop_size=(320, 640), seed=0)
+        ds = fetch_dataset("sceneflow", path, test=False, mono="DAv2", augmentor=aug)
+        traced_train_step(resumed, default_collate([ds[0], ds[1]]))
+        return dict(rec.step_launches), val_calls
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_compare_phase() -> None:
+    """One train step at 64x128, 2 iterations, f32 (TF32 off), corruption
+    and gt-as-mono off, on the card and on the CPU from the same weights:
+    the loss within 1e-4 relative; each parameter's gradient within 4e-2 of
+    its L2 norm and all of them within 5e-3 (`tests/test_torch_train.py`
+    holds the CPU against JAX so: the gather's backward sums with atomics
+    in another order, and a ReLU at f32 round-off from zero can fall
+    either way); each parameter after the step within 2 lr + 1e-6 of its
+    magnitude (Adam's first step moves an entry by about lr, in the sign
+    of its gradient, which an entry near 0 may differ in)."""
+    from stereoanywhere_tpu_torch.config import TrainConfig
+    from stereoanywhere_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    cfg, tc = StereoAnywhereConfig(volume_corruption_prob=0.0), TrainConfig(train_iters=2, gt_mono_prob=0.0)
+    cpu, card = Trainer(cfg, tc, 10, device="cpu"), Trainer(cfg, tc, 10, device="cuda")
+    card.model.load_state_dict(cpu.model.state_dict())
+    lr = card.lr
+    rng = np.random.default_rng(8)
+    b, h, w = 2, 64, 128
+    batch = {"im2_aug": rng.uniform(0, 1, (b, h, w, 3)), "im3_aug": rng.uniform(0, 1, (b, h, w, 3)),
+             "mono2": rng.uniform(0, 1, (b, h, w, 1)), "mono3": rng.uniform(0, 1, (b, h, w, 1)),
+             "gt": rng.uniform(1, 10, (b, h, w, 1)), "validgt": np.ones((b, h, w, 1)),
+             "gt_right": rng.uniform(1, 10, (b, h, w, 1)), "validgt_right": np.ones((b, h, w, 1))}
+    batch = {k: v.astype(np.float32) for k, v in batch.items()}
+    want, got = cpu.step(batch), card.step(batch)
+    torch.cuda.synchronize()
+    lw, lg = float(want["loss/total"]), float(got["loss/total"])
+    num = den = 0.0
+    worst_grad, worst_param = (0.0, ""), (0.0, "")
+    for (name, p), q in zip(cpu.named_trainable, card.params):
+        d, n = (q.grad.cpu() - p.grad).norm().item(), p.grad.norm().item()
+        num, den = num + d * d, den + n * n
+        worst_grad = max(worst_grad, (d / max(n, 1e-30), name))
+        moved = (q.detach().cpu() - p.detach()).abs().max().item()
+        worst_param = max(worst_param, (moved / (2 * lr + 1e-6 * p.detach().abs().max().item()), name))
+    glob = (num / den) ** 0.5
+    print(f"train step card vs CPU (64x128, 2 iterations, f32, TF32 off): loss {lg:.6f} / {lw:.6f} "
+          f"(rel. {abs(lg - lw) / abs(lw):.2e}, tol 1e-4); gradients: worst parameter {worst_grad[1]} at "
+          f"{worst_grad[0]:.2e} of its norm (tol 4e-2), all together {glob:.2e} (tol 5e-3); parameters after the "
+          f"step: worst {worst_param[1]} at {worst_param[0]:.3f} of its bound (2 lr + 1e-6 rel., lr {lr:.2e})",
+          flush=True)
+    if not (abs(lg - lw) <= 1e-4 * abs(lw) and worst_grad[0] <= 4e-2 and glob <= 5e-3 and worst_param[0] <= 1.0):
+        raise AssertionError("the train step on the card disagrees with the CPU")
+
+
 def ab_rows() -> list[dict]:
     """One --ab run over the package this process imported: K1 and K3 at
     both token counts, K7, K8 (with its device ms by launch), K9 at each
@@ -1893,15 +2276,21 @@ def main() -> int:
                 print(f"  {p.stem}: {line.strip()}", flush=True)
     sass_counts(paths)
     records = {**kernel_phase(), **step_kernel_phase()}
+    vitg_records = vitg_kernel_phase()
     capture_phase()
     launches, replayed = pipeline_phase("default", StereoAnywhereConfig(compute_dtype="bfloat16"))
     torch.cuda.empty_cache()
     fused, fused_replayed = pipeline_phase("fused", StereoAnywhereConfig(compute_dtype="bfloat16", fused_level0="on"))
     torch.cuda.empty_cache()
+    vitg, _ = pipeline_phase("vitg", StereoAnywhereConfig(compute_dtype="bfloat16"), encoder="vitg", extras=False)
+    torch.cuda.empty_cache()
     hourglass_phase()
     compare_phase()
+    vitg_compare_phase()
     evaluated = eval_phase()
     eval_compare_phase()
+    trained, validated = train_phase()
+    train_compare_phase()
     if GRAPH_FAILURES:
         raise AssertionError("replays differ from eager: " + "; ".join(GRAPH_FAILURES))
     kernels = []
@@ -1909,15 +2298,22 @@ def main() -> int:
         src, replaces = SOURCE[name]
         # each kernel's wrapper calls on the main path (the default
         # configuration) where it runs there, else on the fused one; beside
-        # them its launches in one replayed 512^2 request, from the trace
+        # them its launches in one replayed 512^2 request, from the trace;
+        # its calls in the ViT-G pipeline's served requests, in the train
+        # steps and in the trainer's validations
         n, per_replay = (launches[name], replayed) if name in MAIN_PATH else (fused[name], fused_replayed)
+        g = vitg_records.get(name)
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces, launches=n,
                             replay_launches=None if per_replay is None else per_replay[name],
-                            eval_launches=evaluated[name],
+                            eval_launches=evaluated[name], vitg_launches=vitg[name], train_launches=trained[name],
+                            validation_launches=validated[name],
                             max_abs_err=row["max_abs_err"], ms=row["ms"], device_ms=row["device_ms"],
                             host_ms=row["host_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"], unfused_ms=row.get("unfused_ms"),
-                            **({"sector_bound_ms": row["sector_bound_ms"]} if "sector_bound_ms" in row else {})))
+                            **({"sector_bound_ms": row["sector_bound_ms"]} if "sector_bound_ms" in row else {}),
+                            **({f"vitg_{k}": g[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                                             "bound_by", "library_ms", "cublas_product_ms")}
+                               if g else {})))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Command-line entry points of the port: `eval`, `precompute-mono`,
-`infer` and `serve`.
+"""Command-line entry points of the port: `eval`, `train`,
+`precompute-mono`, `infer` and `serve`.
 
 The counterparts of the JAX package's `cli.py` subcommands of those names,
 with its flags and a `--device` (default the card; "cpu" runs eagerly
@@ -7,6 +7,8 @@ there):
 
   python -m stereoanywhere_tpu_torch.cli eval --dataset middlebury --datapath ... \\
       --checkpoint sceneflow.tar --mono-checkpoint depth_anything_v2_vitl.pth
+  python -m stereoanywhere_tpu_torch.cli train --dataset sceneflow --datapath "ft;monkaa;driving" \\
+      --mono-precomputed DAv2 --savedir runs/sf
   python -m stereoanywhere_tpu_torch.cli precompute-mono --dataset middlebury --datapath ... \\
       --mono-checkpoint depth_anything_v2_vitl.pth
   python -m stereoanywhere_tpu_torch.cli infer left.png right.png -o out \\
@@ -23,9 +25,12 @@ on zero depth and `eval` reads the dataset's precomputed mono depth
 `serve` serve each input shape from its CUDA graph, and `eval` runs its
 programs on graphs too (`eval/programs.py`).  With `--dtype float32` the
 card runs cuDNN's convolutions in TF32 (PyTorch's default,
-`torch.backends.cudnn.allow_tf32`) and the matrix products in f32.  Not
-ported yet, and refused: flax `.msgpack` checkpoints and `--shard-rows`
-(row sharding over several cards).
+`torch.backends.cudnn.allow_tf32`) and the matrix products in f32.
+`--mono-encoder` takes vits, vitb, vitl or vitg.  `train` starts from
+`--checkpoint` when one is given (the JAX CLI ignores it there) and trains
+in float32 only.  Not ported yet, and refused: flax `.msgpack`
+checkpoints, `--shard-rows` (row sharding over several cards) and `train`'s
+`--data-parallel` above 1 and `--multihost` (ROADMAP item 7, `parallel/`).
 """
 from __future__ import annotations
 
@@ -159,6 +164,78 @@ def _print_published_comparison(dataset: str, means: dict, have_ckpt: bool):
         print(f"  {k:14s} paper {v:.4f}   ours {got_s}")
 
 
+def cmd_train(args):
+    """The JAX CLI's `cmd_train` on one device: the readers with the
+    augmentor, the prefetch loader, `Trainer` steps, logs every
+    `--log-every` steps (the only host syncs), validation with
+    best-checkpoint selection, `latest` every `--save-every` steps and
+    `final` (or `stopped` after SIGTERM / SIGUSR1) at the end.  Returns the
+    trainer."""
+    from stereoanywhere_tpu_torch.config import TrainConfig
+    from stereoanywhere_tpu_torch.data.augmentor import DisparityAugmentor
+    from stereoanywhere_tpu_torch.data.datasets import fetch_dataset
+    from stereoanywhere_tpu_torch.data.loader import PrefetchLoader
+    from stereoanywhere_tpu_torch.train.trainer import Trainer
+
+    device = resolve_device(args.device)
+    tc = TrainConfig(
+        lr=args.lr, batch_size=args.batch_size, epochs=args.epochs,
+        crop_h=args.crop_h, crop_w=args.crop_w, train_iters=args.iters,
+        num_steps=args.num_steps, seed=args.seed, debug_grad=args.debug_grad,
+        gt_mono_prob=args.gt_mono_prob,
+        things_to_freeze=tuple(filter(None, args.freeze.split(","))),
+    )
+    aug = DisparityAugmentor(crop_size=(tc.crop_h, tc.crop_w), seed=tc.seed)
+    ds = fetch_dataset(args.dataset, args.datapath, test=False, mono=args.mono_precomputed, augmentor=aug)
+    steps_per_epoch = max(len(ds) // tc.batch_size, 1)
+    total = tc.num_steps if tc.num_steps > 0 else steps_per_epoch * tc.epochs
+    model_cfg = StereoAnywhereConfig(compute_dtype=args.dtype, volume_corruption_prob=args.corruption_prob)
+    model = _load_stereo(args.checkpoint, model_cfg, device) if args.checkpoint else None
+    trainer = Trainer(model_cfg, tc, total, device=device, checkpoint_dir=args.savedir, model=model)
+    if args.resume:
+        trainer.restore(args.resume)
+
+    logger = None
+    if args.savedir:
+        from stereoanywhere_tpu_torch.utils.logging import MetricLogger, save_run_provenance
+
+        save_run_provenance(args.savedir, {"model": trainer.model.cfg, "train": tc})
+        logger = MetricLogger(args.savedir)
+    val_ds = None
+    if args.val_datapath:
+        val_ds = fetch_dataset(args.val_dataset, args.val_datapath, test=True, mono=args.mono_precomputed)
+
+    step = trainer.step_count
+    print(f"training: {len(ds)} pairs, {total} steps, starting at {step} ({device})")
+    t0 = time.time()
+    with PrefetchLoader(ds, tc.batch_size, total, seed=tc.seed, start_step=step,
+                        num_threads=args.loader_threads) as loader:
+        for step0, batch in loader:
+            if trainer.stop_requested:
+                break
+            logs = trainer.step(batch)
+            step = step0 + 1
+            if step % args.log_every == 0:
+                print(f"step {step}/{total} loss {float(logs['loss/total']):.4f} "
+                      f"epe {float(logs['epe/final']):.3f} ({(time.time() - t0) / args.log_every:.2f}s/step)")
+                t0 = time.time()
+                if logger is not None:
+                    logger.log(step, logs)
+            if val_ds is not None and step % args.val_every == 0:
+                vm = trainer.validate(val_ds, metric=args.val_metric, dataset_name=args.val_dataset,
+                                      max_samples=args.val_samples)
+                print(f"val @ {step}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(vm.items())))
+                if logger is not None:
+                    logger.log(step, {f"val/{k}": v for k, v in vm.items()})
+            if args.savedir and step % args.save_every == 0:
+                trainer.save("latest")
+    if args.savedir:
+        trainer.save("stopped" if trainer.stop_requested else "final")
+    if logger is not None:
+        logger.close()
+    return trainer
+
+
 def cmd_precompute_mono(args):
     """Offline DAv2 (reference mono_sceneflow.py:85-106): each view's depth
     at DAv2's default size, normalised to [0,1], as a 16-bit PNG.  Without
@@ -265,6 +342,43 @@ def main(argv=None):
     pe.add_argument("--csv", default=None)
     pe.set_defaults(fn=cmd_eval)
 
+    pt = sub.add_parser("train", help="train on a dataset (the reference's train.py)")
+    common(pt)
+    pt.add_argument("--dataset", default="sceneflow")
+    pt.add_argument("--datapath", required=True)
+    pt.add_argument("--lr", type=float, default=1e-4)
+    pt.add_argument("--batch-size", type=int, default=2)
+    pt.add_argument("--epochs", type=int, default=3)
+    pt.add_argument("--crop-h", type=int, default=320)
+    pt.add_argument("--crop-w", type=int, default=640)
+    pt.add_argument("--data-parallel", type=int, default=1, help="not ported yet: only 1")
+    pt.add_argument("--num-steps", type=int, default=0,
+                    help="override total steps (0 = epochs * dataset/batch)")
+    pt.add_argument("--seed", type=int, default=1337)
+    pt.add_argument("--debug-grad", action="store_true",
+                    help="per-parameter NaN/Inf gradient census to json")
+    pt.add_argument("--gt-mono-prob", type=float, default=0.3)
+    pt.add_argument("--corruption-prob", type=float, default=0.3,
+                    help="volume-corruption augmentation probability")
+    pt.add_argument("--freeze", default="fnet",
+                    help="comma list of groups to freeze: fnet,cnet,monoagg")
+    pt.add_argument("--val-dataset", default="middlebury")
+    pt.add_argument("--val-datapath", default=None,
+                    help="enable periodic validation + best-checkpoint "
+                         "(val samples need precomputed mono via --mono-precomputed)")
+    pt.add_argument("--val-every", type=int, default=1000)
+    pt.add_argument("--val-metric", default="bad 2.0")
+    pt.add_argument("--val-samples", type=int, default=None)
+    pt.add_argument("--multihost", action="store_true", help="not ported yet")
+    pt.add_argument("--savedir", default=None)
+    pt.add_argument("--resume", default=None, help="a checkpoint tag saved in --savedir: latest, best, ...")
+    pt.add_argument("--log-every", type=int, default=20)
+    pt.add_argument("--save-every", type=int, default=500)
+    pt.add_argument("--mono-precomputed", default=None)
+    pt.add_argument("--loader-threads", type=int, default=4,
+                    help="prefetch worker threads (0 = synchronous loading)")
+    pt.set_defaults(fn=cmd_train, iters=12)
+
     pm = sub.add_parser("precompute-mono", help="DAv2 depth of every view as 16-bit PNGs")
     common(pm)
     pm.add_argument("--dataset", required=True)
@@ -297,6 +411,9 @@ def main(argv=None):
                     "give the reference's PyTorch .pth / .tar file")
     if getattr(args, "shard_rows", 1) != 1:
         p.error("--shard-rows: row sharding over several cards (parallel/spatial.py) is not ported yet")
+    if getattr(args, "data_parallel", 1) != 1 or getattr(args, "multihost", False):
+        p.error("--data-parallel above 1 and --multihost: training over several cards or hosts waits for "
+                "ROADMAP item 7 (parallel/), which is not ported yet")
     return args.fn(args)
 
 

@@ -9,12 +9,12 @@ select the kernels of the refinement loop:
 - `fused_level0` (the rotated refinement loop whose quarter-resolution
   plane runs in the K7, K5, K8 and K9 kernels).
 Their values and defaults are the JAX package's; its CPU-test mode
-`fused_level0="interpret"` has no counterpart and is refused.  Left out:
+`fused_level0="interpret"` has no counterpart and is refused.  The training
+fields (`freeze_bn`, `vol_aug_n_masks`, `volume_corruption_prob`) and
+`TrainConfig` are the JAX package's too.  Left out:
 - the other TPU layout switches (`hourglass_folded`, `hourglass_blocked`,
   `scan_unroll`): each selects between formulations of the same function
   there, and the port has one;
-- the training-only fields (`freeze_bn`, `vol_aug_n_masks`,
-  `volume_corruption_prob`): the port has no training yet;
 - the non-default aggregation variants (`use_aggregate_stereo_vol`,
   `n_additional_hourglass`, `vol_downsample`), which no shipped model uses.
 """
@@ -52,6 +52,14 @@ class StereoAnywhereConfig:
     lrc_th: float = 1.0
     normal_gain: float = 10.0
     init_disparity_zero: bool = False
+
+    # Training: BatchNorm on its running statistics (the reference calls
+    # freeze_bn() every step; the port refuses batch statistics), the
+    # number of masks the volume corruption picks one from, and the
+    # corruption's per-branch probability
+    freeze_bn: bool = True
+    vol_aug_n_masks: int = 4
+    volume_corruption_prob: float = 0.33
 
     # Numerics: "float32" | "bfloat16"
     compute_dtype: str = "float32"
@@ -100,7 +108,7 @@ class StereoAnywhereConfig:
 class MonoConfig:
     """Depth-Anything-V2 branch config."""
 
-    encoder: str = "vitl"  # vits | vitb | vitl
+    encoder: str = "vitl"  # vits | vitb | vitl | vitg
     features: int = 256
     out_channels: tuple[int, ...] = (256, 512, 1024, 1024)
     input_size: int = 518
@@ -111,7 +119,38 @@ class MonoConfig:
             "vits": dict(features=64, out_channels=(48, 96, 192, 384)),
             "vitb": dict(features=128, out_channels=(96, 192, 384, 768)),
             "vitl": dict(features=256, out_channels=(256, 512, 1024, 1024)),
+            "vitg": dict(features=384, out_channels=(1536, 1536, 1536, 1536)),
         }
         if encoder not in cfgs:
             raise ValueError(f"unsupported encoder {encoder!r}; the port has {sorted(cfgs)}")
         return MonoConfig(encoder=encoder, **cfgs[encoder])
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (reference run_train.sh + train.py:209-213),
+    a copy of the JAX package's."""
+
+    lr: float = 1e-4
+    weight_decay: float = 1e-5
+    adam_eps: float = 1e-8
+    epochs: int = 3
+    batch_size: int = 2
+    crop_h: int = 320
+    crop_w: int = 640
+    train_iters: int = 12
+    valid_iters: int = 32
+    gamma: float = 0.9  # per-iteration loss decay, exponent-adjusted (train.py:295)
+    grad_clip: float = 1.0
+    pct_start: float = 0.001
+    gt_mono_prob: float = 0.3
+    use_border_mask: bool = True
+    use_normal_loss_on_coarse: bool = True
+    use_normal_loss: bool = False  # per-iteration normal loss (train.py:302-306)
+    normal_loss_gain: float = 10.0
+    lrc_th: float = 1.0  # confidence-BCE threshold (reference --lrc_th)
+    max_disp: float = 700.0  # gt validity cap (reference run_train.sh MAXDISP=700)
+    things_to_freeze: tuple[str, ...] = ("fnet",)
+    num_steps: int = 0  # 0 = derive from dataset length * epochs
+    seed: int = 1337
+    debug_grad: bool = False  # per-parameter NaN/Inf gradient census (reference --debug_grad)

@@ -15,8 +15,8 @@ Sample dict contract (HWC numpy float32, the reference's
 Path layouts are the reference's (file:line cited per class), so the same
 on-disk datasets work unchanged.  `mono_paths` names the files a reader
 takes its precomputed mono depth from (`cli precompute-mono` writes them).
-The training augmentor (`data/augmentor.py` of the JAX package) is not
-ported yet: a reader given one raises.
+In train mode (`test=False`) images stay in uint8 scale and a reader given
+an augmentor (`data/augmentor.py`) hands it each sample.
 """
 from __future__ import annotations
 
@@ -50,8 +50,7 @@ class BaseDataset:
         top_crop: int = 0,
         augmentor: Callable | None = None,
     ):
-        if augmentor is not None:
-            raise NotImplementedError("the training augmentor is not ported yet: the readers run in test mode")
+        self.augmentor = augmentor
         self.is_test = test
         self.mono = mono
         self.scale_factor = scale_factor
@@ -99,8 +98,11 @@ class BaseDataset:
 
     def _finalize(self, data: Sample, extra: str) -> Sample:
         data = self._rescale(data)
-        data.setdefault("im2_aug", data["im2"])
-        data.setdefault("im3_aug", data["im3"])
+        if self.is_test or self.augmentor is None:
+            data.setdefault("im2_aug", data["im2"])
+            data.setdefault("im3_aug", data["im3"])
+        else:
+            data = self.augmentor(data)
         for k, v in list(data.items()):
             if isinstance(v, np.ndarray):
                 data[k] = np.ascontiguousarray(v, dtype=np.float32)

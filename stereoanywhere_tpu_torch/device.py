@@ -38,7 +38,10 @@ def torch_dtype(name: str) -> torch.dtype:
 
 @functools.lru_cache(maxsize=128)
 def _copied(make: Callable[..., np.ndarray], args: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    return torch.from_numpy(make(*args)).to(device=device, dtype=dtype)
+    # a normal tensor even when made inside inference mode (a served or
+    # evaluated forward): a training forward may save it for backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(make(*args)).to(device=device, dtype=dtype)
 
 
 _holders = threading.local()

@@ -1,15 +1,17 @@
 """DINOv2 vision transformer, the Depth-Anything-V2 backbone, in PyTorch.
 
-Each block runs its whole arithmetic through the four hand-written kernels
-(`ops/cuda/`): K1 LN1 + QKV, K2 attention, K3 proj + LayerScale + residual,
-K4 LN2 + MLP; only the LayerScale-2 residual add stays in PyTorch, as in the
-JAX block.  The modules hold the parameters under the reference names
-(norm1, attn.qkv, attn.proj, ls1, norm2, mlp.fc1, mlp.fc2, ls2) without
-running their own forward.
+Each block runs its attention sub-block through three hand-written kernels
+(`ops/cuda/`): K1 LN1 + QKV, K2 attention, K3 proj + LayerScale + residual.
+The FFN of ViT-S/B/L runs in the fourth, K4 LN2 + MLP, and only the
+LayerScale-2 residual add stays in PyTorch, as in the JAX block.  ViT-G's
+SwiGLU FFN (LN2, `w12`, SiLU gate, `w3`, LayerScale-2) is plain PyTorch:
+the JAX block runs it in XLA, outside every Pallas kernel.  The modules
+hold the parameters under the reference names (norm1, attn.qkv, attn.proj,
+ls1, norm2, mlp.fc1 / mlp.fc2 or mlp.w12 / mlp.w3, ls2) without running
+their own forward.
 
 Shipped config: patch 14, pos-embed grid 37 (518/14), LayerScale on, no
-registers, interpolate_offset 0.1.  ViT-S/B/L; ViT-G's SwiGLU FFN is not
-ported yet.
+registers, interpolate_offset 0.1.  ViT-S/B/L/G.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ VIT_CONFIGS = {
     "vits": dict(embed_dim=384, depth=12, num_heads=6),
     "vitb": dict(embed_dim=768, depth=12, num_heads=12),
     "vitl": dict(embed_dim=1024, depth=24, num_heads=16),
+    "vitg": dict(embed_dim=1536, depth=40, num_heads=24, ffn_layer="swiglufused"),
 }
 
 
@@ -77,6 +80,9 @@ class LayerScale(nn.Module):
         super().__init__()
         self.gamma = nn.Parameter(torch.ones(dim))
 
+    def reset_parameters_from(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.gamma)
+
 
 class Attention(nn.Module):
     def __init__(self, dim: int):
@@ -92,25 +98,48 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
 
-class Block(nn.Module):
-    """Pre-norm transformer block with LayerScale, through K1-K4."""
+class SwiGLUFFN(nn.Module):
+    """ViT-G's fused SwiGLU FFN (reference dinov2_layers SwiGLUFFNFused):
+    hidden = align8(4 D * 2/3), out = w3(silu(x1) * x2) with [x1 | x2] =
+    w12(x)."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, mlp_ratio: float = 4.0):
         super().__init__()
+        hidden = (int(dim * mlp_ratio) * 2 // 3 + 7) // 8 * 8
+        self.w12 = nn.Linear(dim, 2 * hidden)
+        self.w3 = nn.Linear(hidden, dim)
+
+    def forward(self, x):
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(x1) * x2)
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block with LayerScale: the attention sub-block
+    through K1-K3, the FFN through K4 (`ffn_layer="mlp"`) or in plain
+    PyTorch (`"swiglufused"`, ViT-G)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, ffn_layer: str = "mlp"):
+        super().__init__()
+        if ffn_layer not in ("mlp", "swiglufused"):
+            raise ValueError(f"unknown ffn_layer {ffn_layer!r}")
         self.num_heads = num_heads
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim)
         self.ls1 = LayerScale(dim)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio)) if ffn_layer == "mlp" else SwiGLUFFN(dim, mlp_ratio)
         self.ls2 = LayerScale(dim)
 
     def forward(self, x):
         qkv = ln_dense(x, self.norm1.weight, self.norm1.bias, self.attn.qkv.weight, self.attn.qkv.bias)
         o = vit_attention(qkv, self.num_heads)
         x = dense_scale_residual(x, o, self.attn.proj.weight, self.attn.proj.bias, self.ls1.gamma)
-        ffn = vit_mlp(x, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
-                      self.mlp.fc2.weight, self.mlp.fc2.bias)
+        if isinstance(self.mlp, SwiGLUFFN):
+            ffn = self.mlp(self.norm2(x))
+        else:
+            ffn = vit_mlp(x, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
+                          self.mlp.fc2.weight, self.mlp.fc2.bias)
         return x + ffn * self.ls2.gamma
 
 
@@ -126,20 +155,21 @@ class DinoVisionTransformer(nn.Module):
     after the final norm.  Input NCHW with H, W multiples of 14."""
 
     def __init__(self, embed_dim: int = 1024, depth: int = 24, num_heads: int = 16, patch_size: int = 14,
-                 pos_embed_size: int = 37, interpolate_offset: float = 0.1):
+                 pos_embed_size: int = 37, interpolate_offset: float = 0.1, ffn_layer: str = "mlp"):
         super().__init__()
         self.patch_size = patch_size
         self.interpolate_offset = interpolate_offset
         self.patch_embed = PatchEmbed(embed_dim, patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, pos_embed_size ** 2 + 1, embed_dim))
-        self.blocks = nn.ModuleList(Block(embed_dim, num_heads) for _ in range(depth))
+        self.blocks = nn.ModuleList(Block(embed_dim, num_heads, ffn_layer=ffn_layer) for _ in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
     def reset_parameters_from(self, generator: torch.Generator) -> None:
         with torch.no_grad():
-            self.cls_token.copy_(torch.randn(self.cls_token.shape, generator=generator) * 1e-6)
-            self.pos_embed.copy_(torch.randn(self.pos_embed.shape, generator=generator) * 0.02)
+            dev = generator.device
+            self.cls_token.copy_(torch.randn(self.cls_token.shape, generator=generator, device=dev) * 1e-6)
+            self.pos_embed.copy_(torch.randn(self.pos_embed.shape, generator=generator, device=dev) * 0.02)
 
     def forward(self, x: torch.Tensor, take_layers: Sequence[int]):
         b, _, h, w = x.shape

@@ -27,6 +27,7 @@ INTERMEDIATE_LAYER_IDX = {
     "vits": (2, 5, 8, 11),
     "vitb": (2, 5, 8, 11),
     "vitl": (4, 11, 17, 23),
+    "vitg": (9, 19, 29, 39),
 }
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -105,7 +106,14 @@ class DepthAnythingV2(nn.Module):
     """ImageNet-normalized NHWC image (H, W multiples of 14) -> relative
     inverse depth (B, H, W, 1).  `device` defaults to the card and raises
     without one unless "cpu" is asked for; weights are random from
-    `generator` (default seed 0) until loaded."""
+    `generator` (default seed 0) until loaded.
+
+    ViT-S/B/L draw their weights on the CPU from `generator` and are copied
+    to `device` in `dtype`.  ViT-G (1.1 B parameters, 4.4 GB in f32) is
+    built in place: its parameters are allocated on `device` in `dtype` and
+    drawn there, from a generator on that device seeded with `generator`'s
+    seed, so no host copy of the model is made; its weights therefore
+    depend on the device's random number generator."""
 
     def __init__(
         self,
@@ -118,10 +126,20 @@ class DepthAnythingV2(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         vit = VIT_CONFIGS[cfg.encoder]
-        self.pretrained = DinoVisionTransformer(vit["embed_dim"], vit["depth"], vit["num_heads"])
-        self.depth_head = DPTHead(vit["embed_dim"], cfg.features, cfg.out_channels)
-        init_weights(self, generator or torch.Generator().manual_seed(0))
-        self.to(device=dev, dtype=dtype)
+        in_place = cfg.encoder == "vitg"
+        with torch.device("meta" if in_place else "cpu"):
+            self.pretrained = DinoVisionTransformer(vit["embed_dim"], vit["depth"], vit["num_heads"],
+                                                    ffn_layer=vit.get("ffn_layer", "mlp"))
+            self.depth_head = DPTHead(vit["embed_dim"], cfg.features, cfg.out_channels)
+        generator = generator or torch.Generator().manual_seed(0)
+        if in_place:
+            self.to(dtype=dtype).to_empty(device=dev)
+            if generator.device != dev:
+                generator = torch.Generator(device=dev).manual_seed(generator.initial_seed())
+            init_weights(self, generator)
+        else:
+            init_weights(self, generator)
+            self.to(device=dev, dtype=dtype)
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:

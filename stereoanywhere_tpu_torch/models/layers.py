@@ -121,7 +121,8 @@ def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> N
     (stddev / 0.8796... so that the truncated variance is std^2)."""
     s = std / 0.87962566103423978
     with torch.no_grad():
-        t.copy_(torch.nn.init.trunc_normal_(torch.empty_like(t), 0.0, s, -2 * s, 2 * s, generator=generator))
+        draw = torch.empty(t.shape, device=t.device, dtype=torch.float32)  # drawn in f32, then cast to t's dtype
+        t.copy_(torch.nn.init.trunc_normal_(draw, 0.0, s, -2 * s, 2 * s, generator=generator))
 
 
 LECUN = "lecun"

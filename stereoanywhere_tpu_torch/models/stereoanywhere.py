@@ -1,16 +1,28 @@
-"""StereoAnywhere, test-mode forward, in PyTorch.
+"""StereoAnywhere, test-mode and train-mode forward, in PyTorch.
 
 The forward dataflow of the JAX package's `models/stereoanywhere.py` (the
 reference's stereoanywhere.py:95-299) with NHWC tensors at the entry point
-and NCHW inside.  Only the test-mode forward is ported: no training outputs
-and no volume corruption.  Internally flow = coords1 - coords0 =
--disparity; the output is POSITIVE disparity.
+and NCHW inside.  Internally flow = coords1 - coords0 = -disparity; the
+output is POSITIVE disparity.
 
-The refinement loop has the JAX package's two schedules: `iters` plain
-steps, or with `fused_level0="on"` (where the JAX gate would fuse) one
-pre-step without the flow head, `iters - 1` rotated bodies whose
-quarter-resolution plane runs in the K7, K5, K8 and K9 kernels (NHWC), and
-a tail with the flow and mask heads: the same function, reordered.
+Test mode (`test_mode=True`, no autograd) pads wide inputs' width, looks
+both pyramids up through the K5 kernel (`DualPyramid`) and has the JAX
+package's two refinement schedules: `iters` plain steps, or with
+`fused_level0="on"` (where the JAX gate would fuse) one pre-step without
+the flow head, `iters - 1` rotated bodies whose quarter-resolution plane
+runs in the K7, K5, K8 and K9 kernels (NHWC), and a tail with the flow and
+mask heads: the same function, reordered.
+
+Train mode (`test_mode=False`, with autograd) is the JAX package's
+`train=True` forward: no width padding, the plain schedule with every
+iteration's upsampled disparity (`disparities`), the volume corruption
+(`_corrupt_volumes`, drawn from `generator`), and the JAX package's
+stop-gradient points (the confidence classifier's input, the truncation
+mask, the coordinates at each iteration, a corrupted volume).  Its lookups
+are the plain gather (`ops/corr_lookup.py`), differentiable, as the JAX
+package runs its XLA lookups there: no kernel of either package has a
+backward pass.  BatchNorm runs on its running statistics (`freeze_bn`);
+batch statistics are refused.
 
 Inputs: image2, image3 (B,H,W,3) in [0,1]; mde2, mde3 (B,H,W,1) normalized
 mono depth; H and W multiples of 32.
@@ -47,11 +59,47 @@ from stereoanywhere_tpu_torch.ops.volume import (
     estimate_left_disparity,
     estimate_right_confidence,
     estimate_right_disparity,
+    gauss_corr_volume,
     generate_masks,
     handcrafted_mirror_detector,
     masked_volume,
     truncate_corr_volume,
 )
+
+
+CORRUPTIONS = ("stereo roll", "stereo noise", "stereo zero", "mono roll", "mono noise", "mono zero")
+
+
+def draw_corruption(prob: float, n_masks: int, w: int, generator: torch.Generator) -> tuple[int, int, int]:
+    """(branch, mask index, shift) of one volume corruption, from a host
+    generator.  The reference chains `elif random.random() < p` six times,
+    so branch i of CORRUPTIONS fires with probability (1-p)^i p; branch 6
+    (none) takes the rest.  The mask index is uniform over the n_masks
+    depth bins, the shift over [1, w]."""
+    hit = (torch.rand(6, generator=generator) < prob).tolist()
+    branch = hit.index(True) if True in hit else 6
+    mask_index = int(torch.randint(0, n_masks, (), generator=generator))
+    shift = int(torch.randint(1, w + 1, (), generator=generator))
+    return branch, mask_index, shift
+
+
+def corrupt_volume(vol: torch.Tensor, kind: str, mask: torch.Tensor, shift: int, noise: torch.Tensor | None = None):
+    """One volume (B,H,W2,W3) corrupted where mask (B,H,W2,1) is 1, blended
+    in the volume's dtype: "roll" takes the volume rolled by `shift` along
+    W2, "noise" scales it by `noise` (B,H,W2,1) in [0, 1), "zero" by a
+    Gaussian curve peaked at zero disparity, of height max(vol).  Detached,
+    as the reference detaches the blended result."""
+    m = mask.to(vol.dtype)
+    if kind == "roll":
+        out = vol * (1 - m) + torch.roll(vol, shift, dims=2) * m
+    elif kind == "noise":
+        out = vol * (1 - m) + vol * noise.to(vol.dtype) * m
+    elif kind == "zero":
+        curve = gauss_corr_volume(torch.zeros_like(mask[..., 0]).unsqueeze(1), vol.max()).to(vol.dtype)
+        out = vol * (1 - m) + vol * curve * m
+    else:
+        raise ValueError(f"unknown corruption {kind!r}")
+    return out.detach()
 
 
 def _classifier(ch: int) -> nn.Conv3d:
@@ -101,8 +149,44 @@ class StereoAnywhere(nn.Module):
             and fused_step_supported((b, h4, w4, c))
         )
 
-    @torch.no_grad()
-    def forward(self, image2, image3, mde2, mde3, iters: int = 32) -> dict[str, torch.Tensor]:
+    def forward(self, image2, image3, mde2, mde3, iters: int = 32, test_mode: bool = True,
+                generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+        """Test mode runs without autograd and returns `disparity`; train mode
+        runs with it and also returns `disparities` (iters, B, H, W, 1), every
+        iteration's upsampled disparity.  Both return the coarse outputs,
+        scale and shift.  `generator`, a host generator, draws the train
+        mode's volume corruption (when `volume_corruption_prob` > 0)."""
+        if test_mode:
+            with torch.no_grad():
+                return self._forward(image2, image3, mde2, mde3, iters, True, None)
+        if not self.cfg.freeze_bn:
+            raise ValueError("freeze_bn=False: the port's BatchNorm runs on its running statistics only; "
+                             "batch statistics are not ported")
+        if self.cfg.volume_corruption_prob > 0 and generator is None:
+            raise ValueError("the train-mode forward corrupts its volumes: give it a host torch.Generator")
+        return self._forward(image2, image3, mde2, mde3, iters, False, generator)
+
+    def _corrupt_volumes(self, stereo_vol, mono_vol, mde2_low, w4: int, generator: torch.Generator):
+        """The JAX package's `_corrupt_volumes`: one of six corruptions or none,
+        drawn from `generator` (the branch, mask and shift on the host; the
+        noise on the volumes' device from a seed drawn from it, so nothing
+        waits for the device).  Only the corrupted volume is detached."""
+        cfg = self.cfg
+        branch, mask_index, shift = draw_corruption(cfg.volume_corruption_prob, cfg.vol_aug_n_masks, w4, generator)
+        if branch == 6:
+            return stereo_vol, mono_vol
+        which, kind = CORRUPTIONS[branch].split()
+        mask = generate_masks(mde2_low, cfg.vol_aug_n_masks)[:, mask_index, :, :, None]  # (B,H,W2,1)
+        noise = None
+        if kind == "noise":
+            seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+            dev_gen = torch.Generator(device=mask.device).manual_seed(seed)
+            noise = torch.rand(mask.shape, generator=dev_gen, device=mask.device)
+        if which == "stereo":
+            return corrupt_volume(stereo_vol, kind, mask, shift, noise), mono_vol
+        return stereo_vol, corrupt_volume(mono_vol, kind, mask, shift, noise)
+
+    def _forward(self, image2, image3, mde2, mde3, iters: int, test_mode: bool, generator) -> dict[str, torch.Tensor]:
         cfg = self.cfg
         cdt = torch_dtype(cfg.compute_dtype)
         to_nchw = lambda t: t.permute(0, 3, 1, 2).float()  # noqa: E731
@@ -111,7 +195,7 @@ class StereoAnywhere(nn.Module):
 
         # test-mode width alignment (JAX models/stereoanywhere.py:155-169)
         w_orig = None
-        if cfg.width_pad_align and w >= cfg.width_pad_min and w % cfg.width_pad_align != 0:
+        if test_mode and cfg.width_pad_align and w >= cfg.width_pad_min and w % cfg.width_pad_align != 0:
             w_orig = w
             w = -(-w // cfg.width_pad_align) * cfg.width_pad_align
             pad = (0, w - w_orig, 0, 0)
@@ -154,11 +238,12 @@ class StereoAnywhere(nn.Module):
         left_masks = generate_masks(mde2_low, cfg.vol_n_masks)
         right_masks = generate_masks(mde3_low, cfg.vol_n_masks)
 
-        # masked mono volume -> hourglass -> classifiers over (H, W2, W3)
+        # masked mono volume -> hourglass -> classifiers over (H, W2, W3); the
+        # confidence classifier's input is detached (JAX :388, :399)
         agg = self.hourglass_mono(masked_volume(mono_vol, left_masks, right_masks).to(cdt), fmde2, fmde3)
         agg = agg.permute(0, 1, 3, 4, 2)  # (B,C,W3,H,W2) -> (B,C,H,W2,W3)
         agg_disp = conv_in_dtype(self.classifier_mono, agg).float()[:, 0]  # (B,H,W2,W3)
-        agg_conf = conv_in_dtype(self.classifier_monoconf, agg).float()[:, 0]
+        agg_conf = conv_in_dtype(self.classifier_monoconf, agg.detach()).float()[:, 0]
 
         # coarse disparities and confidences
         coarse_dispmono2_low = estimate_left_disparity(agg_disp)
@@ -186,18 +271,27 @@ class StereoAnywhere(nn.Module):
         scaled_mde3 = (scale * mde3 + shift) * f
         lrc_scaled2_low, _ = softlrc(scaled_mde2_low, scaled_mde3_low, cfg.lrc_th)
 
-        # mirror detection and stereo-volume truncation
+        # mirror detection: the stereo volume's truncation mask (detached, JAX :445)
+        trunc_mask = None
         if cfg.use_truncate_vol:
             mirror_conf = handcrafted_mirror_detector(
                 coarse_dispmono2_low, scaled_mde2_low, dispconf2_low, lrc_scaled2_low, conf_th=cfg.mirror_conf_th
             )
-            trunc_mask = truncate_corr_volume(scaled_mde2_low, mirror_conf, None, cfg.mirror_attenuation)
-            stereo_vol = trunc_mask * stereo_vol
+            trunc_mask = truncate_corr_volume(scaled_mde2_low, mirror_conf, None, cfg.mirror_attenuation).detach()
         mono_src = agg_disp if cfg.use_aggregate_mono_vol else mono_vol
-        # contiguous levels: the K5 kernel reads rows of them.  Checked, and
-        # its pointer arrays built, once for all the forward's lookups
-        pyramids = DualPyramid(build_corr_pyramid(stereo_vol.to(cdt).contiguous(), cfg.corr_levels),
-                               build_corr_pyramid(mono_src.to(cdt).contiguous(), cfg.corr_levels))
+        # the train mode's volume corruption, before the truncation (JAX :454-462)
+        if not test_mode and cfg.volume_corruption_prob > 0:
+            stereo_vol, mono_src = self._corrupt_volumes(stereo_vol, mono_src, mde2_low, w4, generator)
+        if trunc_mask is not None:
+            stereo_vol = trunc_mask * stereo_vol
+        stereo_levels = build_corr_pyramid(stereo_vol.to(cdt).contiguous(), cfg.corr_levels)
+        mono_levels = build_corr_pyramid(mono_src.to(cdt).contiguous(), cfg.corr_levels)
+        if test_mode:
+            # contiguous levels: the K5 kernel reads rows of them.  Checked,
+            # and its pointer arrays built, once for all the forward's lookups
+            pyramids = DualPyramid(stereo_levels, mono_levels)
+        else:
+            pyramids = (stereo_levels, mono_levels)  # the plain gather, differentiable
 
         # iterative refinement (the JAX nn.scan, as a loop)
         coords0 = torch.arange(w4, device=image2.device, dtype=torch.float32).view(1, 1, 1, w4).expand(b, 1, h4, w4)
@@ -206,7 +300,17 @@ class StereoAnywhere(nn.Module):
         inp = [tuple(t.to(cdt) for t in triple) for triple in inp]
         lookup_impl = cfg.resolved_lookup_impl
         mask = None
-        if iters >= 1 and self.fused_step_used(net[0].shape):
+        flows, masks = [], []
+        if not test_mode:
+            # every iteration's flow and mask head (JAX emit_outputs)
+            for _ in range(iters):
+                net, coords1, mask = refinement_step(
+                    self.update_block, net, inp, pyramids, coords1, coords0, cfg.corr_radius,
+                    compute_mask=True, lookup_impl=lookup_impl,
+                )
+                flows.append(coords1 - coords0)
+                masks.append(mask.float())
+        elif iters >= 1 and self.fused_step_used(net[0].shape):
             net = update_nets(self.update_block, net, inp, pyramids, coords1, coords0, cfg.corr_radius, lookup_impl)
             if iters > 1:
                 ws = self.update_block.fused_weights(cdt)
@@ -225,19 +329,25 @@ class StereoAnywhere(nn.Module):
                     compute_mask=it == iters - 1, lookup_impl=lookup_impl,
                 )
 
-        flow_up = convex_upsample(coords1 - coords0, mask.float(), cfg.n_downsample)
-        disparity = -flow_up
-        if w_orig is not None:
-            disparity = disparity[..., :w_orig]
         to_nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
-        return {
-            "disparity": to_nhwc(disparity),
-            "coarse_dispmono2": to_nhwc(coarse_dispmono2),
-            "coarse_dispmono3": to_nhwc(coarse_dispmono3),
-            "coarse_scaled_mde2": to_nhwc(scaled_mde2),
-            "coarse_scaled_mde3": to_nhwc(scaled_mde3),
-            "coarse_conf2": to_nhwc(coarse_conf2),
-            "coarse_conf3": to_nhwc(coarse_conf3),
-            "scale": scale,
-            "shift": shift,
-        }
+        result = {}
+        if test_mode:
+            disparity = -convex_upsample(coords1 - coords0, mask.float(), cfg.n_downsample)
+            if w_orig is not None:
+                disparity = disparity[..., :w_orig]
+            result["disparity"] = to_nhwc(disparity)
+        else:
+            ups = convex_upsample(torch.cat(flows), torch.cat(masks), cfg.n_downsample)  # (iters*B,1,H,W)
+            result["disparities"] = -to_nhwc(ups).reshape(iters, b, h, w, 1)
+            result["disparity"] = result["disparities"][-1]
+        result.update(
+            coarse_dispmono2=to_nhwc(coarse_dispmono2),
+            coarse_dispmono3=to_nhwc(coarse_dispmono3),
+            coarse_scaled_mde2=to_nhwc(scaled_mde2),
+            coarse_scaled_mde3=to_nhwc(scaled_mde3),
+            coarse_conf2=to_nhwc(coarse_conf2),
+            coarse_conf3=to_nhwc(coarse_conf3),
+            scale=scale,
+            shift=shift,
+        )
+        return result

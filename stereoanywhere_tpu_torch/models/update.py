@@ -153,12 +153,13 @@ class MultiUpdateBlock(nn.Module):
         return net
 
 
-def update_nets(block: MultiUpdateBlock, net, inp, pyramids: DualPyramid, coords1, coords0, radius: int,
+def update_nets(block: MultiUpdateBlock, net, inp, pyramids, coords1, coords0, radius: int,
                 lookup_impl: str = "window"):
     """Look the stereo and mono pyramids up at coords1 (B,1,H,W) f32, encode
     the motion and run the cascade: a GRU iteration without its flow head
     (the JAX `skip_flow_head` pre-step).  net/inp/pyramids are in the
-    compute dtype."""
+    compute dtype; pyramids is a `DualPyramid` (K5) or, in train mode, the
+    pair of level lists (the differentiable gather)."""
     cdt = net[0].dtype
     # coords1 may be the expanded coords0 (init_disparity_zero): K5 reads
     # its x-coordinates as a contiguous plane
@@ -179,12 +180,14 @@ def refinement_tail(block: MultiUpdateBlock, net, coords1, compute_mask: bool):
     return net, coords1 + delta_x.float(), mask
 
 
-def refinement_step(block: MultiUpdateBlock, net, inp, pyramids: DualPyramid, coords1, coords0, radius: int,
+def refinement_step(block: MultiUpdateBlock, net, inp, pyramids, coords1, coords0, radius: int,
                     compute_mask: bool, lookup_impl: str = "window"):
     """One GRU iteration of the test-mode loop (the JAX `RefinementStep`):
     look both pyramids up at coords1 (B,1,H,W) f32, run the update block, move
     coords1 by the x-delta.  net/inp/pyramids are in the compute dtype.
-    Returns (net, coords1, mask logits or None)."""
+    Returns (net, coords1, mask logits or None).  No gradient flows through
+    the incoming coords1 (JAX `models/update.py:399`)."""
+    coords1 = coords1.detach()
     net = update_nets(block, net, inp, pyramids, coords1, coords0, radius, lookup_impl)
     return refinement_tail(block, net, coords1, compute_mask)
 

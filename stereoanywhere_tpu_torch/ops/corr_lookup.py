@@ -55,12 +55,17 @@ def lookup_corr_pyramid(levels: list[torch.Tensor], coords: torch.Tensor, radius
 
 
 def lookup_corr_pyramid_pair(pyramids, coords: torch.Tensor, radius: int, impl: str = "window"):
-    """Both pyramids of `pyramids` (an `ops.cuda.corr_lookup.DualPyramid`)
-    looked up at coords (B,H,W2) f32: (corr_a, corr_b), each (B,H,W2,
-    levels*(2r+1)).  impl: one of LOOKUP_IMPLS, all the same function: the
-    K5 kernel on a CUDA tensor, its plain version on a CPU one."""
+    """Both pyramids of `pyramids` looked up at coords (B,H,W2) f32:
+    (corr_a, corr_b), each (B,H,W2, levels*(2r+1)).  impl: one of
+    LOOKUP_IMPLS, all the same function.  An `ops.cuda.corr_lookup.DualPyramid`
+    takes the K5 kernel on a CUDA tensor and its plain version on a CPU one;
+    a pair of level lists (the train-mode forward's) takes the gather on
+    any device, which autograd differentiates (K5 has no backward pass)."""
     if impl not in LOOKUP_IMPLS:
         raise ValueError(f"unknown lookup impl {impl!r}; use one of {LOOKUP_IMPLS}")
+    if isinstance(pyramids, tuple):
+        levels_a, levels_b = pyramids
+        return lookup_corr_pyramid(levels_a, coords, radius), lookup_corr_pyramid(levels_b, coords, radius)
     from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import dual_lookup
 
     return dual_lookup(pyramids, coords, radius)

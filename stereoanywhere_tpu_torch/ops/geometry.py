@@ -9,9 +9,10 @@ import torch.nn.functional as F
 
 def joint_minmax_normalize(xs: list[torch.Tensor], eps: float = 1e-4) -> list[torch.Tensor]:
     """Joint per-sample, per-channel min-max normalization over a list of
-    NCHW tensors (min and max over H, W, taken jointly over the list)."""
-    lo = torch.stack([x.amin(dim=(2, 3), keepdim=True) for x in xs]).amin(dim=0)
-    hi = torch.stack([x.amax(dim=(2, 3), keepdim=True) for x in xs]).amax(dim=0)
+    NCHW tensors (min and max over H, W, taken jointly over the list, and
+    detached, as the JAX package stops their gradient)."""
+    lo = torch.stack([x.amin(dim=(2, 3), keepdim=True) for x in xs]).amin(dim=0).detach()
+    hi = torch.stack([x.amax(dim=(2, 3), keepdim=True) for x in xs]).amax(dim=0).detach()
     return [(x - lo) / (hi - lo + eps) for x in xs]
 
 

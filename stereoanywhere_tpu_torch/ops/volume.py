@@ -77,6 +77,17 @@ def estimate_right_confidence(volume: torch.Tensor) -> torch.Tensor:
     return _entropy_confidence(volume, 2).unsqueeze(1)
 
 
+def gauss_corr_volume(disp_left: torch.Tensor, gauss_k: float | torch.Tensor = 10.0,
+                      gauss_c: float = 1.0) -> torch.Tensor:
+    """Synthetic Gaussian volume (B,H,W2,W3) peaked at x3 = x2 - disp;
+    disp_left (B,1,H,W)."""
+    w = disp_left.shape[-1]
+    xs = torch.arange(w, device=disp_left.device, dtype=disp_left.dtype)
+    center = xs.view(1, 1, w, 1) - disp_left[:, 0, :, :, None]  # (B,H,W2,1): the matched x3
+    delta = center - xs.view(1, 1, 1, w)
+    return gauss_k * torch.exp(-(delta ** 2) / (2 * gauss_c ** 2))
+
+
 def truncate_corr_volume(
     disp_left: torch.Tensor,
     conf_left: torch.Tensor,

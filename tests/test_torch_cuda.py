@@ -838,3 +838,116 @@ def test_evaluator_on_the_card_matches_its_eager_run(eval_programs, cap):
     assert runs["graphed"] == runs["eager"]
     grown = ("stereo", 1, 96, 128, 3)  # 64x128 and 96x64 joined
     assert (grown in graphed.programs and graphed.programs[grown].graph is not None) == (cap == 1)
+
+
+# ---------------------------------------------------------------------------
+# ViT-G widths: K1-K3 at D 1536, 24 heads of 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t", [(2, 1370), (2, 4552), (1, 129)], ids=["M2740", "M9104", "M129"])
+def test_vitg_kernels(cuda, dtype, b, t):
+    """K1 (LN + QKV, N 4608, K 1536), K2 (24 heads of 64) and K3 (proj,
+    LayerScale and residual, D 1536) at ViT-G's width and the token counts
+    of the 512^2 and 375x1242 requests, and one row past a 128-row tile."""
+    rng = np.random.default_rng(b * t + 7)
+    d, heads = 1536, 24
+    x = _rand(rng, dtype, b, t, d)
+    g, be = _rand(rng, dtype, d, scale=0.5, shift=1.0), _rand(rng, dtype, d, scale=0.1)
+    w, bias = _rand(rng, dtype, 3 * d, d, scale=d ** -0.5), _rand(rng, dtype, 3 * d, scale=0.1)
+    _check(port_dense.ln_dense, port_dense.ln_dense_ref, (x, g, be, w, bias), dtype)
+    qkv = _rand(rng, dtype, b, t, 3 * d, scale=2.0)
+    _check(port_attn.vit_attention, port_attn.vit_attention_ref, (qkv, heads), dtype)
+    o, wp = _rand(rng, dtype, b, t, d), _rand(rng, dtype, d, d, scale=d ** -0.5)
+    _check(port_dense.dense_scale_residual, port_dense.dense_scale_residual_ref, (x, o, wp, be, g), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vitg_block_matches_the_cpu(cuda, dtype):
+    """One ViT-G block (SwiGLU FFN) on the card (K1-K3, the FFN in PyTorch)
+    against the same block on the CPU (the plain versions): f32 to 1e-4 of
+    the output's scale (TF32 off); bf16 to 2e-2 (bf16 products rounded at
+    other points)."""
+    from stereoanywhere_tpu_torch.models.dinov2 import Block
+
+    torch.manual_seed(0)
+    cpu = Block(1536, 24, ffn_layer="swiglufused").to(getattr(torch, dtype))
+    card = Block(1536, 24, ffn_layer="swiglufused").to(getattr(torch, dtype)).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 301, 1536).to(getattr(torch, dtype))
+    counts = [f.launches for f in (port_dense.ln_dense, port_attn.vit_attention, port_dense.dense_scale_residual,
+                                   port_mlp.vit_mlp)]
+    with torch.no_grad():
+        want, got = cpu(x).float(), card(x.cuda()).float().cpu()
+    after = [f.launches for f in (port_dense.ln_dense, port_attn.vit_attention, port_dense.dense_scale_residual,
+                                  port_mlp.vit_mlp)]
+    assert [a - c for a, c in zip(after, counts)] == [1, 1, 1, 0]
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+
+
+def _train_batch(seed, b=2, h=64, w=128):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, lo=0.0, hi=1.0: rng.uniform(lo, hi, s).astype(np.float32)  # noqa: E731
+    return {"im2_aug": f(b, h, w, 3), "im3_aug": f(b, h, w, 3), "mono2": f(b, h, w, 1), "mono3": f(b, h, w, 1),
+            "gt": f(b, h, w, 1, lo=1, hi=10), "validgt": np.ones((b, h, w, 1), np.float32),
+            "gt_right": f(b, h, w, 1, lo=1, hi=10), "validgt_right": np.ones((b, h, w, 1), np.float32)}
+
+
+@pytest.mark.cuda
+def test_train_step_matches_the_cpu(cuda):
+    """One train step at 64x128, 2 iterations, f32 (TF32 off), corruption
+    and gt-as-mono off, from the same weights on the card and on the CPU:
+    the loss to 1e-4 relative; each parameter's gradient within 4e-2 of
+    its L2 norm and all of them within 5e-3, as `tests/test_torch_train.py`
+    holds the CPU against JAX (the gather's backward sums with atomics in
+    another order, and a ReLU whose input sits at f32 round-off from zero
+    can fall the other way); no kernel wrapper runs in the step."""
+    from stereoanywhere_tpu_torch.config import StereoAnywhereConfig, TrainConfig
+    from stereoanywhere_tpu_torch.train.trainer import Trainer
+
+    cfg, tc = StereoAnywhereConfig(volume_corruption_prob=0.0), TrainConfig(train_iters=2, gt_mono_prob=0.0)
+    cpu, card = Trainer(cfg, tc, 10, device="cpu"), Trainer(cfg, tc, 10, device="cuda")
+    card.model.load_state_dict(cpu.model.state_dict())
+    wrappers = (port_dense.ln_dense, port_attn.vit_attention, port_dense.dense_scale_residual, port_mlp.vit_mlp,
+                port_lookup.dual_lookup, port_step.flow_head, port_step.motion_encoder, port_step.conv_gru)
+    before = [f.launches for f in wrappers]
+    batch = _train_batch(0)
+    want, got = cpu.step(batch), card.step(batch)
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == before
+    np.testing.assert_allclose(float(got["loss/total"]), float(want["loss/total"]), rtol=1e-4)
+    num = den = 0.0
+    for (name, p), q in zip(cpu.named_trainable, card.params):
+        d, n = (q.grad.cpu() - p.grad).norm().item(), p.grad.norm().item()
+        assert d <= 4e-2 * n + 1e-12, name
+        num, den = num + d * d, den + n * n
+    assert num ** 0.5 <= 5e-3 * den ** 0.5
+
+
+@pytest.mark.cuda
+def test_train_restore_keeps_optimizer_steps_on_the_host(cuda, tmp_path):
+    """A restored trainer's AdamW step counts stay on the host, as a fresh
+    one's: on the card each would be read back (a sync) twice a parameter
+    a step.  Its moments are on the card, and the loss of a step after the
+    restore is the saved trainer's (1e-6 relative)."""
+    from stereoanywhere_tpu_torch.config import StereoAnywhereConfig, TrainConfig
+    from stereoanywhere_tpu_torch.train.trainer import Trainer
+
+    cfg, tc = StereoAnywhereConfig(volume_corruption_prob=0.0), TrainConfig(train_iters=1, gt_mono_prob=0.0)
+    a = Trainer(cfg, tc, 10, device="cuda", checkpoint_dir=str(tmp_path))
+    a.step(_train_batch(1, b=1, h=32, w=64))
+    a.save("latest")
+    b = Trainer(cfg, tc, 10, device="cuda", checkpoint_dir=str(tmp_path))
+    b.restore("latest")
+    for st in b.optimizer.state.values():
+        assert not st["step"].is_cuda and st["exp_avg"].is_cuda
+    batch = _train_batch(2, b=1, h=32, w=64)
+    la, lb = a.step(batch), b.step(batch)
+    np.testing.assert_allclose(float(lb["loss/total"]), float(la["loss/total"]), rtol=1e-6)

@@ -223,10 +223,23 @@ def test_layeredflow_and_monotrap_read_no_precomputed_mono(tmp_path):
 
 
 def test_the_training_augmentor_is_refused(tmp_path):
+    """The readers take the training augmentor now (the name is the slice
+    that refused it): in test mode it is never called; in train mode every
+    sample, its images in uint8 scale, goes through it, as in the JAX
+    readers (`tests/test_torch_train_data.py` holds the two bit for bit)."""
     root = str(tmp_path / "data")
     _write("middlebury", root, np.random.default_rng(6))
-    with pytest.raises(NotImplementedError, match="augmentor"):
-        pds.fetch_dataset("middlebury", root, test=False, augmentor=lambda d: d)
+    seen = []
+
+    def augmentor(d):
+        seen.append(float(d["im2"].max()))
+        return {**d, "im2_aug": d["im2"] / 255.0, "im3_aug": d["im3"] / 255.0}
+
+    test_ds = pds.fetch_dataset("middlebury", root, test=True, augmentor=augmentor)
+    assert test_ds[0]["im2"].max() <= 1.0 and not seen
+    train_ds = pds.fetch_dataset("middlebury", root, test=False, augmentor=augmentor)
+    sample = train_ds[0]
+    assert len(seen) == 1 and seen[0] > 1.0 and sample["im2_aug"].max() <= 1.0
 
 
 def test_decoders_match_jax(tmp_path):

@@ -75,3 +75,26 @@ def test_load_raises_on_unused_and_missing_leaves(stereo_variables):
     del missing["params"]["update_block"]["mask_2"]
     with pytest.raises(ValueError, match="left unfilled"):
         load_stereo_variables(model, missing)
+
+
+def test_dav2_vitg_weights_roundtrip(monkeypatch):
+    """ViT-G (at 2 blocks, both packages' configs patched in the test): the
+    SwiGLU FFN's `mlp.w12` / `mlp.w3` and the 384-feature head with its
+    1536-channel projections map onto the JAX tree and back."""
+    from stereoanywhere_tpu.config import MonoConfig as JMono
+    from stereoanywhere_tpu.models import dinov2 as jdino, dpt as jdpt
+    from stereoanywhere_tpu.models.dpt import DepthAnythingV2 as JD
+
+    from stereoanywhere_tpu_torch.config import MonoConfig
+    from stereoanywhere_tpu_torch.models import DepthAnythingV2, dinov2, dpt
+
+    for d, p in ((jdino, jdpt), (dinov2, dpt)):
+        monkeypatch.setitem(d.VIT_CONFIGS, "vitg", {**d.VIT_CONFIGS["vitg"], "depth": 4})
+        monkeypatch.setitem(p.INTERMEDIATE_LAYER_IDX, "vitg", (0, 1, 2, 3))
+    v = jax.eval_shape(lambda: JD(JMono.for_encoder("vitg")).init(jax.random.PRNGKey(0),
+                                                                   np.zeros((1, 28, 28, 3), np.float32)))
+    rng = np.random.default_rng(2)
+    v = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32), v)
+    assert v["params"]["pretrained"]["blocks_0"]["mlp"]["w12"]["kernel"].shape == (1536, 8192)
+    model = load_dav2_variables(DepthAnythingV2(MonoConfig.for_encoder("vitg"), device="cpu"), v)
+    _roundtrip(model, v, convert_dav2_checkpoint)
