@@ -109,7 +109,34 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    the device memory peak), without the two-stage and reload checks;
    ViT-G at depth 40 in f32 on the card against a CPU copy (after phase
    5's checks);
-8. training (after phase 6): a synthetic FlyingThings-layout directory
+8. high-resolution inference (after phase 7's comparison, before phase
+   6's eval): ViT-L and the default stereo widths in bf16, 32 iterations,
+   cuDNN's heuristics, TF32 off.  At 1024^2 the stereo branch over
+   `tools/profile_highres.py`'s paths: direct (the pipeline's stereo
+   stage), tiles2 and tiles4 (sequential row tiles, overlap 64), tiles2
+   batched, and voldown (`vol_downsample=1`), each on its CUDA graph and
+   eagerly: replay = eager (0), the first call and capture, the eager
+   request's memory peak, the graph pool, K5's launches in a replay's
+   trace (asserted), the warm request in interleaved rounds, printed
+   beside the reference's published 0.61 s / 6.31 GB on an A100;
+   batched vs sequential tiles within 1e-3 px at 128x64 (f32, 2
+   iterations, as JAX's own test), and at 1024^2 in f32 with the same
+   weights, within 1e-3 px at 1 iteration and within 10x the move of
+   one ulp of the left view at 1, 2 and 4 (the gaps at 1, 2, 4, 8 and 32
+   iterations printed, bf16 and f32), one tile against the direct path within
+   1e-3 px + 5e-5 rel.; one eager request with the mono stage and 2
+   tiles (wrapper calls counted from 0 and asserted: K1-K4 24, K5 64).
+   Then Booster's 3008x4112: a synthetic pair through the mono
+   stage at Booster's DAv2 size (T = 3997), joint min-max, pad, the
+   booster preset's 8 sequential tiles of 544 rows, the stitch and unpad,
+   eagerly (wrapper calls asserted: K1-K4 24, K5 256; stage latencies,
+   memory peak) and with the tiles on their graph (capture, pool, replay
+   held to the eager result, K5 in a replay's trace), and what `select_tiling_parameters` picks from the free
+   memory; `vol_downsample=1` card vs CPU (f32, 64x128, 2 iterations, 1e-3
+   px + 5e-5 rel.).  The kernel phases also hold K1-K4 at Booster's T =
+   3997 and K5 at a Booster tile's plane (136 x 1040, B = 1 and 2, bit for
+   bit, timed);
+9. training (after phase 6): a synthetic FlyingThings-layout directory
    (8 pairs at 540x960) and a Middlebury one get their mono depth from
    `cli precompute-mono` (ViT-L), then `cli train` at the reference
    configuration (f32, crop 320x640, batch 2, 12 iterations, fnet frozen,
@@ -123,8 +150,10 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    gradient, every parameter after the step).
 It prints a `{"kernels": [...]}` line (with each kernel's wrapper calls on
 the eval path, `eval_launches`, in the ViT-G pipeline's served requests,
-`vitg_launches`, in the train steps, `train_launches`, and in the
-trainer's validations, `validation_launches`; K1-K3 also their ViT-G
+`vitg_launches`, in the train steps, `train_launches`, in the
+trainer's validations, `validation_launches`, in the 1024^2 request with
+the mono stage and 2 tiles, `highres_launches`, and in the Booster
+request, `booster_launches`; K1-K3 also their ViT-G
 rows, `vitg_*`), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
 
@@ -148,6 +177,7 @@ from __future__ import annotations
 
 import bisect
 import ctypes
+import gc
 import io
 import json
 import re
@@ -183,6 +213,8 @@ from stereoanywhere_tpu_torch.models.update import ConvGRU, FlowHead, MotionEnco
 from stereoanywhere_tpu_torch.ops import step_fused as sf
 from stereoanywhere_tpu_torch.ops.interp import resize_jax_image
 from stereoanywhere_tpu_torch.ops.cuda import build, corr_lookup, step_fused, vit_attention, vit_dense, vit_mlp
+from stereoanywhere_tpu_torch.parallel.presets import get_preset_for_dataset, select_tiling_parameters
+from stereoanywhere_tpu_torch.parallel.tiles import TileParallelInference, plan_row_tiles
 from stereoanywhere_tpu_torch.serve.pipeline import (
     StereoAnywherePipeline, build_pipeline, infer_remote, make_http_server)
 
@@ -247,13 +279,14 @@ def device_profile(fn, iters: int = 20, warmup: int = 3) -> tuple[float, dict] |
     back to back: the busy time (union of the device's kernel intervals,
     so the gaps while the host prepares the next call do not count) and
     each kernel name's summed duration, both in ms over iters.  None if no
-    try of three saw a whole trace: the profiler now and then returns no
+    try of six saw a whole trace: the profiler now and then returns no
     device events, or drops some (a call launches the same kernels each
     time, so their count must be a multiple of iters)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    seen = []
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -261,8 +294,12 @@ def device_profile(fn, iters: int = 20, warmup: int = 3) -> tuple[float, dict] |
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if events and len(events) % iters == 0:
             break
+        seen.append(len(events))
     else:
+        print(f"  device_profile: no whole trace in 6 tries (device events a try: {seen}, {iters} calls)", flush=True)
         return None
+    if seen:
+        print(f"  device_profile: a whole trace at try {len(seen) + 1} (the earlier kept {seen} events)", flush=True)
     by_name = defaultdict(float)
     for e in events:
         by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / iters
@@ -418,9 +455,11 @@ def kernel_phase() -> dict:
     t512, tkitti = tokens_of(512, 512), tokens_of(*KITTI)
     # the eval's largest: Middlebury's scenes at its DAv2 size
     teval = max(tokens_of(h, w, harness.DAV2_SIZES["middlebury"]) for h, w in EVAL_SCENES["middlebury"])
+    # Booster's 3008 x 4112 at its DAv2 size (1036, 756): 54 x 74 patches and the class token
+    tbooster = tokens_of(*BOOSTER, harness.DAV2_SIZES["booster"])
     records = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for t in (t512, tkitti, teval):
+        for t in (t512, tkitti, teval, tbooster):
             rows = vit_kernel_rows(dtype, t, g, VIT_L)
             if dtype == torch.bfloat16 and t == t512:
                 records = rows
@@ -433,7 +472,7 @@ def kernel_phase() -> dict:
                   f"max_abs_err {err:.3e} (max|plain| {scale:.3e}, tol {REL_TOL[dtype]:.0e} rel)", flush=True)
     rate, how = exp_rate()
     print(f"SFU exp2 rate {rate / 1e12:.2f} T/s ({how})", flush=True)
-    launch_geometry(t512, tkitti, teval)
+    launch_geometry(t512, tkitti, teval, tbooster)
     return records
 
 
@@ -888,7 +927,41 @@ def step_kernel_phase() -> dict:
                             records[key] = row
     records.pop("gru_fused (K6 interface)")
     step_geometry()
+    booster_lookup_rows()
     return records
+
+
+def booster_lookup_rows() -> None:
+    """K5 at a Booster tile's quarter-resolution plane: 544 rows of 4112
+    padded to 4128 and width-aligned to 4160, so 136 x 1040 (level widths
+    1040 / 520 / 260 / 130), B = 1 (a sequential tile) and 2, both dtypes,
+    coordinates over the whole row and past both ends: held to the plain
+    gather bit for bit, timed with its window bound."""
+    h4, w4 = 136, 1040
+    wls = [w4 // 2 ** i for i in range(4)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in (1, 2):
+            g = torch.Generator(device="cuda").manual_seed(50 + b)
+            la, lb = ([torch.randn((b, h4, w4, wl), generator=g, device="cuda").to(dtype) for wl in wls]
+                      for _ in range(2))
+            xs = torch.arange(w4, device="cuda", dtype=torch.float32)
+            c = xs - torch.rand((b, h4, w4), generator=g, device="cuda") * (w4 / 8) + 2.0
+            c[0, 0, :4] = torch.tensor([-1e4, 1e4, -0.5, w4 - 0.5])
+            args = (corr_lookup.DualPyramid(la, lb), c, 4)
+            got = corr_lookup.dual_lookup(*args)
+            torch.cuda.synchronize()
+            pairs = zip(got, corr_lookup.dual_lookup_ref(*args))
+            err = max(check(f"dual_lookup booster plane {dtype} B={b}", x, y, dtype, 0.0)[0] for x, y in pairs)
+            es = torch.finfo(dtype).bits // 8
+            m4 = b * h4 * w4
+            flops, moved = 2 * m4 * 4 * 9 * 4.0, _window_bytes(c, wls, 4, es) + nbytes(c) + 2 * m4 * 36 * es
+            bound, by = bound_ms(flops, moved, torch.float32)
+            print(f"kernel dual_lookup {str(dtype)[6:]} booster tile plane {h4}x{w4} B={b}: max_abs_err {err:.3e} "
+                  f"(tol 0) ms {cuda_ms(lambda: corr_lookup.dual_lookup(*args)):.4f} device_ms "
+                  f"{fmt(device_ms(lambda: corr_lookup.dual_lookup(*args)))} plain_ms "
+                  f"{cuda_ms(lambda: corr_lookup.dual_lookup_ref(*args)):.4f} bound_ms {bound:.4f} ({by}; "
+                  f"{moved / 1e6:.2f} MB)", flush=True)
+            del la, lb, args, got
 
 
 def capture_phase() -> None:
@@ -1136,13 +1209,18 @@ def kernels_within(kernels, spans) -> float:
     return busy_us(inside) / 1e3
 
 
-def eager(pipe, *args):
-    """One eager call of the pipeline (kernel by kernel), graphs back on after."""
-    pipe.graphs = False
+def eagerly(owner, fn):
+    """fn() with owner's graphs off (kernel by kernel), on again after."""
+    owner.graphs = False
     try:
-        return pipe(*args)
+        return fn()
     finally:
-        pipe.graphs = True
+        owner.graphs = True
+
+
+def eager(pipe, *args):
+    """One eager call of the pipeline."""
+    return eagerly(pipe, lambda: pipe(*args))
 
 
 def traced(fn) -> tuple:
@@ -1733,7 +1811,7 @@ def eval_phase() -> dict:
                         f"{k[0]} {k[-3]}x{k[-2]}"
                         + (f" (T {tokens_of(k[-3], k[-2], size)})" if k[0] == "mono" else "")
                         + f": capture {p.programs[k].capture_ms:.0f} ms" for k in keys)
-                        + f"; pool {p.pool_bytes() / 2 ** 30:.2f} GiB", flush=True)
+                        + f"; pool {p.graph_pool_bytes() / 2 ** 30:.2f} GiB", flush=True)
                     stereo_keys = sorted({k[-3:-1] for k in keys if k[0] == "stereo"})
                     want_keys = sorted(set(rec.evaluator.bucketer.buckets))
                     if stereo_keys != want_keys or not all(p.programs[k].graph is not None for k in keys):
@@ -1913,6 +1991,317 @@ def vitg_compare_phase() -> None:
         raise AssertionError(f"DAv2 ViT-G on the card disagrees with the CPU: {err} (scale {scale})")
     del gpu, cpu
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# high-resolution inference on one card: row tiles and vol_downsample at
+# 1024^2 (the paths of tools/profile_highres.py), and Booster's full
+# 3008 x 4112 through the mono stage and the booster preset's 8 row tiles
+
+HIGHRES = (1024, 1024)
+BOOSTER = (3008, 4112)
+HIGHRES_ROUNDS, BOOSTER_ROUNDS = 5, 2
+# checks that fail the run at the end of the phase, so that one call shows them all
+HIGHRES_FAILURES: list[str] = []
+A100_REFERENCE = ("the reference's published figure (paper Table 7, one A100, 1024x1024): stereo branch 0.61 s "
+                  "(0.63 s with DAv2), peak 6.31 GB")
+
+
+def k5_in_a_replay(fn) -> int | None:
+    """K5's launches in one traced call of fn, read from the kernels' names
+    (the trace that kept the most kernels of three); None if the profiler
+    saw no device events."""
+    tries = [traced(fn) for _ in range(3)]
+    _, kernels, _ = max(tries, key=lambda t: len(t[1]))
+    return trace_launches(e.name for e in kernels)["dual_lookup"] if kernels else None
+
+
+def mono_and_lookup_calls(k5: int) -> dict:
+    """The wrapper calls of a request with ViT-L's mono stage (K1-K4 once a
+    block) and k5 lookups."""
+    return {**{n: 0 for n in COUNTERS}, **{n: VIT_L["depth"] for n in ("ln_dense", "vit_attention",
+                                                                      "dense_scale_residual", "vit_mlp")},
+            "dual_lookup": k5}
+
+
+def counted(fn):
+    """(fn(), each wrapper's calls during it), the counts set to 0 just
+    before and read just after."""
+    for f in COUNTERS.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: f.launches for n, f in COUNTERS.items()}
+
+
+def highres_phase() -> tuple[dict, dict]:
+    """The high-resolution paths, ViT-L and the default stereo widths in
+    bf16, 32 iterations, seeded random weights, cuDNN's heuristics, TF32
+    off.  Returns the wrappers' calls in one eager 1024^2 request (the mono
+    stage, then 2 sequential row tiles) and in one Booster request."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.empty_cache()
+    cfg = StereoAnywhereConfig(compute_dtype="bfloat16")
+    full = build_pipeline(cfg, MonoConfig.for_encoder("vitl"), iters=ITERS, device="cuda", seed=0)
+    stereo, mono = full.stereo, full.mono
+    voldown = StereoAnywhere(StereoAnywhereConfig(compute_dtype="bfloat16", vol_downsample=1), device="cuda")
+    voldown.load_state_dict(stereo.state_dict())
+    print(f"highres: {card_line()}; ViT-L + StereoAnywhere bf16, iters {ITERS}, cuDNN heuristics, TF32 off; "
+          f"beside {A100_REFERENCE}", flush=True)
+    launches = highres_1024(full, voldown)
+    # the 1024^2 programs' graphs live in reference cycles (a program's body
+    # refers to its owner): collected here, so that their pools go
+    del voldown
+    gc.collect()
+    torch.cuda.empty_cache()
+    booster = booster_request(stereo, mono)
+    del full, stereo, mono
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"highres: device memory reserved after the phase, its graphs dropped: {torch.cuda.memory_reserved() / 1e9:.2f} "
+          "GB", flush=True)
+    voldown_compare()
+    if HIGHRES_FAILURES:
+        raise AssertionError("high-resolution checks failed: " + "; ".join(HIGHRES_FAILURES))
+    return launches, booster
+
+
+def highres_1024(full, voldown) -> dict:
+    """tools/profile_highres.py's paths at 1024^2 on the stereo branch:
+    direct (the pipeline's stereo stage), tiles2 and tiles4 (sequential row
+    tiles, overlap 64), tiles2 batched, and voldown (vol_downsample=1); each
+    on its graph and eagerly.  Checks: replay = eager (0) on every path,
+    batched vs sequential tiles (`batched_vs_sequential`), one tile against
+    the direct path within 1e-3 px + 5e-5 rel.  Returns the wrappers' calls of one
+    eager request with the mono stage and 2 sequential tiles."""
+    h, w = HIGHRES
+    rng = np.random.default_rng(40)
+    im2, im3 = (torch.from_numpy(rng.uniform(0, 1, (1, h, w, 3)).astype(np.float32)).cuda() for _ in range(2))
+    mde2, mde3 = (torch.from_numpy(rng.uniform(0, 1, (1, h, w, 1)).astype(np.float32)).cuda() for _ in range(2))
+    stereo = full.stereo
+    pipes = {"direct": StereoAnywherePipeline(stereo, None, ITERS, device="cuda"),
+             "voldown": StereoAnywherePipeline(voldown, None, ITERS, device="cuda")}
+    tiles = {"tiles2": TileParallelInference(stereo, 2, 64, ITERS, sequential=True, device="cuda"),
+             "tiles4": TileParallelInference(stereo, 4, 64, ITERS, sequential=True, device="cuda"),
+             "tiles2 batched": TileParallelInference(stereo, 2, 64, ITERS, sequential=False, device="cuda")}
+    paths = {}  # name -> (owner, the request, K5 launches a request)
+    for name, p in pipes.items():
+        paths[name] = (p, lambda p=p: p(im2, im3, mde2, mde3), ITERS)
+    for name, tp in tiles.items():
+        n = tp.n_tiles if tp.sequential else 1
+        paths[name] = (tp, lambda tp=tp: tp.stereo_stage(im2, im3, mde2, mde3), ITERS * n)
+    for name, tp in tiles.items():
+        plan = plan_row_tiles(h, tp.n_tiles, tp.overlap)
+        print(f"highres {name}: tile_h {plan.tile_h}, starts {plan.starts}, overlap {plan.overlap}; a tile's plane "
+              f"{plan.tile_h // 4} x {w // 4}", flush=True)
+
+    outputs = {}
+    for name, (owner, request, k5) in paths.items():
+        torch.cuda.reset_peak_memory_stats()
+        first = sync_ms(request)  # warm-up, capture, replay
+        program = owner._build(1, h, w) if name in pipes else owner._build(plan_row_tiles(h, owner.n_tiles,
+                                                                                          owner.overlap), w)
+        got = request()
+        want = eagerly(owner, request)
+        outputs[name] = want
+        same(f"highres {name} replay", got, want)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        eagerly(owner, request)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        replayed = k5_in_a_replay(request)
+        print(f"highres {name} {h}x{w}: first call {first:.1f} ms (capture {program.capture_ms:.0f} ms); eager "
+              f"request's device memory peak {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above what was "
+              f"resident, {base / 1e9:.2f} GB); graph pool {owner.graph_pool_bytes() / 1e9:.2f} GB; K5 in a "
+              f"replay's trace {replayed if replayed is not None else 'not measured'} (expected {k5})", flush=True)
+        if replayed is not None and replayed != k5:
+            raise AssertionError(f"highres {name}: the replay launched K5 {replayed} times, expected {k5}")
+        print(f"  disparity range [{want.min().item():.3f}, {want.max().item():.3f}] px", flush=True)
+        if tuple(want.shape) != (1, h, w, 1) or not torch.isfinite(want).all():
+            raise AssertionError(f"highres {name}: bad disparity {tuple(want.shape)}")
+
+    times = {f"{name} {mode}": [] for name in paths for mode in ("graph", "eager")}
+    for _ in range(HIGHRES_ROUNDS):
+        for name, (owner, request, _) in paths.items():
+            times[f"{name} graph"].append(sync_ms(request))
+            times[f"{name} eager"].append(sync_ms(lambda: eagerly(owner, request)))
+    print(f"highres {h}x{w} stereo branch, warm request ms, median [min-max] of {HIGHRES_ROUNDS} interleaved "
+          "rounds: " + "; ".join(f"{k} {np.median(v):.1f} [{min(v):.1f}-{max(v):.1f}]" for k, v in times.items()),
+          flush=True)
+
+    # JAX's own check of the two modes (tests/test_parallel.py): f32, 2
+    # iterations, (1, 128, 64), 2 tiles of 96 rows, 1e-3 px; then at 1024^2
+    small = StereoAnywhere(StereoAnywhereConfig(), device="cuda", generator=torch.Generator().manual_seed(44))
+    xs = [torch.from_numpy(rng.uniform(0, 1, (1, 128, 64, c)).astype(np.float32)).cuda() for c in (3, 3, 1, 1)]
+    out = [TileParallelInference(small, 2, 32, 2, sequential=s, device="cuda", graphs=False).infer(*xs)
+           for s in (False, True)]
+    err = (out[0] - out[1]).abs().max().item()
+    print(f"highres tiles2 batched vs sequential, f32, 2 iterations, 128x64: max |delta| {err:.3e} px "
+          f"(max {out[1].abs().max().item():.1f} px; tol 1e-3)", flush=True)
+    if not err <= 1e-3:
+        HIGHRES_FAILURES.append(f"batched and sequential tiles disagree by {err} px (f32, 2 iterations, 128x64)")
+    batched_vs_sequential(stereo, (im2, im3, mde2, mde3))
+    one = TileParallelInference(stereo, 1, 0, ITERS, device="cuda", graphs=False)
+    got = one.stereo_stage(im2, im3, mde2, mde3)
+    want = outputs["direct"]
+    err = (got - want).abs().max().item()
+    excess = ((got - want).abs() - (1e-3 + 5e-5 * want.abs())).max().item()
+    print(f"highres one tile vs direct: max |delta| {err:.3e} px (tol 1e-3 px + 5e-5 rel.)", flush=True)
+    if excess > 0:
+        HIGHRES_FAILURES.append(f"one tile disagrees with the direct path by {err} px")
+
+    # the slice's path at 1024^2, counted: the mono stage, then 2 sequential tiles
+    tp = tiles["tiles2"]
+
+    def request():
+        return tp.stereo_stage(im2, im3, *full.mono_stage(im2, im3))
+    _, launches = counted(lambda: eagerly(tp, request))
+    want = mono_and_lookup_calls(2 * ITERS)
+    print(f"highres {h}x{w} request with the mono stage and 2 sequential tiles, eager: wrapper calls {launches}",
+          flush=True)
+    if launches != want:
+        raise AssertionError(f"highres request: wrapper calls {launches}, expected {want}")
+    ms = [(sync_ms(lambda: full.mono_stage(im2, im3)), sync_ms(request)) for _ in range(3)]
+    print(f"highres {h}x{w} request with the mono stage (tiles2 on its graph): mono stage "
+          f"{np.median([m for m, _ in ms]):.1f} ms, whole request {np.median([r for _, r in ms]):.1f} ms (median of 3)",
+          flush=True)
+    return launches
+
+
+BATCHED_ITERS = (1, 2, 4, 8, 32)
+
+
+def batched_vs_sequential(stereo, request) -> None:
+    """tiles2 batched against tiles2 sequential at 1024^2, eagerly, in bf16
+    and in f32 (the same weights; TF32 off) at each of BATCHED_ITERS
+    iterations.  At B = 2 cuDNN may take other algorithms than at B = 1,
+    so the two modes round differently, and the forward of random weights
+    carries that difference far.  The witness that it is rounding and not
+    a tile defect: in f32, the sequential output's move when the left view
+    moves by one ulp (`nextafter`).  Held: in f32 at 1 iteration within
+    1e-3 px (JAX's bound, tests/test_parallel.py), and at 1, 2 and 4
+    iterations within 10x the one-ulp move."""
+    f32 = StereoAnywhere(StereoAnywhereConfig(), device="cuda")
+    f32.load_state_dict(stereo.state_dict())
+    ulp = (torch.nextafter(request[0], torch.full_like(request[0], 2.0)), *request[1:])
+
+    def tiles(model, iters, sequential, views):
+        return TileParallelInference(model, 2, 64, iters, sequential=sequential, device="cuda",
+                                     graphs=False).stereo_stage(*views)
+    gaps = {}
+    for label, model in (("bf16", stereo), ("f32", f32)):
+        for iters in BATCHED_ITERS:
+            seq = tiles(model, iters, True, request)
+            moved = (tiles(model, iters, True, ulp) - seq).abs().max().item() if label == "f32" else None
+            gaps[label, iters] = ((tiles(model, iters, False, request) - seq).abs().max().item(), moved,
+                                  seq.abs().max().item())
+    print(f"highres tiles2 batched vs sequential {HIGHRES[0]}x{HIGHRES[1]}, eager, by iterations: max |delta| px "
+          "[the sequential output's move for one ulp of the left view] (max |sequential| px): " + "; ".join(
+              f"{label} {iters}: {d:.3e}" + (f" [{m:.3e}]" if m is not None else "") + f" ({big:.1f})"
+              for (label, iters), (d, m, big) in gaps.items()), flush=True)
+    err = gaps["f32", 1][0]
+    print(f"highres tiles2 batched vs sequential, f32, 1 iteration: max |delta| {err:.3e} px (tol 1e-3)", flush=True)
+    if not err <= 1e-3:
+        HIGHRES_FAILURES.append(f"batched and sequential tiles disagree by {err} px (f32, 1 iteration, 1024^2)")
+    for iters in (1, 2, 4):
+        d, m, _ = gaps["f32", iters]
+        if not d <= 10 * m:
+            HIGHRES_FAILURES.append(f"batched vs sequential {d} px at {iters} iterations, beyond 10x the one-ulp "
+                                    f"move {m} px (f32, 1024^2)")
+    del f32
+
+def booster_request(stereo, mono) -> dict:
+    """Booster at full resolution: a synthetic 3008 x 4112 pair through the
+    mono stage at Booster's DAv2 size, joint min-max, pad, the booster
+    preset's 8 sequential row tiles, the stitch and unpad.  Eager first
+    (stage latencies, the memory peak, the wrappers' calls, counted), then
+    on its graph (capture, replays held to the eager result).  Returns the
+    wrappers' calls in one request."""
+    h, w = BOOSTER
+    free, total = torch.cuda.mem_get_info()
+    print(f"booster: device memory before the request: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved", flush=True)
+    picked = select_tiling_parameters(h, w)
+    preset = get_preset_for_dataset("booster")
+    plan = plan_row_tiles(h, preset.n_tiles, preset.overlap)
+    size = harness.DAV2_SIZES["booster"]
+    fh, fw = dav2_input_size(h, w, *size)
+    print(f"booster {h}x{w}: preset {preset.n_tiles} tiles, overlap {preset.overlap} -> tile_h {plan.tile_h}, "
+          f"starts {plan.starts}; select_tiling_parameters picks {picked.n_tiles} tiles, overlap {picked.overlap} "
+          f"from {free / 2 ** 30:.1f} GiB free of {total / 2 ** 30:.1f}; DAv2 at {fh}x{fw} "
+          f"(T = {tokens_of(h, w, size)} tokens a view)", flush=True)
+    pipe = StereoAnywherePipeline(stereo, mono, ITERS, mono_size=size, device="cuda", graphs=False)
+    tp = TileParallelInference(stereo, preset.n_tiles, preset.overlap, ITERS, sequential=True, device="cuda",
+                               graphs=False)
+    g = torch.Generator(device="cuda").manual_seed(41)
+    im2 = torch.rand((1, h, w, 3), generator=g, device="cuda")
+    im3 = torch.roll(im2, -24, dims=2) * 0.9 + 0.1 * torch.rand((1, h, w, 3), generator=g, device="cuda")
+
+    def request():
+        mde = pipe.mono_stage(im2, im3)
+        return tp.stereo_stage(im2, im3, *mde)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first, launches = counted(request)
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    want = mono_and_lookup_calls(preset.n_tiles * ITERS)
+    print(f"booster request, eager, first call {first_ms:.0f} ms; wrapper calls {launches}; device memory peak "
+          f"{peak / 1e9:.2f} GB", flush=True)
+    if launches != want:
+        raise AssertionError(f"booster: wrapper calls {launches}, expected {want}")
+    if tuple(first.shape) != (1, h, w, 1) or not torch.isfinite(first).all():
+        raise AssertionError(f"booster: bad disparity {tuple(first.shape)}")
+    print(f"  disparity range [{first.min().item():.3f}, {first.max().item():.3f}] px", flush=True)
+    mde = pipe.mono_stage(im2, im3)
+    stages = {"mono stage": [], "tiles (eager)": []}
+    for _ in range(BOOSTER_ROUNDS):
+        stages["mono stage"].append(sync_ms(lambda: pipe.mono_stage(im2, im3)))
+        stages["tiles (eager)"].append(sync_ms(lambda: tp.stereo_stage(im2, im3, *mde)))
+    # then on their graph: one capture of the 8 tile forwards; its pool
+    # (about 1.3x a tile's eager peak) fits beside the models
+    tp.graphs = True
+    torch.cuda.reset_peak_memory_stats()
+    capture = sync_ms(lambda: tp.stereo_stage(im2, im3, *mde))
+    program = tp._build(plan, w + (-w % 32))
+    print(f"booster tiles on their graph: first call {capture:.0f} ms (warm-up and capture of {preset.n_tiles} tile "
+          f"forwards; capture {program.capture_ms:.0f} ms), graph pool {tp.graph_pool_bytes() / 1e9:.2f} GB, device "
+          f"memory peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    # held to the first eager request's result: an eager tile forward
+    # beside the graph's pool would not fit
+    same("booster tiles replay", tp.stereo_stage(im2, im3, *mde), first)
+    stages["tiles (graph)"] = [sync_ms(lambda: tp.stereo_stage(im2, im3, *mde)) for _ in range(BOOSTER_ROUNDS)]
+    replayed = k5_in_a_replay(lambda: tp.stereo_stage(im2, im3, *mde))
+    print(f"booster K5 in a replay's trace: {replayed if replayed is not None else 'not measured'} "
+          f"(expected {preset.n_tiles * ITERS})", flush=True)
+    if replayed is not None and replayed != preset.n_tiles * ITERS:
+        raise AssertionError(f"booster: the replay launched K5 {replayed} times")
+    print(f"booster {h}x{w} ms, median [min-max] of {BOOSTER_ROUNDS}: " + "; ".join(
+        f"{k} {np.median(v):.0f} [{min(v):.0f}-{max(v):.0f}]" for k, v in stages.items()), flush=True)
+    return launches
+
+
+def voldown_compare() -> None:
+    """vol_downsample=1 on the card against the CPU: f32, TF32 off, 64 x 128,
+    2 iterations, within 1e-3 px + 5e-5 rel."""
+    cpu = StereoAnywhere(StereoAnywhereConfig(vol_downsample=1), device="cpu",
+                         generator=torch.Generator().manual_seed(42))
+    gpu = StereoAnywhere(StereoAnywhereConfig(vol_downsample=1), device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(43)
+    xs = [torch.from_numpy(rng.uniform(0, 1, (1, 64, 128, c)).astype(np.float32)) for c in (3, 3, 1, 1)]
+    want = cpu(*xs, iters=2)["disparity"]
+    got = gpu(*(x.cuda() for x in xs), iters=2)["disparity"].cpu()
+    err = (got - want).abs().max().item()
+    excess = ((got - want).abs() - (1e-3 + 5e-5 * want.abs())).max().item()
+    print(f"voldown 64x128 f32 iters 2, card vs CPU: max_abs_err {err:.3e} px (max|cpu| {want.abs().max().item():.3e}, "
+          "tol 1e-3 px + 5e-5 rel.)", flush=True)
+    if not (torch.isfinite(got).all() and excess <= 0):
+        HIGHRES_FAILURES.append(f"vol_downsample on the card disagrees with the CPU: {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -2287,6 +2676,7 @@ def main() -> int:
     hourglass_phase()
     compare_phase()
     vitg_compare_phase()
+    highres, booster = highres_phase()
     evaluated = eval_phase()
     eval_compare_phase()
     trained, validated = train_phase()
@@ -2306,7 +2696,8 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces, launches=n,
                             replay_launches=None if per_replay is None else per_replay[name],
                             eval_launches=evaluated[name], vitg_launches=vitg[name], train_launches=trained[name],
-                            validation_launches=validated[name],
+                            validation_launches=validated[name], highres_launches=highres[name],
+                            booster_launches=booster[name],
                             max_abs_err=row["max_abs_err"], ms=row["ms"], device_ms=row["device_ms"],
                             host_ms=row["host_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"], unfused_ms=row.get("unfused_ms"),

@@ -30,7 +30,7 @@ card runs cuDNN's convolutions in TF32 (PyTorch's default,
 `--checkpoint` when one is given (the JAX CLI ignores it there) and trains
 in float32 only.  Not ported yet, and refused: flax `.msgpack`
 checkpoints, `--shard-rows` (row sharding over several cards) and `train`'s
-`--data-parallel` above 1 and `--multihost` (ROADMAP item 7, `parallel/`).
+`--data-parallel` above 1 and `--multihost` (ROADMAP §1 item 1).
 """
 from __future__ import annotations
 
@@ -413,7 +413,7 @@ def main(argv=None):
         p.error("--shard-rows: row sharding over several cards (parallel/spatial.py) is not ported yet")
     if getattr(args, "data_parallel", 1) != 1 or getattr(args, "multihost", False):
         p.error("--data-parallel above 1 and --multihost: training over several cards or hosts waits for "
-                "ROADMAP item 7 (parallel/), which is not ported yet")
+                "ROADMAP §1 item 1, which is not ported yet")
     return args.fn(args)
 
 

@@ -16,7 +16,10 @@ fields (`freeze_bn`, `vol_aug_n_masks`, `volume_corruption_prob`) and
   `scan_unroll`): each selects between formulations of the same function
   there, and the port has one;
 - the non-default aggregation variants (`use_aggregate_stereo_vol`,
-  `n_additional_hourglass`, `vol_downsample`), which no shipped model uses.
+  `n_additional_hourglass`), which no shipped model uses.
+`vol_downsample` (the reference's `--vol_downsample`: the mono volume and
+its hourglass at 1/2^v of the quarter-resolution volume on each axis) is
+kept: it is how the JAX package fits high-resolution inputs on one device.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ class StereoAnywhereConfig:
     # Volume aggregation
     volume_channels: int = 8
     vol_n_masks: int = 8
+    vol_downsample: int = 0
     use_aggregate_mono_vol: bool = True
 
     # Mirror handling
@@ -80,6 +84,8 @@ class StereoAnywhereConfig:
     fused_level0: str = "off"
 
     def __post_init__(self):
+        if self.vol_downsample < 0:
+            raise ValueError(f"vol_downsample {self.vol_downsample}: the volume is resized by 2^-v, v >= 0")
         if self.lookup_impl not in LOOKUP_IMPLS:
             raise ValueError(f"lookup_impl {self.lookup_impl!r}: use one of {LOOKUP_IMPLS}")
         if self.fused_level0 == "interpret":

@@ -18,13 +18,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stereoanywhere_tpu_torch.device import resolve_device
 from stereoanywhere_tpu_torch.models.dpt import DepthAnythingV2, infer_mono_depth
 from stereoanywhere_tpu_torch.models.stereoanywhere import StereoAnywhere
-from stereoanywhere_tpu_torch.serve.pipeline import _Program, pool_bytes
+from stereoanywhere_tpu_torch.serve.pipeline import GraphOwner, _Program
 
 
-class EvalPrograms:
+class EvalPrograms(GraphOwner):
     """`stereo_fn(im2, im3, mono2, mono3)` -> (1,H,W,1) positive disparity
     and `mono_fn(images01, dataset)` -> (2,H,W,1) raw mono depth (`dataset`
     is ignored: the DAv2 size is this object's `dav2_size`, (width,
@@ -40,19 +39,11 @@ class EvalPrograms:
         graphs: bool | None = None,
         capture_at: int = 2,
     ):
-        self.device = resolve_device(device)
+        super().__init__(device, graphs)
         self.stereo = stereo.to(self.device)
         self.mono = mono.to(self.device) if mono is not None else None
         self.iters, self.dav2_size, self.capture_at = iters, tuple(dav2_size), capture_at
-        self.graphs = self.device.type == "cuda" if graphs is None else graphs
-        if self.graphs and self.device.type != "cuda":
-            raise ValueError("CUDA graphs need the card: these programs run on the CPU")
         self.programs: dict[tuple, _Program] = {}
-        self.pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
-
-    def pool_bytes(self) -> int:
-        """Device memory that the programs' graphs hold (their one pool)."""
-        return pool_bytes(self.pool)
 
     def _run(self, key: tuple, body, *arrays: np.ndarray) -> np.ndarray:
         xs = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device) for a in arrays]
@@ -62,7 +53,7 @@ class EvalPrograms:
                 out = body(*xs)
             else:
                 if key not in self.programs:
-                    self.programs[key] = _Program(body, self.pool, self.capture_at)
+                    self.programs[key] = _Program(body, self._pool, self.capture_at)
                 out = self.programs[key](*xs)
         return out.cpu().numpy()
 

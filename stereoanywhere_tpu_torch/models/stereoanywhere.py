@@ -11,7 +11,11 @@ package's two refinement schedules: `iters` plain steps, or with
 `fused_level0="on"` (where the JAX gate would fuse) one pre-step without
 the flow head, `iters - 1` rotated bodies whose quarter-resolution plane
 runs in the K7, K5, K8 and K9 kernels (NHWC), and a tail with the flow and
-mask heads: the same function, reordered.
+mask heads: the same function, reordered.  With `vol_downsample` = v > 0,
+both modes aggregate the mono volume at 1/2^v of (H/4, W/4, W/4), as the
+JAX package does: the volume resized trilinearly, its masks nearest, the
+hourglass's depth pyramids from a 1/2^v depth map, and the classifiers'
+volumes resized back.
 
 Train mode (`test_mode=False`, with autograd) is the JAX package's
 `train=True` forward: no width padding, the plain schedule with every
@@ -49,7 +53,11 @@ from stereoanywhere_tpu_torch.ops.corr_lookup import build_corr_pyramid
 from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import DualPyramid
 from stereoanywhere_tpu_torch.ops.fuzzy import fuzzy_and
 from stereoanywhere_tpu_torch.ops.geometry import estimate_normals, joint_minmax_normalize, softlrc
-from stereoanywhere_tpu_torch.ops.interp import resize_bilinear_align_corners
+from stereoanywhere_tpu_torch.ops.interp import (
+    resize_bilinear_align_corners,
+    resize_nearest,
+    resize_trilinear_align_corners,
+)
 from stereoanywhere_tpu_torch.ops.lsq import weighted_lsq
 from stereoanywhere_tpu_torch.ops.step_fused import fused_step_supported
 from stereoanywhere_tpu_torch.ops.upsample import convex_upsample
@@ -189,7 +197,11 @@ class StereoAnywhere(nn.Module):
     def _forward(self, image2, image3, mde2, mde3, iters: int, test_mode: bool, generator) -> dict[str, torch.Tensor]:
         cfg = self.cfg
         cdt = torch_dtype(cfg.compute_dtype)
-        to_nchw = lambda t: t.permute(0, 3, 1, 2).float()  # noqa: E731
+        # a fresh NCHW copy whatever the caller's strides, so that the same
+        # shapes take the same convolution kernels: a channels-last view, or
+        # a one-channel depth map whose channel stride is 1, would take
+        # others on the card, rounding differently
+        to_nchw = lambda t: t.permute(0, 3, 1, 2).float().clone(memory_format=torch.contiguous_format)  # noqa: E731
         image2, image3, mde2, mde3 = (to_nchw(t) for t in (image2, image3, mde2, mde3))
         b, c, h, w = image2.shape
 
@@ -211,6 +223,14 @@ class StereoAnywhere(nn.Module):
         # mono pyramids
         mde2_low = resize_bilinear_align_corners(mde2, (h4, w4))
         mde3_low = resize_bilinear_align_corners(mde3, (h4, w4))
+        # vol_downsample: the hourglass's depth pyramids start from 1/2^v of
+        # the full resolution (JAX :187-191)
+        vf = 2 ** cfg.vol_downsample
+        if cfg.vol_downsample > 0:
+            mde2_vlow = resize_bilinear_align_corners(mde2, (h // vf, w // vf))
+            mde3_vlow = resize_bilinear_align_corners(mde3, (h // vf, w // vf))
+        else:
+            mde2_vlow, mde3_vlow = mde2, mde3
         normal_gain = w4 / cfg.normal_gain
         normals2 = estimate_normals(mde2_low, normal_gain)
         normals3 = estimate_normals(mde3_low, normal_gain)
@@ -229,14 +249,24 @@ class StereoAnywhere(nn.Module):
 
         # mono depth pyramids for the hourglass attention, f32 as in JAX: in
         # a bf16 model they promote the hourglass to f32 past its first gate
-        fmde2 = [resize_bilinear_align_corners(mde2, (h // 2 ** i, w // 2 ** i)) for i in range(cfg.n_downsample, 6)]
-        fmde3 = [resize_bilinear_align_corners(mde3, (h // 2 ** i, w // 2 ** i)) for i in range(cfg.n_downsample, 6)]
+        hv, wv = mde2_vlow.shape[-2:]
+        sizes = [(hv // 2 ** i, wv // 2 ** i) for i in range(cfg.n_downsample, 6)]
+        fmde2 = [resize_bilinear_align_corners(mde2_vlow, size) for size in sizes]
+        fmde3 = [resize_bilinear_align_corners(mde3_vlow, size) for size in sizes]
 
         # all-pairs volumes
         stereo_vol = all_pairs_correlation(fmap2, fmap3)  # (B,H4,W2,W3)
         mono_vol = (1.73 * all_pairs_correlation(normals2.to(cdt), normals3.to(cdt))).float()
         left_masks = generate_masks(mde2_low, cfg.vol_n_masks)
         right_masks = generate_masks(mde3_low, cfg.vol_n_masks)
+        # vol_downsample: the mono volume (trilinear) and the masks (nearest)
+        # at 1/2^v on each axis (JAX :248-253)
+        orig_vol_dhw = tuple(mono_vol.shape[1:])
+        if cfg.vol_downsample > 0:
+            tgt = tuple(s // vf for s in orig_vol_dhw)
+            mono_vol = resize_trilinear_align_corners(mono_vol, tgt)
+            left_masks = resize_nearest(left_masks, (tgt[0], tgt[1]))
+            right_masks = resize_nearest(right_masks, (tgt[0], tgt[2]))
 
         # masked mono volume -> hourglass -> classifiers over (H, W2, W3); the
         # confidence classifier's input is detached (JAX :388, :399)
@@ -244,6 +274,9 @@ class StereoAnywhere(nn.Module):
         agg = agg.permute(0, 1, 3, 4, 2)  # (B,C,W3,H,W2) -> (B,C,H,W2,W3)
         agg_disp = conv_in_dtype(self.classifier_mono, agg).float()[:, 0]  # (B,H,W2,W3)
         agg_conf = conv_in_dtype(self.classifier_monoconf, agg.detach()).float()[:, 0]
+        if cfg.vol_downsample > 0:  # back to (H4, W4, W4) (JAX :404-406)
+            agg_disp = resize_trilinear_align_corners(agg_disp, orig_vol_dhw)
+            agg_conf = resize_trilinear_align_corners(agg_conf, orig_vol_dhw)
 
         # coarse disparities and confidences
         coarse_dispmono2_low = estimate_left_disparity(agg_disp)

@@ -5,7 +5,7 @@ matrices contracted over the trailing spatial axes, exactly as the JAX
 package computes it, so the two agree to float rounding.  The functions act
 on the LAST two (or three) axes: NCHW / NCDHW tensors inside the port.
 
-Four families:
+Four families, and a nearest resize:
 - align-corners bilinear / trilinear: torch `F.interpolate(...,
   align_corners=True)` semantics, used throughout the stereo branch;
 - half-pixel bilinear without antialiasing: the DPT head's final upsample;
@@ -15,7 +15,10 @@ Four families:
 - `jax.image.resize` semantics (`resize_jax_image`): half-pixel centres,
   Keys cubic with a=-0.5 (not torch's a=-0.75) or the linear tent, and an
   ANTIALIASED kernel when downsampling.  The serving pipeline resizes with
-  it (JAX `serve/pipeline.py`), so the port reproduces it.
+  it (JAX `serve/pipeline.py`), so the port reproduces it;
+- nearest (`resize_nearest`), torch's `mode='nearest'` index rule
+  floor(i * in / out) with the product taken in f32, as the JAX package
+  takes it: the masks of `vol_downsample`.
 """
 from __future__ import annotations
 
@@ -168,6 +171,22 @@ def resize_jax_image(x: torch.Tensor, out_hw: tuple[int, int], method: str) -> t
     """`jax.image.resize(x, ..., method)` over the last two axes, method
     'cubic' (Keys a=-0.5) or 'bilinear', antialiased when downsampling."""
     return _resize(x, tuple(out_hw), f"jax_{method}")
+
+
+@functools.lru_cache(maxsize=None)
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """Source index of each output: floor(f32(i) * f32(in / out)), the
+    JAX package's int32 arange times a Python float, which JAX rounds to
+    f32 before the product."""
+    return np.floor(np.arange(out_size, dtype=np.float32) * np.float32(in_size / out_size)).astype(np.int64)
+
+
+def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of the last two axes (torch `mode='nearest'`)."""
+    for axis, out_size in ((x.ndim - 2, out_hw[0]), (x.ndim - 1, out_hw[1])):
+        idx = device_constant(_nearest_index, (x.shape[axis], out_size), x.device, torch.int64)
+        x = torch.index_select(x, axis, idx)
+    return x
 
 
 def interp_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

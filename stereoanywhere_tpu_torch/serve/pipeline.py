@@ -49,6 +49,19 @@ def _pad_sizes(h: int, w: int, multiple: int = 32):
     return ph // 2, ph - ph // 2, pw // 2, pw - pw // 2
 
 
+def normalize_and_pad(im2, im3, mde2, mde3) -> tuple[list[torch.Tensor], tuple[int, int]]:
+    """The stereo stage's input preparation: joint min-max normalize the
+    depth pair, edge-pad the views and the depth to a multiple of 32.
+    (B,H,W,3) views and (B,H,W,1) depth (device tensors) -> the four padded
+    NHWC inputs of the model, and the (top, left) offset of the image in
+    them."""
+    _, h, w, _ = im2.shape
+    t, bot, l, r = _pad_sizes(h, w)
+    mde2, mde3 = joint_minmax_normalize([m.permute(0, 3, 1, 2) for m in (mde2, mde3)])
+    pad = lambda x: F.pad(x, (l, r, t, bot), mode="replicate").permute(0, 2, 3, 1)  # noqa: E731
+    return [pad(im2.permute(0, 3, 1, 2)), pad(im3.permute(0, 3, 1, 2)), pad(mde2), pad(mde3)], (t, l)
+
+
 def _copy(out):
     return tuple(o.clone() for o in out) if isinstance(out, tuple) else out.clone()
 
@@ -111,7 +124,39 @@ def pool_bytes(pool) -> int:
                if tuple(s["segment_pool_id"]) == tuple(pool))
 
 
-class StereoAnywherePipeline:
+class GraphOwner:
+    """What an owner of `_Program`s shares: its device (the card unless
+    "cpu" is asked for), whether its calls take their graphs (`graphs`, on
+    by default on the card; the CPU runs only eagerly and refuses it), one
+    graph pool for all its programs, and the move of a request's tensors or
+    arrays to the device in f32."""
+
+    def __init__(self, device: str | torch.device, graphs: bool | None):
+        self.device = resolve_device(device)
+        self.graphs = self.device.type == "cuda" if graphs is None else graphs
+        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+
+    @property
+    def graphs(self) -> bool:
+        return self._graphs
+
+    @graphs.setter
+    def graphs(self, on: bool) -> None:
+        if on and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need the card: this {type(self).__name__} runs on the CPU")
+        self._graphs = bool(on)
+
+    def graph_pool_bytes(self) -> int:
+        """Device memory that the owner's graphs hold (their one pool)."""
+        return pool_bytes(self._pool)
+
+    def _tensor(self, x) -> torch.Tensor:
+        if not torch.is_tensor(x):
+            x = torch.from_numpy(np.array(x, dtype=np.float32))
+        return x.to(self.device, torch.float32)
+
+
+class StereoAnywherePipeline(GraphOwner):
     """(B,H,W,3) pair in [0,1] -> (B,H,W,1) positive disparity (f32).
 
     `mono=None` runs stereo-only with mono depth given by the caller (or
@@ -139,34 +184,13 @@ class StereoAnywherePipeline:
         two_stage: bool = False,
         graphs: bool | None = None,
     ):
-        self.device = resolve_device(device)
+        super().__init__(device, graphs)
         self.stereo = stereo.to(self.device)
         self.mono = mono.to(self.device) if mono is not None else None
         self.iters = iters
         self.mono_size = mono_size
         self.two_stage = two_stage
-        self.graphs = self.device.type == "cuda" if graphs is None else graphs
         self._cache: dict = {}
-        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
-
-    @property
-    def graphs(self) -> bool:
-        return self._graphs
-
-    @graphs.setter
-    def graphs(self, on: bool) -> None:
-        if on and self.device.type != "cuda":
-            raise ValueError("CUDA graphs need the card: this pipeline runs on the CPU")
-        self._graphs = bool(on)
-
-    def graph_pool_bytes(self) -> int:
-        """Device memory that the pipeline's graphs hold (their one pool)."""
-        return pool_bytes(self._pool)
-
-    def _tensor(self, x) -> torch.Tensor:
-        if not torch.is_tensor(x):
-            x = torch.from_numpy(np.array(x, dtype=np.float32))
-        return x.to(self.device, torch.float32)
 
     def _build(self, b: int, h: int, w: int) -> _Program:
         """The one-graph program of (b, h, w): mono (when loaded), pad and
@@ -211,14 +235,10 @@ class StereoAnywherePipeline:
         """Joint min-max normalize the depth pair, edge-pad to a multiple of
         32, run StereoAnywhere, unpad.  (B,H,W,3) views and (B,H,W,1) depth
         -> (B,H,W,1) disparity, f32.  Runs eagerly."""
-        im2, im3 = self._tensor(im2), self._tensor(im3)
+        im2, im3, mde2, mde3 = (self._tensor(x) for x in (im2, im3, mde2, mde3))
         _, h, w, _ = im2.shape
-        t, bot, l, r = _pad_sizes(h, w)
-        mde2, mde3 = joint_minmax_normalize([self._tensor(m).permute(0, 3, 1, 2) for m in (mde2, mde3)])
-        pad = lambda x: F.pad(x, (l, r, t, bot), mode="replicate").permute(0, 2, 3, 1)  # noqa: E731
-        out = self.stereo(
-            pad(im2.permute(0, 3, 1, 2)), pad(im3.permute(0, 3, 1, 2)), pad(mde2), pad(mde3), iters=self.iters
-        )
+        inputs, (t, l) = normalize_and_pad(im2, im3, mde2, mde3)
+        out = self.stereo(*inputs, iters=self.iters)
         return out["disparity"][:, t : t + h, l : l + w].float()
 
     @torch.inference_mode()

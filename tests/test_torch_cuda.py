@@ -794,7 +794,7 @@ def test_eval_stereo_program_replays_equal_eager(eval_programs):
     assert first.shape == want.shape == (1, 64, 128, 1) and np.isfinite(want).all()
     assert np.abs(second - want).max() == 0 and np.abs(first - want).max() == 0
     assert np.abs(graphed.stereo_fn(*b) - eager.stereo_fn(*b)).max() == 0
-    assert graphed.pool_bytes() > 0 and eager.pool_bytes() == 0 and not eager.programs
+    assert graphed.graph_pool_bytes() > 0 and eager.graph_pool_bytes() == 0 and not eager.programs
 
 
 @pytest.mark.cuda
@@ -951,3 +951,142 @@ def test_train_restore_keeps_optimizer_steps_on_the_host(cuda, tmp_path):
     batch = _train_batch(2, b=1, h=32, w=64)
     la, lb = a.step(batch), b.step(batch)
     np.testing.assert_allclose(float(lb["loss/total"]), float(la["loss/total"]), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# High-resolution inference: row tiles (parallel/tiles.py) and vol_downsample.
+# The tile programs on their CUDA graphs against their eager calls (max
+# |delta| = 0, as the pipeline's), the tiled path and the vol_downsample
+# model on the card against the CPU (f32, TF32 off, 2 iterations: 1e-3 px +
+# 5e-5 rel., the pipeline tests' bound), and K5 at a Booster tile's plane
+# (136 x 1040: 544 rows of 4160 after the width alignment) bit for bit.
+
+TILES_HW = (256, 128)
+
+
+def _stereo_inputs(rng, h, w, device="cuda"):
+    return [torch.from_numpy(rng.uniform(0, 1, (1, h, w, c)).astype(np.float32)).to(device) for c in (3, 3, 1, 1)]
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["batched", "sequential"])
+def tiles_graphed(request):
+    """2 row tiles of 160 rows (overlap 64) of a bf16 stereo model on their
+    graphs, 4 iterations, and two requests' inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from stereoanywhere_tpu_torch.config import StereoAnywhereConfig
+    from stereoanywhere_tpu_torch.models.stereoanywhere import StereoAnywhere
+    from stereoanywhere_tpu_torch.parallel import TileParallelInference
+
+    torch.backends.cudnn.benchmark = False
+    model = StereoAnywhere(StereoAnywhereConfig(compute_dtype="bfloat16"), device="cuda",
+                           generator=torch.Generator().manual_seed(6))
+    tp = TileParallelInference(model, 2, overlap=64, iters=4, sequential=request.param, device="cuda")
+    rng = np.random.default_rng(13)
+    return tp, [_stereo_inputs(rng, *TILES_HW) for _ in range(2)]
+
+
+def _tiles_eager(tp, *xs):
+    tp.graphs = False
+    try:
+        return tp.infer(*xs)
+    finally:
+        tp.graphs = True
+
+
+@pytest.mark.cuda
+def test_tiles_replay_equals_eager(tiles_graphed):
+    """The first call warms up and captures, later calls replay: each equals
+    the eager call bit for bit, K5 runs 4 times a tile forward eagerly
+    (a batched forward takes both tiles) and never in a replay, and the
+    first result survives the second request (a fresh accumulator a
+    replay)."""
+    from stereoanywhere_tpu_torch.parallel.tiles import plan_row_tiles
+
+    tp, (a, b) = tiles_graphed
+    assert tp.graphs
+    first = tp.infer(*a)
+    program = tp._build(plan_row_tiles(TILES_HW[0], 2, 64), TILES_HW[1])
+    assert program.graph is not None and tp.graph_pool_bytes() > 0
+    kept = first.clone()
+    launches = port_lookup.dual_lookup.launches
+    want = _tiles_eager(tp, *a)
+    assert port_lookup.dual_lookup.launches - launches == 4 * (2 if tp.sequential else 1)
+    assert first.shape == want.shape == (1, *TILES_HW, 1) and bool(torch.isfinite(want).all())
+    assert (first - want).abs().max().item() == 0
+    launches = port_lookup.dual_lookup.launches
+    again, second = tp.infer(*a), tp.infer(*b)
+    assert port_lookup.dual_lookup.launches == launches
+    assert (again - want).abs().max().item() == 0
+    assert (second - _tiles_eager(tp, *b)).abs().max().item() == 0
+    assert torch.equal(first, kept) and not torch.equal(first, second)
+
+
+def _card_and_cpu(cfg, seed):
+    from stereoanywhere_tpu_torch.models.stereoanywhere import StereoAnywhere
+
+    cpu = StereoAnywhere(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    card = StereoAnywhere(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    return card, cpu
+
+
+def _close_to_cpu(got, want):
+    got = got.cpu()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    excess = ((got - want).abs() - (1e-3 + 5e-5 * want.abs())).max().item()
+    assert excess <= 0, ((got - want).abs().max().item(), want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sequential", [False, True], ids=["batched", "sequential"])
+def test_tiles_card_matches_cpu(cuda, sequential):
+    """2 tiles of 96 rows (overlap 32) at (1, 128, 64), f32, on the card
+    (eager and on the graph) and on the CPU."""
+    from stereoanywhere_tpu_torch.config import StereoAnywhereConfig
+    from stereoanywhere_tpu_torch.parallel import TileParallelInference
+
+    card, cpu = _card_and_cpu(StereoAnywhereConfig(), 7)
+    xs = _stereo_inputs(np.random.default_rng(14), 128, 64, "cpu")
+    want = TileParallelInference(cpu, 2, overlap=32, iters=2, sequential=sequential, device="cpu").infer(*xs)
+    tp = TileParallelInference(card, 2, overlap=32, iters=2, sequential=sequential, device="cuda")
+    _close_to_cpu(tp.infer(*xs), want)
+    _close_to_cpu(tp.infer(*xs), want)  # the replay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 2])
+def test_dual_lookup_kernel_booster_tile_plane(cuda, dtype, b):
+    """K5 at a Booster tile's quarter-resolution plane, 136 x 1040 (level
+    widths 1040 / 520 / 260 / 130), B = 1 (sequential tiles) and 2,
+    coordinates spread over the whole row and past both ends: bit for bit
+    the plain gather."""
+    h4, w4 = 136, 1040
+    g = torch.Generator(device="cuda").manual_seed(b)
+    dt = getattr(torch, dtype)
+    wls = [w4 // 2 ** i for i in range(4)]
+    la, lb = ([torch.randn((b, h4, w4, wl), generator=g, device="cuda").to(dt) for wl in wls] for _ in range(2))
+    xs = torch.arange(w4, device="cuda", dtype=torch.float32)
+    c = xs - torch.rand((b, h4, w4), generator=g, device="cuda") * (w4 / 2) + 8.0
+    c[0, 0, :4] = torch.tensor([-1e4, 1e4, -0.5, w4 - 0.5])
+    _check(port_lookup.dual_lookup, port_lookup.dual_lookup_ref, (port_lookup.DualPyramid(la, lb), c, 4), dtype,
+           tol=0.0)
+
+
+@pytest.mark.cuda
+def test_voldown_card_matches_cpu(cuda):
+    """vol_downsample=1 at 64 x 128, f32, card against CPU; and the card's
+    graph of it (a tile program of one tile) against its eager call."""
+    from stereoanywhere_tpu_torch.config import StereoAnywhereConfig
+    from stereoanywhere_tpu_torch.parallel import TileParallelInference
+
+    card, cpu = _card_and_cpu(StereoAnywhereConfig(vol_downsample=1), 8)
+    xs = _stereo_inputs(np.random.default_rng(15), 64, 128, "cpu")
+    want = cpu(*xs, iters=2)["disparity"]
+    got = card(*(x.cuda() for x in xs), iters=2)["disparity"]
+    _close_to_cpu(got, want)
+    tp = TileParallelInference(card, 1, iters=2, device="cuda")
+    first, replay = tp.infer(*xs), tp.infer(*xs)
+    assert (replay - _tiles_eager(tp, *xs)).abs().max().item() == 0
+    _close_to_cpu(first, want)

@@ -364,7 +364,7 @@ def test_cli_train_stops_on_sigterm(train_dirs, monkeypatch):
 
 def test_cli_train_refusals(train_dirs, monkeypatch):
     """No card: `train` raises unless --device cpu.  --data-parallel above
-    1 and --multihost wait for ROADMAP item 7."""
+    1 and --multihost wait for ROADMAP §1 item 1."""
     from stereoanywhere_tpu_torch import cli
 
     path, _, root = train_dirs
