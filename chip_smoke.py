@@ -147,11 +147,27 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    step counter continued, `best` written; s/step, pairs/s, the memory
    peak and one traced step (busy, idle, device ms by phase); then one
    train step at 64x128 on the card against the CPU (loss, every
-   gradient, every parameter after the step).
+   gradient, every parameter after the step);
+10. training over processes, in mixed precision and with batch
+   statistics (after phase 9, on its data): `cli train` at the reference
+   configuration for 4 steps as one process and as rank 0 of a world of 1
+   over NCCL (`--multihost` under torchrun's environment), in a process of
+   its own in PyTorch's deterministic mode, equal bit for bit in every log
+   and every parameter; then 8 steps of each twice, in turns, timed; two ranks on the one
+   card over gloo with CUDA tensors (spawned; NCCL refuses two ranks on
+   one device) against one process on the whole batch, 2 steps at 64x128,
+   2 iterations, f32, the noise corruption and gt-as-mono forced, within
+   phase 9's card-vs-CPU bounds; `cli train --dtype bfloat16` at the
+   reference configuration for 10 steps with a validation at step 10
+   (K5), s/step, pairs/s, the memory peak and one traced step, the masters
+   f32; one bf16 step on the card against the CPU's within twice the
+   CPU's own bf16-vs-f32 gap; 5 steps with `freeze_bn=False` at the
+   reference configuration beside 5 with `freeze_bn=True` on the same
+   batches, s/step, every running statistic moved.
 It prints a `{"kernels": [...]}` line (with each kernel's wrapper calls on
 the eval path, `eval_launches`, in the ViT-G pipeline's served requests,
 `vitg_launches`, in the train steps, `train_launches`, in the
-trainer's validations, `validation_launches`, in the 1024^2 request with
+trainer's validations (f32 and bf16), `validation_launches`, in the 1024^2 request with
 the mono stage and 2 tiles, `highres_launches`, and in the Booster
 request, `booster_launches`; K1-K3 also their ViT-G
 rows, `vitg_*`), the card's name and power limit, and last
@@ -180,6 +196,7 @@ import ctypes
 import gc
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -2416,20 +2433,52 @@ def traced_train_step(trainer, batch) -> None:
         f"{n} {c}" for n, c in sorted(syncs.items(), key=lambda kv: -kv[1])[:8]) or "none seen"), flush=True)
 
 
-def train_phase() -> tuple[dict, dict]:
-    """`cli train` as a user runs it.  A synthetic FlyingThings-layout
-    directory (8 pairs at 540x960) and a synthetic Middlebury one get their
-    mono depth from `cli precompute-mono` (ViT-L, random weights in a
-    .pth); then `cli train --dataset sceneflow --mono-precomputed DAv2` at
-    the reference configuration (default stereo widths, f32, crop 320x640,
-    batch 2, 12 iterations, fnet frozen, gt-as-mono 0.3, corruption 0.3)
-    for 20 steps, saving every 10 and logging every 5, validating on 2
-    Middlebury samples every 10 (the test-mode forward: K5), then
-    `--resume latest` to step 24.  Asserts finite losses at every log, fnet
-    bit-identical to its seeded start and every other group moved, no
-    kernel wrapper called in a train step and K5 32 times a validation
-    sample, the resumed step counter, the `best` checkpoint.  Returns the
-    wrapper calls of the train steps and of the validations."""
+def write_train_data(tmp: Path) -> tuple[str, Path]:
+    """A synthetic FlyingThings-layout directory (8 pairs at 540x960) and a
+    synthetic Middlebury one, with their mono depth from `cli
+    precompute-mono` (ViT-L, random weights in a .pth): the sceneflow
+    datapath and the Middlebury root."""
+    rng = np.random.default_rng(3)
+    t0 = time.perf_counter()
+    ft = write_flyingthings(tmp / "ft", rng, TRAIN_PAIRS, TRAIN_SIZE)
+    (tmp / "empty").mkdir()
+    path = f"{ft};{tmp / 'empty'};{tmp / 'empty'}"
+    mb = write_eval_dirs(tmp / "val", rng)["middlebury"]
+    dav2 = tmp / "dav2_vitl.pth"
+    torch.save(DepthAnythingV2(MonoConfig.for_encoder("vitl"), device="cpu",
+                               generator=torch.Generator().manual_seed(11)).state_dict(), dav2)
+    for dataset, root in (("sceneflow", path), ("middlebury", str(mb))):
+        with redirect_stdout(io.StringIO()):
+            cli.main(["precompute-mono", "--dataset", dataset, "--datapath", root, "--mono-checkpoint", str(dav2),
+                      "--dtype", "bfloat16"])
+    print(f"train data: {TRAIN_PAIRS} FlyingThings-layout pairs at {TRAIN_SIZE[0]}x{TRAIN_SIZE[1]} and 3 "
+          f"Middlebury scenes written, their mono depth by cli precompute-mono (ViT-L bf16) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return path, mb
+
+
+def train_argv(path: str, save: Path, dtype: str = "float32") -> list[str]:
+    """`cli train` at the reference configuration (run_train.sh: crop
+    320x640, batch 2, 12 iterations, fnet frozen, gt-as-mono 0.3,
+    corruption 0.3) on the card."""
+    return ["train", "--dataset", "sceneflow", "--datapath", path, "--mono-precomputed", "DAv2",
+            "--device", "cuda", "--dtype", dtype, "--crop-h", "320", "--crop-w", "640", "--batch-size", "2",
+            "--iters", "12", "--freeze", "fnet", "--gt-mono-prob", "0.3", "--corruption-prob", "0.3",
+            "--savedir", str(save)]
+
+
+def train_phase(tmp: Path, path: str, mb: Path) -> tuple[dict, dict]:
+    """`cli train` as a user runs it: `cli train --dataset sceneflow
+    --mono-precomputed DAv2` at the reference configuration (default
+    stereo widths, f32, crop 320x640, batch 2, 12 iterations, fnet frozen,
+    gt-as-mono 0.3, corruption 0.3) for 20 steps, saving every 10 and
+    logging every 5, validating on 2 Middlebury samples every 10 (the
+    test-mode forward: K5), then `--resume latest` to step 24.  Asserts
+    finite losses at every log, fnet bit-identical to its seeded start and
+    every other group moved, no kernel wrapper called in a train step and
+    K5 32 times a validation sample, the resumed step counter, the `best`
+    checkpoint.  Returns the wrapper calls of the train steps and of the
+    validations."""
     from stereoanywhere_tpu_torch.data.augmentor import DisparityAugmentor
     from stereoanywhere_tpu_torch.data.datasets import fetch_dataset
     from stereoanywhere_tpu_torch.data.loader import default_collate
@@ -2437,86 +2486,63 @@ def train_phase() -> tuple[dict, dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as the CLI runs
     torch.backends.cudnn.benchmark = False
-    tmp = Path(tempfile.mkdtemp(prefix="sa_train_"))
-    try:
-        rng = np.random.default_rng(3)
+    save = tmp / "run"
+    argv = train_argv(path, save) + ["--save-every", "10", "--log-every", "5", "--val-datapath", str(mb),
+                                     "--val-dataset", "middlebury", "--val-every", "10", "--val-samples", "2"]
+    rec = _TrainRecorder()
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    with rec.installed():
         t0 = time.perf_counter()
-        ft = write_flyingthings(tmp / "ft", rng, TRAIN_PAIRS, TRAIN_SIZE)
-        (tmp / "empty").mkdir()
-        path = f"{ft};{tmp / 'empty'};{tmp / 'empty'}"
-        mb = write_eval_dirs(tmp / "val", rng)["middlebury"]
-        dav2 = tmp / "dav2_vitl.pth"
-        torch.save(DepthAnythingV2(MonoConfig.for_encoder("vitl"), device="cpu",
-                                   generator=torch.Generator().manual_seed(11)).state_dict(), dav2)
-        for dataset, root in (("sceneflow", path), ("middlebury", str(mb))):
-            with redirect_stdout(io.StringIO()):
-                cli.main(["precompute-mono", "--dataset", dataset, "--datapath", root, "--mono-checkpoint", str(dav2),
-                          "--dtype", "bfloat16"])
-        print(f"train data: {TRAIN_PAIRS} FlyingThings-layout pairs at {TRAIN_SIZE[0]}x{TRAIN_SIZE[1]} and 3 "
-              f"Middlebury scenes written, their mono depth by cli precompute-mono (ViT-L bf16) in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        save = tmp / "run"
-        argv = ["train", "--dataset", "sceneflow", "--datapath", path, "--mono-precomputed", "DAv2",
-                "--device", "cuda", "--dtype", "float32", "--crop-h", "320", "--crop-w", "640", "--batch-size", "2",
-                "--iters", "12", "--freeze", "fnet", "--gt-mono-prob", "0.3", "--corruption-prob", "0.3",
-                "--save-every", "10", "--log-every", "5", "--val-datapath", str(mb), "--val-dataset", "middlebury",
-                "--val-every", "10", "--val-samples", "2", "--savedir", str(save)]
-        rec = _TrainRecorder()
-        torch.cuda.reset_peak_memory_stats()
-        log = io.StringIO()
-        with rec.installed():
-            t0 = time.perf_counter()
-            with redirect_stdout(log):
-                trainer = cli.main(argv + ["--num-steps", str(TRAIN_STEPS)])
-            first_s = time.perf_counter() - t0
-            first_starts = list(rec.step_starts)
-            with redirect_stdout(log):
-                resumed = cli.main(argv + ["--num-steps", str(TRAIN_RESUMED), "--resume", "latest"])
-        peak = torch.cuda.max_memory_allocated()
-        for line in log.getvalue().splitlines():
-            print(f"  cli train: {line}", flush=True)
-        rows = [json.loads(line) for line in open(save / "metrics.jsonl")]
-        losses = [r["loss/total"] for r in rows if "loss/total" in r]
-        if not (len(losses) == TRAIN_STEPS // 5 + (TRAIN_RESUMED - TRAIN_STEPS) // 5 and np.isfinite(losses).all()):
-            raise AssertionError(f"cli train: losses at the logs {losses}")
-        if rec.step_starts[len(first_starts)][0] != TRAIN_STEPS or resumed.step_count != TRAIN_RESUMED:
-            raise AssertionError("the resumed run did not continue from the checkpoint's step")
-        if not (save / "best.pt").exists() or not (save / "final.pt").exists():
-            raise AssertionError("cli train wrote no best or final checkpoint")
-        # fnet frozen: bit-identical to the seeded start; every other group moved
-        start = StereoAnywhere(StereoAnywhereConfig(volume_corruption_prob=0.3), device="cpu",
-                               generator=torch.Generator().manual_seed(1337)).state_dict()
-        now = {k: v.cpu() for k, v in resumed.model.state_dict().items()}
-        if not all(torch.equal(now[k], v) for k, v in start.items() if k.startswith("fnet.")):
-            raise AssertionError("a frozen fnet parameter moved")
-        for group, tops in TRAIN_GROUPS.items():
-            if not any(not torch.equal(now[k], v) for k, v in start.items() if k.split(".")[0] in tops):
-                raise AssertionError(f"no parameter of the unfrozen group {group} moved")
-        if any(rec.step_launches.values()):
-            raise AssertionError(f"a kernel wrapper ran inside a train step: {rec.step_launches}")
-        val_calls = {n: 0 for n in COUNTERS}
-        for calls, metrics in rec.validations:
-            want = {n: 0 for n in COUNTERS} | {"dual_lookup": ITERS * 2}
-            if calls != want:
-                raise AssertionError(f"a validation of 2 samples called {calls}, expected {want}")
-            for n, c in calls.items():
-                val_calls[n] += c
-            print("train validation (2 Middlebury samples, 32 iterations): " + ", ".join(
-                f"{k} {metrics[k]:.4f}" for k in ("avgerr", "rms", "bad 2.0", "is_best")), flush=True)
-        # steady state: steps 16-20 of the first run, between two syncs: the log's float() after step 15
-        # (then step 16 starts) and the log's after step 20 (then the validation starts)
-        sps = (rec.validate_starts[1] - dict(first_starts)[15]) / 5
-        print(f"train {TRAIN_STEPS} + {TRAIN_RESUMED - TRAIN_STEPS} steps (crop 320x640, batch 2, 12 iterations, f32): "
-              f"first run {first_s:.1f} s in cli.main; {sps:.3f} s/step over steps 16-20 ({2 / sps:.2f} pairs/s), "
-              f"host clock between the logs' syncs at steps 15 and 20; device memory peak "
-              f"{peak / 1e9:.2f} GB; losses at the logs {[round(x, 3) for x in losses]}; wrapper calls in the "
-              f"train steps {rec.step_launches}", flush=True)
-        aug = DisparityAugmentor(crop_size=(320, 640), seed=0)
-        ds = fetch_dataset("sceneflow", path, test=False, mono="DAv2", augmentor=aug)
-        traced_train_step(resumed, default_collate([ds[0], ds[1]]))
-        return dict(rec.step_launches), val_calls
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        with redirect_stdout(log):
+            trainer = cli.main(argv + ["--num-steps", str(TRAIN_STEPS)])
+        first_s = time.perf_counter() - t0
+        first_starts = list(rec.step_starts)
+        with redirect_stdout(log):
+            resumed = cli.main(argv + ["--num-steps", str(TRAIN_RESUMED), "--resume", "latest"])
+    peak = torch.cuda.max_memory_allocated()
+    for line in log.getvalue().splitlines():
+        print(f"  cli train: {line}", flush=True)
+    rows = [json.loads(line) for line in open(save / "metrics.jsonl")]
+    losses = [r["loss/total"] for r in rows if "loss/total" in r]
+    if not (len(losses) == TRAIN_STEPS // 5 + (TRAIN_RESUMED - TRAIN_STEPS) // 5 and np.isfinite(losses).all()):
+        raise AssertionError(f"cli train: losses at the logs {losses}")
+    if rec.step_starts[len(first_starts)][0] != TRAIN_STEPS or resumed.step_count != TRAIN_RESUMED:
+        raise AssertionError("the resumed run did not continue from the checkpoint's step")
+    if not (save / "best.pt").exists() or not (save / "final.pt").exists():
+        raise AssertionError("cli train wrote no best or final checkpoint")
+    # fnet frozen: bit-identical to the seeded start; every other group moved
+    start = StereoAnywhere(StereoAnywhereConfig(volume_corruption_prob=0.3), device="cpu",
+                           generator=torch.Generator().manual_seed(1337)).state_dict()
+    now = {k: v.cpu() for k, v in resumed.model.state_dict().items()}
+    if not all(torch.equal(now[k], v) for k, v in start.items() if k.startswith("fnet.")):
+        raise AssertionError("a frozen fnet parameter moved")
+    for group, tops in TRAIN_GROUPS.items():
+        if not any(not torch.equal(now[k], v) for k, v in start.items() if k.split(".")[0] in tops):
+            raise AssertionError(f"no parameter of the unfrozen group {group} moved")
+    if any(rec.step_launches.values()):
+        raise AssertionError(f"a kernel wrapper ran inside a train step: {rec.step_launches}")
+    val_calls = {n: 0 for n in COUNTERS}
+    for calls, metrics in rec.validations:
+        want = {n: 0 for n in COUNTERS} | {"dual_lookup": ITERS * 2}
+        if calls != want:
+            raise AssertionError(f"a validation of 2 samples called {calls}, expected {want}")
+        for n, c in calls.items():
+            val_calls[n] += c
+        print("train validation (2 Middlebury samples, 32 iterations): " + ", ".join(
+            f"{k} {metrics[k]:.4f}" for k in ("avgerr", "rms", "bad 2.0", "is_best")), flush=True)
+    # steady state: steps 16-20 of the first run, between two syncs: the log's float() after step 15
+    # (then step 16 starts) and the log's after step 20 (then the validation starts)
+    sps = (rec.validate_starts[1] - dict(first_starts)[15]) / 5
+    print(f"train {TRAIN_STEPS} + {TRAIN_RESUMED - TRAIN_STEPS} steps (crop 320x640, batch 2, 12 iterations, f32): "
+          f"first run {first_s:.1f} s in cli.main; {sps:.3f} s/step over steps 16-20 ({2 / sps:.2f} pairs/s), "
+          f"host clock between the logs' syncs at steps 15 and 20; device memory peak "
+          f"{peak / 1e9:.2f} GB; losses at the logs {[round(x, 3) for x in losses]}; wrapper calls in the "
+          f"train steps {rec.step_launches}", flush=True)
+    aug = DisparityAugmentor(crop_size=(320, 640), seed=0)
+    ds = fetch_dataset("sceneflow", path, test=False, mono="DAv2", augmentor=aug)
+    traced_train_step(resumed, default_collate([ds[0], ds[1]]))
+    return dict(rec.step_launches), val_calls
 
 
 def train_compare_phase() -> None:
@@ -2546,25 +2572,323 @@ def train_compare_phase() -> None:
              "gt": rng.uniform(1, 10, (b, h, w, 1)), "validgt": np.ones((b, h, w, 1)),
              "gt_right": rng.uniform(1, 10, (b, h, w, 1)), "validgt_right": np.ones((b, h, w, 1))}
     batch = {k: v.astype(np.float32) for k, v in batch.items()}
-    want, got = cpu.step(batch), card.step(batch)
-    torch.cuda.synchronize()
-    lw, lg = float(want["loss/total"]), float(got["loss/total"])
-    num = den = 0.0
-    worst_grad, worst_param = (0.0, ""), (0.0, "")
-    for (name, p), q in zip(cpu.named_trainable, card.params):
-        d, n = (q.grad.cpu() - p.grad).norm().item(), p.grad.norm().item()
-        num, den = num + d * d, den + n * n
-        worst_grad = max(worst_grad, (d / max(n, 1e-30), name))
-        moved = (q.detach().cpu() - p.detach()).abs().max().item()
-        worst_param = max(worst_param, (moved / (2 * lr + 1e-6 * p.detach().abs().max().item()), name))
-    glob = (num / den) ** 0.5
-    print(f"train step card vs CPU (64x128, 2 iterations, f32, TF32 off): loss {lg:.6f} / {lw:.6f} "
-          f"(rel. {abs(lg - lw) / abs(lw):.2e}, tol 1e-4); gradients: worst parameter {worst_grad[1]} at "
+    want, got = step_record(cpu, cpu.step(batch)), step_record(card, card.step(batch))
+    loss_rel, worst_grad, glob, worst_param = step_gaps(got, want, 2 * lr)
+    print(f"train step card vs CPU (64x128, 2 iterations, f32, TF32 off): loss {got['loss']:.6f} / "
+          f"{want['loss']:.6f} (rel. {loss_rel:.2e}, tol 1e-4); gradients: worst parameter {worst_grad[1]} at "
           f"{worst_grad[0]:.2e} of its norm (tol 4e-2), all together {glob:.2e} (tol 5e-3); parameters after the "
           f"step: worst {worst_param[1]} at {worst_param[0]:.3f} of its bound (2 lr + 1e-6 rel., lr {lr:.2e})",
           flush=True)
-    if not (abs(lg - lw) <= 1e-4 * abs(lw) and worst_grad[0] <= 4e-2 and glob <= 5e-3 and worst_param[0] <= 1.0):
+    if not (loss_rel <= 1e-4 and worst_grad[0] <= 4e-2 and glob <= 5e-3 and worst_param[0] <= 1.0):
         raise AssertionError("the train step on the card disagrees with the CPU")
+
+
+def step_record(trainer, logs: dict) -> dict:
+    """A step's loss, and each trainable parameter's gradient (as the
+    optimizer took it) and value after the step, on the host."""
+    return {"loss": float(logs["loss/total"]),
+            "grads": {n: p.grad.detach().to("cpu", torch.float32, copy=True) for n, p in trainer.named_trainable},
+            "params": {n: p.detach().to("cpu", copy=True) for n, p in trainer.named_trainable}}
+
+
+def step_gaps(got: dict, want: dict, bound: float) -> tuple[float, tuple, float, tuple]:
+    """`train_compare_phase`'s measures between two `step_record`s: the
+    loss's relative gap; the worst parameter's gradient gap over its norm
+    and the gap of all of them together; the worst parameter's gap after
+    the step over `bound` + 1e-6 of its magnitude."""
+    num = den = 0.0
+    worst_grad, worst_param = (0.0, ""), (0.0, "")
+    for name, g in want["grads"].items():
+        d, n = (got["grads"][name] - g).norm().item(), g.norm().item()
+        num, den = num + d * d, den + n * n
+        worst_grad = max(worst_grad, (d / max(n, 1e-30), name))
+        p = want["params"][name]
+        moved = (got["params"][name] - p).abs().max().item()
+        worst_param = max(worst_param, (moved / (bound + 1e-6 * p.abs().max().item()), name))
+    return abs(got["loss"] - want["loss"]) / abs(want["loss"]), worst_grad, (num / den) ** 0.5, worst_param
+
+
+# ---------------------------------------------------------------------------
+# training over processes, in mixed precision and with batch statistics
+
+DP_STEPS, TWO_RANK_STEPS, BF16_STEPS, BN_STEPS = 4, 2, 10, 5
+
+
+def train_dp_run(path: str, tmp: str) -> int:
+    """In a process of its own (`train_dp_phase`): `cli train` at the
+    reference configuration (synchronous loading, a log every step) as one
+    process and as rank 0 of a world of 1 under torchrun's environment
+    (`--multihost`: an NCCL group, its gradient all-reduce, the loss's and
+    the host's collectives).  First DP_STEPS steps of each in PyTorch's
+    deterministic mode: their losses, logs and every parameter and buffer
+    after the run must be equal bit for bit.  Then, out of that mode and
+    with 4 loader threads, 2 * DP_STEPS steps of each twice, in turns:
+    s/step over steps DP_STEPS + 1 to 2 DP_STEPS - 1 (host clock between
+    the logs' syncs), the difference being the cost of the collectives."""
+    from stereoanywhere_tpu_torch.parallel.multihost import free_port
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.benchmark = False
+    rec = _TrainRecorder()
+
+    def run(multihost: bool, steps: int, loader_threads: int) -> dict:
+        extra = ["--multihost"] if multihost else []
+        if multihost:
+            os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                              MASTER_PORT=str(free_port()))
+        save = Path(tempfile.mkdtemp(dir=tmp))
+        argv = train_argv(path, save) + ["--num-steps", str(steps), "--log-every", "1", "--save-every", "100",
+                                         "--loader-threads", str(loader_threads), *extra]
+        first = len(rec.step_starts)
+        with rec.installed(), redirect_stdout(io.StringIO()):
+            trainer = cli.main(argv)
+        starts = [t for _, t in rec.step_starts[first:]]
+        rows = [{k: v for k, v in json.loads(line).items() if k != "time"} for line in open(save / "metrics.jsonl")]
+        return dict(sps=(starts[-1] - starts[-DP_STEPS]) / (DP_STEPS - 1), rows=rows,
+                    state={k: v.cpu() for k, v in trainer.model.state_dict().items()})
+
+    torch.use_deterministic_algorithms(True)
+    a, b = run(False, DP_STEPS, 0), run(True, DP_STEPS, 0)  # synchronous loading: the same augmentation draws
+    torch.use_deterministic_algorithms(False)
+    # timed as cli train runs (4 loader threads), in turns: rank 0 of 1, one process, one process, rank 0 of 1
+    timed = [run(multihost, 2 * DP_STEPS, 4) for multihost in (True, False, False, True)]
+    timed_dp, timed_plain = [timed[0]["sps"], timed[3]["sps"]], [timed[1]["sps"], timed[2]["sps"]]
+    same_logs = a["rows"] == b["rows"]
+    same_state = a["state"].keys() == b["state"].keys() and all(torch.equal(v, b["state"][k])
+                                                                   for k, v in a["state"].items())
+    print(f"train dp: cli train at the reference configuration, {DP_STEPS} steps each in deterministic mode, one "
+          f"process and --multihost as rank 0 of 1 over NCCL: losses {[round(r['loss/total'], 4) for r in a['rows']]}; "
+          f"every log equal: {same_logs}; every parameter and buffer equal bit for bit: {same_state} (steps 1-3: "
+          f"{a['sps']:.3f} / {b['sps']:.3f} s/step).  Out of that mode, 4 loader threads, {2 * DP_STEPS} steps a "
+          f"run, in turns, s/step over steps {DP_STEPS + 1}-{2 * DP_STEPS - 1}: rank 0 of 1 over NCCL "
+          f"{timed_dp[0]:.4f}, {timed_dp[1]:.4f}; one process {timed_plain[0]:.4f}, {timed_plain[1]:.4f} (the "
+          f"difference of the means, {1e3 * (sum(timed_dp) - sum(timed_plain)) / 2:.1f} ms, is the gradient "
+          f"all-reduce and the loss's and host's collectives)", flush=True)
+    return 0 if same_logs and same_state else 1
+
+
+def train_dp_phase(tmp: Path, path: str) -> None:
+    """`train_dp_run` in a process of its own: deterministic mode needs
+    cuBLAS's workspace configured before the process's first product."""
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    code = f"import sys, chip_smoke; sys.exit(chip_smoke.train_dp_run({path!r}, {str(tmp)!r}))"
+    out = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parent, env=env,
+                         capture_output=True, text=True, timeout=600)
+    for line in out.stdout.splitlines():
+        print(line, flush=True)
+    if out.returncode != 0:
+        print(out.stderr[-4000:], file=sys.stderr, flush=True)
+        raise AssertionError("the data-parallel trainer at world size 1 over NCCL differs from the plain one")
+
+
+def two_rank_steps(rank: int, world: int) -> list[dict]:
+    """TWO_RANK_STEPS steps at 64x128, 2 iterations, f32 with TF32 off,
+    the volume corruption's noise branch forced and gt-as-mono on, of this
+    rank's slice of a global batch of 4 (its samples' valid densities
+    unequal), on cuda:0: each step's `step_record`, with the lr it took."""
+    from stereoanywhere_tpu_torch.config import TrainConfig
+    from stereoanywhere_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    sa_model.draw_corruption = lambda *a: (1, 1, 3)  # stereo noise, mask 1
+    tr = Trainer(StereoAnywhereConfig(volume_corruption_prob=1.0), TrainConfig(train_iters=2, gt_mono_prob=1.0), 10,
+                 device="cuda:0")
+    rng = np.random.default_rng(9)
+    b, h, w, n = 4, 64, 128, 4 // world
+    records = []
+    for _ in range(TWO_RANK_STEPS):
+        batch = {k: rng.uniform(0, 1, (b, h, w, c)) for k, c in (("im2_aug", 3), ("im3_aug", 3), ("mono2", 1),
+                                                                   ("mono3", 1))}
+        density = np.array([0.9, 0.9, 0.2, 0.2])[:, None, None, None]
+        batch.update(gt=rng.uniform(1, 10, (b, h, w, 1)), gt_right=rng.uniform(1, 10, (b, h, w, 1)),
+                     validgt=rng.uniform(0, 1, (b, h, w, 1)) < density,
+                     validgt_right=rng.uniform(0, 1, (b, h, w, 1)) < density)
+        batch = {k: v[rank * n:(rank + 1) * n].astype(np.float32) for k, v in batch.items()}
+        lr = tr.lr
+        records.append({**step_record(tr, tr.step(batch)), "lr": lr})
+    return records
+
+
+def _two_rank_worker(rank: int, world: int, init_method: str, out: str) -> None:
+    from stereoanywhere_tpu_torch.parallel import multihost as mh
+
+    mh.initialize_distributed("cuda:0", rank=rank, world_size=world, init_method=init_method, backend="gloo")
+    try:
+        torch.save(two_rank_steps(rank, world), f"{out}.{rank}")
+    finally:
+        mh.destroy_distributed()
+
+
+def train_two_rank_phase(tmp: Path) -> None:
+    """Two ranks on the one card over gloo with CUDA tensors (NCCL refuses
+    two ranks on one device), spawned, against one process on the whole
+    batch (`two_rank_steps`), each step within `train_compare_phase`'s
+    bounds (the parameters within 2 lr a step so far)."""
+    from stereoanywhere_tpu_torch.parallel.multihost import free_port
+
+    out = str(tmp / "two_rank")
+    ctx = torch.multiprocessing.start_processes(
+        _two_rank_worker, args=(2, f"tcp://127.0.0.1:{free_port()}", out), nprocs=2, join=False,
+        start_method="spawn")
+    try:
+        want = two_rank_steps(0, 1)
+        deadline = time.monotonic() + 300
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError("the two ranks did not finish within 300 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ok = True
+    for rank in range(2):
+        got = torch.load(f"{out}.{rank}", weights_only=False)
+        for step in range(TWO_RANK_STEPS):
+            bound = 2 * sum(r["lr"] for r in want[:step + 1])
+            loss_rel, worst_grad, glob, worst_param = step_gaps(got[step], want[step], bound)
+            print(f"train 2 ranks over gloo on cuda:0 vs one process, rank {rank} step {step + 1} (64x128, global "
+                  f"batch 4, 2 iterations, f32, TF32 off, noise corruption and gt-as-mono forced): loss "
+                  f"{got[step]['loss']:.6f} / {want[step]['loss']:.6f} (rel. {loss_rel:.2e}, tol 1e-4); gradients: "
+                  f"worst {worst_grad[1]} at {worst_grad[0]:.2e} of its norm (tol 4e-2), all together {glob:.2e} "
+                  f"(tol 5e-3); parameters: worst {worst_param[1]} at {worst_param[0]:.3f} of its bound", flush=True)
+            ok &= loss_rel <= 1e-4 and worst_grad[0] <= 4e-2 and glob <= 5e-3 and worst_param[0] <= 1.0
+    if not ok:
+        raise AssertionError("two ranks on the card disagree with one process on the global batch")
+
+
+def train_bf16_phase(tmp: Path, path: str, mb: Path) -> dict:
+    """`cli train --dtype bfloat16` at the reference configuration for
+    BF16_STEPS steps, logging every 5, validating on 2 Middlebury samples
+    at step 10 (a bf16 copy of the masters; K5 32 a sample): losses finite,
+    the masters f32, no kernel in a step; s/step over steps 6-10 (host
+    clock between the log's sync at step 5 and the validation), pairs/s,
+    the memory peak and one traced step.  Returns the validations' wrapper
+    calls."""
+    from stereoanywhere_tpu_torch.data.augmentor import DisparityAugmentor
+    from stereoanywhere_tpu_torch.data.datasets import fetch_dataset
+    from stereoanywhere_tpu_torch.data.loader import default_collate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.benchmark = False
+    save = tmp / "run_bf16"
+    argv = train_argv(path, save, "bfloat16") + [
+        "--num-steps", str(BF16_STEPS), "--save-every", "100", "--log-every", "5", "--val-datapath", str(mb),
+        "--val-dataset", "middlebury", "--val-every", "10", "--val-samples", "2"]
+    rec = _TrainRecorder()
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    with rec.installed(), redirect_stdout(log):
+        trainer = cli.main(argv)
+    peak = torch.cuda.max_memory_allocated()
+    for line in log.getvalue().splitlines():
+        print(f"  cli train --dtype bfloat16: {line}", flush=True)
+    losses = [r["loss/total"] for r in map(json.loads, open(save / "metrics.jsonl")) if "loss/total" in r]
+    if not (len(losses) == BF16_STEPS // 5 and np.isfinite(losses).all()):
+        raise AssertionError(f"cli train --dtype bfloat16: losses at the logs {losses}")
+    if any(p.dtype != torch.float32 for p in trainer.model.parameters()) or any(rec.step_launches.values()):
+        raise AssertionError("bf16 training: a master parameter left f32, or a kernel wrapper ran in a step")
+    val_calls = {n: 0 for n in COUNTERS}
+    for calls, metrics in rec.validations:
+        if calls != {n: 0 for n in COUNTERS} | {"dual_lookup": ITERS * 2}:
+            raise AssertionError(f"a bf16 validation of 2 samples called {calls}")
+        val_calls = {n: val_calls[n] + c for n, c in calls.items()}
+        print(f"train bf16 validation (2 Middlebury samples, 32 iterations, the bf16 copy): avgerr "
+              f"{metrics['avgerr']:.4f}, bad 2.0 {metrics['bad 2.0']:.4f}", flush=True)
+    sps = (rec.validate_starts[0] - dict(rec.step_starts)[5]) / 5
+    print(f"train bf16 {BF16_STEPS} steps (crop 320x640, batch 2, 12 iterations, bf16 on f32 masters): {sps:.3f} "
+          f"s/step over steps 6-10 ({2 / sps:.2f} pairs/s); device memory peak {peak / 1e9:.2f} GB; losses at the "
+          f"logs {[round(x, 3) for x in losses]}", flush=True)
+    ds = fetch_dataset("sceneflow", path, test=False, mono="DAv2",
+                       augmentor=DisparityAugmentor(crop_size=(320, 640), seed=0))
+    traced_train_step(trainer, default_collate([ds[0], ds[1]]))
+    return val_calls
+
+
+def train_bf16_compare_phase() -> None:
+    """One mixed-precision step at 64x128, 2 iterations (TF32 off), on the
+    card and on the CPU, and an f32 step on the CPU, from the same weights:
+    the card's clipped bf16 gradient within twice the CPU's own gap between
+    its bf16 and f32 gradients of the CPU's bf16 gradient, norm-wise (the
+    rule `tests/test_torch_trainer.py` holds the CPU to against JAX), and
+    the loss within twice the CPU's own bf16-vs-f32 gap or 1e-4
+    relative."""
+    import dataclasses
+
+    from stereoanywhere_tpu_torch.config import TrainConfig
+    from stereoanywhere_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    cfg, tc = StereoAnywhereConfig(volume_corruption_prob=0.0), TrainConfig(train_iters=2, gt_mono_prob=0.0)
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    rng = np.random.default_rng(8)
+    b, h, w = 2, 64, 128
+    batch = {k: rng.uniform(0, 1, (b, h, w, c)).astype(np.float32)
+             for k, c in (("im2_aug", 3), ("im3_aug", 3), ("mono2", 1), ("mono3", 1))}
+    batch.update({k: rng.uniform(1, 10, (b, h, w, 1)).astype(np.float32) for k in ("gt", "gt_right")},
+                 validgt=np.ones((b, h, w, 1), np.float32), validgt_right=np.ones((b, h, w, 1), np.float32))
+    rec = {}
+    for label, c, dev in (("cpu f32", cfg, "cpu"), ("cpu bf16", bf16, "cpu"), ("card bf16", bf16, "cuda")):
+        tr = Trainer(c, tc, 10, device=dev)
+        rec[label] = step_record(tr, tr.step(batch))
+    flat = {k: torch.cat([g.reshape(-1) for g in r["grads"].values()]) for k, r in rec.items()}
+    ref = flat["cpu f32"].norm().item()
+    own = (flat["cpu bf16"] - flat["cpu f32"]).norm().item() / ref
+    gap = (flat["card bf16"] - flat["cpu bf16"]).norm().item() / ref
+    loss_own = abs(rec["cpu bf16"]["loss"] - rec["cpu f32"]["loss"]) / abs(rec["cpu f32"]["loss"])
+    loss_gap = abs(rec["card bf16"]["loss"] - rec["cpu bf16"]["loss"]) / abs(rec["cpu f32"]["loss"])
+    print(f"train bf16 step card vs CPU (64x128, 2 iterations, TF32 off): loss {rec['card bf16']['loss']:.5f} / "
+          f"{rec['cpu bf16']['loss']:.5f} (f32 {rec['cpu f32']['loss']:.5f}; gap {loss_gap:.2e}, tol "
+          f"{max(2 * loss_own, 1e-4):.2e}); clipped gradients, norm-wise: card vs CPU {gap:.3e}, the CPU's own "
+          f"bf16 vs f32 {own:.3e} (tol 2x)", flush=True)
+    if not (0 < own and gap <= 2 * own and loss_gap <= max(2 * loss_own, 1e-4)):
+        raise AssertionError("the bf16 train step on the card disagrees with the CPU's")
+
+
+def train_batch_stats_phase(path: str) -> None:
+    """`freeze_bn=False` at the reference configuration (crop 320x640,
+    batch 2, 12 iterations, fnet frozen, corruption 0.3) through `Trainer`
+    (the CLI has no switch for it, as the JAX CLI has none), beside the
+    same trainer with `freeze_bn=True`: BN_STEPS steps each on the same
+    batches, loaded beforehand, a sync after each; s/step over the last
+    three, losses finite, every running statistic moved with batch
+    statistics and none without."""
+    from stereoanywhere_tpu_torch.config import TrainConfig
+    from stereoanywhere_tpu_torch.data.augmentor import DisparityAugmentor
+    from stereoanywhere_tpu_torch.data.datasets import fetch_dataset
+    from stereoanywhere_tpu_torch.data.loader import default_collate
+    from stereoanywhere_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.benchmark = False
+    ds = fetch_dataset("sceneflow", path, test=False, mono="DAv2",
+                       augmentor=DisparityAugmentor(crop_size=(320, 640), seed=0))
+    batches = [default_collate([ds[2 * i % len(ds)], ds[(2 * i + 1) % len(ds)]]) for i in range(BN_STEPS)]
+    runs = {}
+    for freeze_bn in (True, False):
+        tr = Trainer(StereoAnywhereConfig(freeze_bn=freeze_bn, volume_corruption_prob=0.3), TrainConfig(), 100,
+                     device="cuda")
+        stats = {k: v.clone() for k, v in tr.model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+        starts, losses = [], []
+        for batch in batches:
+            starts.append(time.perf_counter())
+            losses.append(float(tr.step(batch)["loss/total"]))
+        now = tr.model.state_dict()
+        runs[freeze_bn] = dict(sps=(time.perf_counter() - starts[-3]) / 3, losses=losses, stats=len(stats),
+                               moved=sum(not torch.equal(now[k], v) for k, v in stats.items()))
+    on, off = runs[False], runs[True]
+    print(f"train freeze_bn=False ({BN_STEPS} steps, crop 320x640, batch 2, 12 iterations, f32): {on['sps']:.3f} "
+          f"s/step over the last 3, against {off['sps']:.3f} with freeze_bn=True on the same batches (loaded "
+          f"beforehand, a sync a step); losses {[round(x, 3) for x in on['losses']]}; running statistics moved: "
+          f"{on['moved']} of {on['stats']} (freeze_bn=True: {off['moved']})", flush=True)
+    if not (np.isfinite(on["losses"]).all() and on["moved"] == on["stats"] and off["moved"] == 0):
+        raise AssertionError("freeze_bn=False: a loss is not finite, or the running statistics moved wrongly")
 
 
 def ab_rows() -> list[dict]:
@@ -2679,8 +3003,19 @@ def main() -> int:
     highres, booster = highres_phase()
     evaluated = eval_phase()
     eval_compare_phase()
-    trained, validated = train_phase()
-    train_compare_phase()
+    tmp = Path(tempfile.mkdtemp(prefix="sa_train_"))
+    try:
+        path, mb = write_train_data(tmp)
+        trained, validated = train_phase(tmp, path, mb)
+        train_compare_phase()
+        train_dp_phase(tmp, path)
+        train_two_rank_phase(tmp)
+        bf16_validated = train_bf16_phase(tmp, path, mb)
+        train_bf16_compare_phase()
+        train_batch_stats_phase(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    validated = {n: c + bf16_validated[n] for n, c in validated.items()}
     if GRAPH_FAILURES:
         raise AssertionError("replays differ from eager: " + "; ".join(GRAPH_FAILURES))
     kernels = []

@@ -27,10 +27,20 @@ programs on graphs too (`eval/programs.py`).  With `--dtype float32` the
 card runs cuDNN's convolutions in TF32 (PyTorch's default,
 `torch.backends.cudnn.allow_tf32`) and the matrix products in f32.
 `--mono-encoder` takes vits, vitb, vitl or vitg.  `train` starts from
-`--checkpoint` when one is given (the JAX CLI ignores it there) and trains
-in float32 only.  Not ported yet, and refused: flax `.msgpack`
-checkpoints, `--shard-rows` (row sharding over several cards) and `train`'s
-`--data-parallel` above 1 and `--multihost` (ROADMAP §1 item 1).
+`--checkpoint` when one is given (the JAX CLI ignores it there); with
+`--dtype bfloat16` it trains in mixed precision on f32 master weights.
+`train --data-parallel N` spawns N processes, one a card (`cuda:0..N-1`;
+gloo processes with `--device cpu`), with a local rendezvous; `train
+--multihost` is one process of a launch by torchrun (or by hand, with
+torchrun's environment: RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+MASTER_PORT):
+
+  torchrun --nproc-per-node 4 -m stereoanywhere_tpu_torch.cli train --multihost \
+      --dataset sceneflow --datapath "ft;monkaa;driving" --mono-precomputed DAv2 --batch-size 8
+
+Either way `--batch-size` is the global batch, which each process loads a
+slice of.  Not ported yet, and refused: flax `.msgpack` checkpoints and
+`--shard-rows` (row sharding over several cards).
 """
 from __future__ import annotations
 
@@ -45,13 +55,16 @@ from stereoanywhere_tpu_torch.config import MonoConfig, StereoAnywhereConfig
 from stereoanywhere_tpu_torch.device import resolve_device, torch_dtype
 
 
-def _load_stereo(checkpoint: str | None, cfg: StereoAnywhereConfig, device: str = "cuda"):
-    """The stereo model on `device`: the checkpoint's weights, or seeded
-    random ones (seed 0) without one."""
+def _load_stereo(checkpoint: str | None, cfg: StereoAnywhereConfig, device: str = "cuda",
+                 param_dtype: torch.dtype | None = None):
+    """The stereo model on `device`, its parameters in `param_dtype` (by
+    default the compute dtype): the checkpoint's weights, or seeded random
+    ones (seed 0) without one."""
     from stereoanywhere_tpu_torch.compat.torch_checkpoint import load_state_dict_into, load_torch_state_dict
     from stereoanywhere_tpu_torch.models.stereoanywhere import StereoAnywhere
 
-    model = StereoAnywhere(cfg, device=resolve_device(device), generator=torch.Generator().manual_seed(0))
+    model = StereoAnywhere(cfg, device=resolve_device(device), generator=torch.Generator().manual_seed(0),
+                           param_dtype=param_dtype)
     if checkpoint:
         load_state_dict_into(model, load_torch_state_dict(checkpoint))
     return model
@@ -165,19 +178,60 @@ def _print_published_comparison(dataset: str, means: dict, have_ckpt: bool):
 
 
 def cmd_train(args):
-    """The JAX CLI's `cmd_train` on one device: the readers with the
-    augmentor, the prefetch loader, `Trainer` steps, logs every
-    `--log-every` steps (the only host syncs), validation with
-    best-checkpoint selection, `latest` every `--save-every` steps and
-    `final` (or `stopped` after SIGTERM / SIGUSR1) at the end.  Returns the
-    trainer."""
+    """The JAX CLI's `cmd_train`: the readers with the augmentor, the
+    prefetch loader, `Trainer` steps, logs every `--log-every` steps (the
+    only host syncs), validation with best-checkpoint selection, `latest`
+    every `--save-every` steps and `final` (or `stopped` after SIGTERM /
+    SIGUSR1) at the end.  With `--data-parallel N` it spawns N ranks and
+    returns None; otherwise it returns the trainer."""
+    from stereoanywhere_tpu_torch.parallel import multihost as mh
+
+    if args.data_parallel > 1:
+        mh.check_data_axis(args.data_parallel, args.device)
+        torch.multiprocessing.start_processes(
+            _data_parallel_rank, args=(args, f"tcp://127.0.0.1:{mh.free_port()}"), nprocs=args.data_parallel,
+            start_method="spawn")
+        return None
+    if not args.multihost:
+        return _train(args, resolve_device(args.device))
+    device = mh.initialize_distributed(args.device)
+    try:
+        return _train(args, resolve_device(device))
+    finally:
+        mh.destroy_distributed()
+
+
+def _data_parallel_rank(rank: int, args, init_method: str) -> None:
+    """One rank of `train --data-parallel N`, in a spawned process; on the
+    CPU with its share of the cores (N processes of all cores' threads
+    each would wait on one another, as torchrun's OMP_NUM_THREADS=1
+    avoids)."""
+    from stereoanywhere_tpu_torch.parallel import multihost as mh
+
+    if torch.device(args.device).type == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // args.data_parallel))
+
+    device = mh.initialize_distributed(args.device, rank=rank, world_size=args.data_parallel,
+                                       init_method=init_method)
+    try:
+        _train(args, resolve_device(device))
+    finally:
+        mh.destroy_distributed()
+
+
+def _train(args, device: torch.device):
+    """`cmd_train`'s loop as one rank (or the only process): each rank loads
+    its slice of the global batch; rank 0 alone writes the provenance, the
+    metric log and the checkpoints and validates while the others wait;
+    the stop flag is agreed on every step."""
     from stereoanywhere_tpu_torch.config import TrainConfig
     from stereoanywhere_tpu_torch.data.augmentor import DisparityAugmentor
     from stereoanywhere_tpu_torch.data.datasets import fetch_dataset
     from stereoanywhere_tpu_torch.data.loader import PrefetchLoader
+    from stereoanywhere_tpu_torch.parallel import multihost as mh
     from stereoanywhere_tpu_torch.train.trainer import Trainer
 
-    device = resolve_device(args.device)
+    rank, world = mh.rank_and_world()
     tc = TrainConfig(
         lr=args.lr, batch_size=args.batch_size, epochs=args.epochs,
         crop_h=args.crop_h, crop_w=args.crop_w, train_iters=args.iters,
@@ -185,54 +239,61 @@ def cmd_train(args):
         gt_mono_prob=args.gt_mono_prob,
         things_to_freeze=tuple(filter(None, args.freeze.split(","))),
     )
+    mh.host_local_batch_size(tc.batch_size)
     aug = DisparityAugmentor(crop_size=(tc.crop_h, tc.crop_w), seed=tc.seed)
     ds = fetch_dataset(args.dataset, args.datapath, test=False, mono=args.mono_precomputed, augmentor=aug)
     steps_per_epoch = max(len(ds) // tc.batch_size, 1)
     total = tc.num_steps if tc.num_steps > 0 else steps_per_epoch * tc.epochs
     model_cfg = StereoAnywhereConfig(compute_dtype=args.dtype, volume_corruption_prob=args.corruption_prob)
-    model = _load_stereo(args.checkpoint, model_cfg, device) if args.checkpoint else None
+    model = _load_stereo(args.checkpoint, model_cfg, device, torch.float32) if args.checkpoint else None
     trainer = Trainer(model_cfg, tc, total, device=device, checkpoint_dir=args.savedir, model=model)
     if args.resume:
         trainer.restore(args.resume)
 
     logger = None
-    if args.savedir:
+    if args.savedir and rank == 0:
         from stereoanywhere_tpu_torch.utils.logging import MetricLogger, save_run_provenance
 
         save_run_provenance(args.savedir, {"model": trainer.model.cfg, "train": tc})
         logger = MetricLogger(args.savedir)
     val_ds = None
-    if args.val_datapath:
+    if args.val_datapath and rank == 0:
         val_ds = fetch_dataset(args.val_dataset, args.val_datapath, test=True, mono=args.mono_precomputed)
 
     step = trainer.step_count
-    print(f"training: {len(ds)} pairs, {total} steps, starting at {step} ({device})")
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"training: {len(ds)} pairs, {total} steps, starting at {step} ({device}"
+        + (f", {world} ranks)" if world > 1 or mh.distributed() else ")"))
     t0 = time.time()
     with PrefetchLoader(ds, tc.batch_size, total, seed=tc.seed, start_step=step,
-                        num_threads=args.loader_threads) as loader:
+                        num_threads=args.loader_threads, shard_index=rank, shard_count=world) as loader:
         for step0, batch in loader:
-            if trainer.stop_requested:
+            if mh.stop_consensus(trainer.stop_requested):
                 break
             logs = trainer.step(batch)
             step = step0 + 1
             if step % args.log_every == 0:
-                print(f"step {step}/{total} loss {float(logs['loss/total']):.4f} "
-                      f"epe {float(logs['epe/final']):.3f} ({(time.time() - t0) / args.log_every:.2f}s/step)")
+                say(f"step {step}/{total} loss {float(logs['loss/total']):.4f} "
+                    f"epe {float(logs['epe/final']):.3f} ({(time.time() - t0) / args.log_every:.2f}s/step)")
                 t0 = time.time()
                 if logger is not None:
                     logger.log(step, logs)
-            if val_ds is not None and step % args.val_every == 0:
-                vm = trainer.validate(val_ds, metric=args.val_metric, dataset_name=args.val_dataset,
-                                      max_samples=args.val_samples)
-                print(f"val @ {step}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(vm.items())))
-                if logger is not None:
-                    logger.log(step, {f"val/{k}": v for k, v in vm.items()})
+            if args.val_datapath and step % args.val_every == 0:
+                if val_ds is not None:
+                    vm = trainer.validate(val_ds, metric=args.val_metric, dataset_name=args.val_dataset,
+                                          max_samples=args.val_samples)
+                    say(f"val @ {step}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(vm.items())))
+                    if logger is not None:
+                        logger.log(step, {f"val/{k}": v for k, v in vm.items()})
+                mh.barrier()
             if args.savedir and step % args.save_every == 0:
                 trainer.save("latest")
+    stopped = mh.stop_consensus(trainer.stop_requested)  # every rank picks the same tag
     if args.savedir:
-        trainer.save("stopped" if trainer.stop_requested else "final")
+        trainer.save("stopped" if stopped else "final")
     if logger is not None:
         logger.close()
+    mh.barrier()
     return trainer
 
 
@@ -351,7 +412,8 @@ def main(argv=None):
     pt.add_argument("--epochs", type=int, default=3)
     pt.add_argument("--crop-h", type=int, default=320)
     pt.add_argument("--crop-w", type=int, default=640)
-    pt.add_argument("--data-parallel", type=int, default=1, help="not ported yet: only 1")
+    pt.add_argument("--data-parallel", type=int, default=1,
+                    help="spawn N ranks, one a card (gloo processes with --device cpu)")
     pt.add_argument("--num-steps", type=int, default=0,
                     help="override total steps (0 = epochs * dataset/batch)")
     pt.add_argument("--seed", type=int, default=1337)
@@ -369,7 +431,8 @@ def main(argv=None):
     pt.add_argument("--val-every", type=int, default=1000)
     pt.add_argument("--val-metric", default="bad 2.0")
     pt.add_argument("--val-samples", type=int, default=None)
-    pt.add_argument("--multihost", action="store_true", help="not ported yet")
+    pt.add_argument("--multihost", action="store_true",
+                    help="one rank of a torchrun launch (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT)")
     pt.add_argument("--savedir", default=None)
     pt.add_argument("--resume", default=None, help="a checkpoint tag saved in --savedir: latest, best, ...")
     pt.add_argument("--log-every", type=int, default=20)
@@ -411,9 +474,8 @@ def main(argv=None):
                     "give the reference's PyTorch .pth / .tar file")
     if getattr(args, "shard_rows", 1) != 1:
         p.error("--shard-rows: row sharding over several cards (parallel/spatial.py) is not ported yet")
-    if getattr(args, "data_parallel", 1) != 1 or getattr(args, "multihost", False):
-        p.error("--data-parallel above 1 and --multihost: training over several cards or hosts waits for "
-                "ROADMAP §1 item 1, which is not ported yet")
+    if getattr(args, "data_parallel", 1) > 1 and args.multihost:
+        p.error("--data-parallel spawns its own ranks and --multihost joins a launch's: give one")
     return args.fn(args)
 
 

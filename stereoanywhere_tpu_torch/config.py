@@ -58,9 +58,9 @@ class StereoAnywhereConfig:
     init_disparity_zero: bool = False
 
     # Training: BatchNorm on its running statistics (the reference calls
-    # freeze_bn() every step; the port refuses batch statistics), the
-    # number of masks the volume corruption picks one from, and the
-    # corruption's per-branch probability
+    # freeze_bn() every step; False: on the batch's), the number of masks
+    # the volume corruption picks one from, and the corruption's
+    # per-branch probability
     freeze_bn: bool = True
     vol_aug_n_masks: int = 4
     volume_corruption_prob: float = 0.33

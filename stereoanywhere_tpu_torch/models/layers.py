@@ -2,9 +2,10 @@
 
 - `InstanceNorm`: per-sample, per-channel over the spatial axes, no affine;
   statistics in f32, applied in the input dtype.
-- `BatchNorm`: frozen, running statistics only (the reference freezes
-  BatchNorm at every training step), torch's parameter/buffer names minus
-  `num_batches_tracked`.
+- `BatchNorm`: running statistics (the reference freezes BatchNorm at
+  every training step), or, inside `batch_statistics`, the batch's
+  (flax's `use_running_average=False`: over the global batch under several
+  ranks); torch's parameter/buffer names minus `num_batches_tracked`.
 - `ResidualBlock`, `BasicConv`: the reference blocks.
 - `init_weights`: random initialization with the JAX package's initializer
   families (truncated-normal He fan-out for convs, LeCun for dense layers),
@@ -13,10 +14,13 @@
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from stereoanywhere_tpu_torch.parallel.multihost import sum_over_ranks
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -38,11 +42,20 @@ class InstanceNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm2d that always normalizes with its running statistics."""
+    """BatchNorm2d with torch's defaults (eps 1e-5, momentum 0.1), applied
+    in the input's dtype.  It normalizes with its running statistics unless
+    `batch_statistics` is set: then with the batch's mean and biased
+    variance E[x^2] - mean^2 in f32 over (B, H, W), summed over the ranks
+    with autograd through the sum, and it updates the running statistics as
+    flax does (0.9 ra + 0.1 batch, the variance unbiased by n / (n - 1), n
+    the global count)."""
+
+    momentum = 0.9  # flax's convention: the weight of the running value
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.batch_statistics = False
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -50,10 +63,37 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        inv = torch.rsqrt(self.running_var.float() + self.eps).to(x.dtype) * self.weight.to(x.dtype)
-        return (x - self.running_mean.to(x.dtype).view(shape)) * inv.view(shape) + self.bias.to(
-            x.dtype
-        ).view(shape)
+        mean, var = self._batch_moments(x) if self.batch_statistics else (self.running_mean, self.running_var)
+        inv = torch.rsqrt(var.float() + self.eps).to(x.dtype) * self.weight.to(x.dtype)
+        return (x - mean.to(x.dtype).view(shape)) * inv.view(shape) + self.bias.to(x.dtype).view(shape)
+
+    def _batch_moments(self, x):
+        c = x.shape[1]
+        dims = (0, *range(2, x.ndim))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        sums = sum_over_ranks(torch.cat([xf.sum(dims), (xf * xf).sum(dims), xf.new_full((1,), x.numel() // c)]))
+        n = sums[-1]
+        mean = sums[:c] / n
+        var = sums[c:2 * c] / n - mean * mean
+        with torch.no_grad():
+            unbiased = var * (n / (n - 1).clamp(min=1.0))
+            self.running_mean.copy_(self.momentum * self.running_mean + (1 - self.momentum) * mean)
+            self.running_var.copy_(self.momentum * self.running_var + (1 - self.momentum) * unbiased)
+        return mean, var
+
+
+@contextmanager
+def batch_statistics(model: nn.Module, on: bool):
+    """Every BatchNorm of `model` on the batch's statistics inside the block
+    (when `on`), on its running ones after it."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.batch_statistics = on
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.batch_statistics = False
 
 
 def _norm(kind: str, features: int) -> nn.Module:

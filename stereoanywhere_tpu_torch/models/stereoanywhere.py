@@ -25,8 +25,12 @@ stop-gradient points (the confidence classifier's input, the truncation
 mask, the coordinates at each iteration, a corrupted volume).  Its lookups
 are the plain gather (`ops/corr_lookup.py`), differentiable, as the JAX
 package runs its XLA lookups there: no kernel of either package has a
-backward pass.  BatchNorm runs on its running statistics (`freeze_bn`);
-batch statistics are refused.
+backward pass.  BatchNorm (the context encoder's) runs on its running
+statistics with `freeze_bn` (the reference's default) and on the batch's
+otherwise, updating the running statistics as flax does.  Under several
+ranks (`parallel/multihost.py`) the batch is the global one: BatchNorm's
+statistics, the "zero" corruption's max and the "noise" corruption's draw
+are the global batch's, so N ranks compute what one process computes.
 
 Inputs: image2, image3 (B,H,W,3) in [0,1]; mde2, mde3 (B,H,W,1) normalized
 mono depth; H and W multiples of 32.
@@ -41,7 +45,7 @@ from stereoanywhere_tpu_torch.config import StereoAnywhereConfig
 from stereoanywhere_tpu_torch.device import resolve_device, torch_dtype
 from stereoanywhere_tpu_torch.models.extractor import ContextEncoder, FeatureEncoder
 from stereoanywhere_tpu_torch.models.hourglass import Hourglass
-from stereoanywhere_tpu_torch.models.layers import LECUN, conv_in_dtype, init_weights
+from stereoanywhere_tpu_torch.models.layers import LECUN, batch_statistics, conv_in_dtype, init_weights
 from stereoanywhere_tpu_torch.models.update import (
     MultiUpdateBlock,
     fused_refinement_step,
@@ -73,6 +77,7 @@ from stereoanywhere_tpu_torch.ops.volume import (
     masked_volume,
     truncate_corr_volume,
 )
+from stereoanywhere_tpu_torch.parallel.multihost import all_reduce_max, rank_and_world
 
 
 CORRUPTIONS = ("stereo roll", "stereo noise", "stereo zero", "mono roll", "mono noise", "mono zero")
@@ -95,15 +100,16 @@ def corrupt_volume(vol: torch.Tensor, kind: str, mask: torch.Tensor, shift: int,
     """One volume (B,H,W2,W3) corrupted where mask (B,H,W2,1) is 1, blended
     in the volume's dtype: "roll" takes the volume rolled by `shift` along
     W2, "noise" scales it by `noise` (B,H,W2,1) in [0, 1), "zero" by a
-    Gaussian curve peaked at zero disparity, of height max(vol).  Detached,
-    as the reference detaches the blended result."""
+    Gaussian curve peaked at zero disparity, of height max(vol) over the
+    global batch.  Detached, as the reference detaches the blended result."""
     m = mask.to(vol.dtype)
     if kind == "roll":
         out = vol * (1 - m) + torch.roll(vol, shift, dims=2) * m
     elif kind == "noise":
         out = vol * (1 - m) + vol * noise.to(vol.dtype) * m
     elif kind == "zero":
-        curve = gauss_corr_volume(torch.zeros_like(mask[..., 0]).unsqueeze(1), vol.max()).to(vol.dtype)
+        peak = all_reduce_max(vol.max().reshape(1))[0]
+        curve = gauss_corr_volume(torch.zeros_like(mask[..., 0]).unsqueeze(1), peak).to(vol.dtype)
         out = vol * (1 - m) + vol * curve * m
     else:
         raise ValueError(f"unknown corruption {kind!r}")
@@ -119,13 +125,16 @@ def _classifier(ch: int) -> nn.Conv3d:
 class StereoAnywhere(nn.Module):
     """The stereo network.  `device` defaults to the card and raises without
     one unless "cpu" is asked for; weights are random from `generator`
-    (default seed 0) until loaded."""
+    (default seed 0) until loaded.  The parameters are held in
+    `param_dtype`, by default the compute dtype; a trainer in mixed
+    precision holds f32 masters (`train/trainer.py`)."""
 
     def __init__(
         self,
         cfg: StereoAnywhereConfig = StereoAnywhereConfig(),
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
+        param_dtype: torch.dtype | None = None,
     ):
         super().__init__()
         dev = resolve_device(device)
@@ -139,7 +148,7 @@ class StereoAnywhere(nn.Module):
         self.classifier_monoconf = _classifier(cfg.volume_channels)
         self.update_block = MultiUpdateBlock(dims, cfg.n_gru_layers, cfg.n_downsample, cfg.corr_channels)
         init_weights(self, generator or torch.Generator().manual_seed(0))
-        self.to(device=dev, dtype=torch_dtype(cfg.compute_dtype))
+        self.to(device=dev, dtype=param_dtype or torch_dtype(cfg.compute_dtype))
 
     def fused_step_used(self, net0_shape) -> bool:
         """The JAX package's gate for the rotated, fused loop
@@ -167,18 +176,18 @@ class StereoAnywhere(nn.Module):
         if test_mode:
             with torch.no_grad():
                 return self._forward(image2, image3, mde2, mde3, iters, True, None)
-        if not self.cfg.freeze_bn:
-            raise ValueError("freeze_bn=False: the port's BatchNorm runs on its running statistics only; "
-                             "batch statistics are not ported")
         if self.cfg.volume_corruption_prob > 0 and generator is None:
             raise ValueError("the train-mode forward corrupts its volumes: give it a host torch.Generator")
-        return self._forward(image2, image3, mde2, mde3, iters, False, generator)
+        with batch_statistics(self, not self.cfg.freeze_bn):
+            return self._forward(image2, image3, mde2, mde3, iters, False, generator)
 
     def _corrupt_volumes(self, stereo_vol, mono_vol, mde2_low, w4: int, generator: torch.Generator):
         """The JAX package's `_corrupt_volumes`: one of six corruptions or none,
         drawn from `generator` (the branch, mask and shift on the host; the
         noise on the volumes' device from a seed drawn from it, so nothing
-        waits for the device).  Only the corrupted volume is detached."""
+        waits for the device).  The noise is the global batch's draw, of
+        which each rank takes its own rows.  Only the corrupted volume is
+        detached."""
         cfg = self.cfg
         branch, mask_index, shift = draw_corruption(cfg.volume_corruption_prob, cfg.vol_aug_n_masks, w4, generator)
         if branch == 6:
@@ -189,7 +198,10 @@ class StereoAnywhere(nn.Module):
         if kind == "noise":
             seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
             dev_gen = torch.Generator(device=mask.device).manual_seed(seed)
-            noise = torch.rand(mask.shape, generator=dev_gen, device=mask.device)
+            rank, world = rank_and_world()
+            b = mask.shape[0]
+            noise = torch.rand((b * world, *mask.shape[1:]), generator=dev_gen, device=mask.device)
+            noise = noise[rank * b:(rank + 1) * b]
         if which == "stereo":
             return corrupt_volume(stereo_vol, kind, mask, shift, noise), mono_vol
         return stereo_vol, corrupt_volume(mono_vol, kind, mask, shift, noise)

@@ -6,6 +6,15 @@ loss stays on the device (no host sync).  Sign convention: the model's
 outputs and gt are both POSITIVE disparity (the reference compares negative
 flow to -gt, train.py:298: the same math).  Maps are NHWC, as the model
 returns them.
+
+Over several ranks (`parallel/multihost.py`) each rank holds a slice of the
+global batch, and the JAX package's masked means are over the global
+batch's valid pixels.  So every denominator, the right view's gate and the
+finiteness guard are the global batch's (SUM all-reduces, no gradient), a
+rank's loss is its numerators over those denominators, and the ranks' losses
+(and their gradients) SUM to the one-process loss on the whole batch.  The
+logs are the global values.  Without a process group the reductions are
+the identity, and the arithmetic is the one-process arithmetic.
 """
 from __future__ import annotations
 
@@ -17,11 +26,13 @@ import torch.nn.functional as F
 
 from stereoanywhere_tpu_torch.config import TrainConfig
 from stereoanywhere_tpu_torch.ops.geometry import estimate_normals, joint_minmax_normalize
+from stereoanywhere_tpu_torch.parallel.multihost import all_reduce_sum
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    m = mask.to(x.dtype)
-    return (x * m).sum() / m.sum().clamp(min=1.0)
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """sum(x over mask) / max(count, 1), `count` the mask's count over the
+    global batch."""
+    return (x * mask.to(x.dtype)).sum() / count.clamp(min=1.0)
 
 
 def correlation_score(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -35,9 +46,10 @@ def _normals(disp: torch.Tensor, normal_gain: float) -> torch.Tensor:
     return estimate_normals(nchw, disp.shape[2] / normal_gain).permute(0, 2, 3, 1)
 
 
-def _normal_loss(disp: torch.Tensor, normals_ref: torch.Tensor, mask: torch.Tensor, normal_gain: float):
+def _normal_loss(disp: torch.Tensor, normals_ref: torch.Tensor, mask: torch.Tensor, normal_gain: float,
+                 count: torch.Tensor):
     d = joint_minmax_normalize([disp.permute(0, 3, 1, 2)])[0].permute(0, 2, 3, 1)
-    return masked_mean(1.0 - correlation_score(_normals(d, normal_gain), normals_ref), mask)
+    return masked_mean(1.0 - correlation_score(_normals(d, normal_gain), normals_ref), mask, count)
 
 
 def stereoanywhere_loss(
@@ -66,23 +78,41 @@ def stereoanywhere_loss(
         max_disp = cfg.max_disp
     preds = outputs["disparities"]
     n_pred = preds.shape[0]
-    mask = (validgt > 0) & (gt < max_disp)
     th = cfg.lrc_th
     div_const = math.log(1 + math.exp(th))
 
-    def conf_bce(conf, disp, gt_, mask_):
+    # the masks (border masks: reference train.py:319-321,349-350), and their
+    # counts over the global batch (one all-reduce; the right view's terms
+    # count only when some right gt is valid there)
+    mask = (validgt > 0) & (gt < max_disp)
+    mask_right = (validgt_right > 0) & (gt_right < max_disp)
+    w = gt.shape[2]
+    xx = torch.arange(w, dtype=gt.dtype, device=gt.device).view(1, 1, w, 1)
+    left_border = (xx - gt >= 0) if cfg.use_border_mask else torch.ones_like(gt, dtype=torch.bool)
+    right_border = (xx + gt_right < w) if cfg.use_border_mask else torch.ones_like(gt, dtype=torch.bool)
+    masks = {"left": mask, "left_border": mask & left_border, "right": mask_right,
+             "right_border": mask_right & right_border}
+    counts = all_reduce_sum(torch.stack([m.sum(dtype=torch.float32) for m in masks.values()]
+                                        + [validgt_right.sum(dtype=torch.float32)]))
+    count = dict(zip(masks, counts))
+    has_right = (counts[-1] > 0).to(preds.dtype)
+
+    def mean(x, key):
+        return masked_mean(x, masks[key], count[key])
+
+    def conf_bce(conf, disp, gt_, key):
         # BCE against softplus(th - |err|) / log(1 + e^th), the target detached (train.py:340-347)
         err = (disp - gt_).abs()
         target = (F.softplus(th - err) / div_const).detach()
         a = conf.clamp(1e-6, 1 - 1e-6)
         t = target.clamp(0.0, 1.0)
         bce = -(t * torch.log(a) + (1 - t) * torch.log(1 - a))
-        return masked_mean(bce, mask_)
+        return mean(bce, key)
 
     # iterative L1 with adjusted gamma (reference train.py:290-299)
     adj_gamma = cfg.gamma ** (15.0 / max(n_pred - 1, 1))
     weights = adj_gamma ** torch.arange(n_pred - 1, -1, -1, dtype=torch.float32, device=preds.device)
-    per_iter = torch.stack([masked_mean((p - gt).abs(), mask) for p in preds])
+    per_iter = torch.stack([mean((p - gt).abs(), "left") for p in preds])
     loss = (weights * per_iter).sum()
     logs["loss/iterative"] = loss
     logs["epe/final"] = per_iter[-1]
@@ -90,7 +120,7 @@ def stereoanywhere_loss(
     if cfg.use_normal_loss:
         # per-iteration normal-correlation loss x10 (reference train.py:302-306)
         normals2_full = _normals(mono2, normal_gain)
-        iter_normals = torch.stack([_normal_loss(p, normals2_full, mask, normal_gain) for p in preds])
+        iter_normals = torch.stack([_normal_loss(p, normals2_full, mask, normal_gain, count["left"]) for p in preds])
         norm_term = 10.0 * (weights * iter_normals).sum()
         loss = loss + norm_term
         logs["loss/iter_normal"] = norm_term
@@ -98,55 +128,53 @@ def stereoanywhere_loss(
     if outputs.get("confidences") is not None:
         # predict-confidence variant (reference train.py:308-316), with the
         # consistent |pred - gt| target (the reference's unused path flips a sign)
-        iter_confs = torch.stack([conf_bce(c, p, gt, mask) for c, p in zip(outputs["confidences"], preds)])
+        iter_confs = torch.stack([conf_bce(c, p, gt, "left") for c, p in zip(outputs["confidences"], preds)])
         conf_term = (weights * iter_confs).sum()
         loss = loss + conf_term
         logs["loss/iter_conf"] = conf_term
 
-    # border masks (reference train.py:319-321,349-350)
-    w = gt.shape[2]
-    xx = torch.arange(w, dtype=gt.dtype, device=gt.device).view(1, 1, w, 1)
-    left_border = (xx - gt >= 0) if cfg.use_border_mask else torch.ones_like(gt, dtype=torch.bool)
-    right_border = (xx + gt_right < w) if cfg.use_border_mask else torch.ones_like(gt, dtype=torch.bool)
-    mask_right = (validgt_right > 0) & (gt_right < max_disp)
-
     normals2 = _normals(mono2, normal_gain)
     normals3 = _normals(mono3, normal_gain)
 
-    def coarse_terms(disp_list, gt_, mask_, border, normals_ref):
+    def coarse_terms(disp_list, gt_, side, normals_ref):
         # [stereo or None, mono coarse, scaled mde]: the scaler is trained
         # full-frame (reference train.py:325-330), the others under the border mask
         d_stereo, d_mono, d_scaled = disp_list
-        total = masked_mean((d_mono - gt_).abs(), mask_ & border)
-        total = total + masked_mean((d_scaled - gt_).abs(), mask_)
+        border = f"{side}_border"
+        total = mean((d_mono - gt_).abs(), border)
+        total = total + mean((d_scaled - gt_).abs(), side)
         if cfg.use_normal_loss_on_coarse:
-            total = total + cfg.normal_loss_gain * _normal_loss(d_mono, normals_ref, mask_ & border, normal_gain)
+            total = total + cfg.normal_loss_gain * _normal_loss(d_mono, normals_ref, masks[border], normal_gain,
+                                                                count[border])
         if d_stereo is not None:  # use_aggregate_stereo_vol variant
-            total = total + masked_mean((d_stereo - gt_).abs(), mask_ & border)
+            total = total + mean((d_stereo - gt_).abs(), border)
             if cfg.use_normal_loss_on_coarse:
                 total = total + cfg.normal_loss_gain * _normal_loss(
-                    d_stereo, normals_ref, mask_ & border, normal_gain)
+                    d_stereo, normals_ref, masks[border], normal_gain, count[border])
         return total
 
     coarse_left = coarse_terms(
         [outputs.get("coarse_dispstereo2"), outputs["coarse_dispmono2"], outputs["coarse_scaled_mde2"]],
-        gt, mask, left_border, normals2,
+        gt, "left", normals2,
     )
     coarse_right = coarse_terms(
         [outputs.get("coarse_dispstereo3"), outputs["coarse_dispmono3"], outputs["coarse_scaled_mde3"]],
-        gt_right, mask_right, right_border, normals3,
+        gt_right, "right", normals3,
     )
-    # the right-view terms count only when some right gt is valid
-    has_right = (validgt_right.sum() > 0).to(loss.dtype)
     logs["loss/coarse_left"] = coarse_left
     logs["loss/coarse_right"] = coarse_right
 
     # coarse mono confidence BCE (reference train.py:340-347)
-    conf_left = conf_bce(outputs["coarse_conf2"], outputs["coarse_dispmono2"], gt, mask)
-    conf_right = conf_bce(outputs["coarse_conf3"], outputs["coarse_dispmono3"], gt_right, mask_right)
+    conf_left = conf_bce(outputs["coarse_conf2"], outputs["coarse_dispmono2"], gt, "left")
+    conf_right = conf_bce(outputs["coarse_conf3"], outputs["coarse_dispmono3"], gt_right, "right")
     logs["loss/conf"] = conf_left + conf_right
 
     total = loss + coarse_left + conf_left + has_right * (coarse_right + conf_right)
-    total = torch.where(torch.isfinite(total), total, torch.zeros_like(total))
-    logs["loss/total"] = total
+    # the logs and the finiteness guard from the global sums (one all-reduce)
+    names = list(logs)
+    reduced = all_reduce_sum(torch.stack([logs[k].detach() for k in names] + [total.detach()]))
+    logs = dict(zip(names, reduced))
+    finite = torch.isfinite(reduced[-1])
+    total = torch.where(finite, total, torch.zeros_like(total))
+    logs["loss/total"] = torch.where(finite, reduced[-1], torch.zeros_like(reduced[-1]))
     return total, logs

@@ -24,15 +24,34 @@ graceful stop: the JAX package's `train/trainer.py` in PyTorch idiom.
   step), so a resumed run draws what an unbroken one draws.
 - The step is eager and returns its logs as device tensors: reading them
   (`float`) is the caller's sync, so the host need not wait every step.
+- Mixed precision (`compute_dtype="bfloat16"`): the optimizer holds f32
+  master parameters, and the forward runs on bf16 casts of them through
+  `torch.func.functional_call`, with autograd through the cast, as the
+  JAX package's layers cast their f32 kernels at use.  The mono
+  hourglass and its classifiers get the masters uncast: their layers cast
+  at use (`conv_in_dtype`), so the part that runs in f32 past the
+  hourglass's first gate runs on f32 weights, as in JAX.  The loss runs
+  in f32.  Validation runs a bf16 copy of the model (what inference
+  holds), refreshed from the masters in place.
+- Over several ranks (`parallel/multihost.py`, each rank stepping on its
+  slice of the global batch) the step computes the one-process step on
+  the whole batch: the loss's denominators, BatchNorm's statistics and the
+  volume corruption are the global batch's (`train/loss.py`,
+  `models/stereoanywhere.py`); after the backward the gradients are
+  summed over the ranks in one flat buffer, before the NaN guard, the
+  global norm and the clip; the gt-as-mono condition is the global batch's.
+  Rank 0 alone writes checkpoints; every rank restores.
 - `validate` runs the test-mode forward (K5 on the card) through the eval
   harness on `eval/programs.py`'s graphs, which read the parameters in
   place; the fused loop's packed weights are packed anew first.
-- `save` / `restore`: `torch.save` of the step, the model, optimizer and
-  scheduler state and the host generators, as `<savedir>/<tag>.pt`.
+- `save` / `restore`: `torch.save` of the step, the model (f32 masters and
+  BatchNorm's running statistics), optimizer and scheduler state and the
+  host generators, as `<savedir>/<tag>.pt`.
 - SIGTERM / SIGUSR1 set `stop_requested`; the caller saves `stopped`.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import random
@@ -44,9 +63,10 @@ import torch
 from torch.profiler import record_function
 
 from stereoanywhere_tpu_torch.config import StereoAnywhereConfig, TrainConfig
-from stereoanywhere_tpu_torch.device import resolve_device
+from stereoanywhere_tpu_torch.device import resolve_device, torch_dtype
 from stereoanywhere_tpu_torch.models.stereoanywhere import StereoAnywhere
 from stereoanywhere_tpu_torch.ops.geometry import joint_minmax_normalize
+from stereoanywhere_tpu_torch.parallel.multihost import all_reduce_sum, any_rank, distributed, rank_and_world
 from stereoanywhere_tpu_torch.train.loss import stereoanywhere_loss
 
 FREEZE_GROUPS = {
@@ -55,6 +75,9 @@ FREEZE_GROUPS = {
     "monoagg": ("hourglass_mono", "classifier_mono", "classifier_monoconf"),
 }
 BATCH_KEYS = ("im2_aug", "im3_aug", "mono2", "mono3", "gt", "validgt", "gt_right", "validgt_right")
+# the modules whose layers cast their weights to their input's dtype at use
+# (`conv_in_dtype`): in mixed precision they take the f32 masters uncast
+CAST_AT_USE = ("hourglass_mono", "classifier_mono", "classifier_monoconf")
 
 
 def frozen_tops(things_to_freeze) -> set[str]:
@@ -133,7 +156,10 @@ class Trainer:
     """Holds the model, the optimizer and the schedule; `step(batch)` runs
     one training step.  `device` defaults to the card and raises without
     one unless "cpu" is asked for; the model's weights are random from
-    `train_cfg.seed` unless `model` is given."""
+    `train_cfg.seed` unless `model` is given (its parameters in f32: the
+    masters).  Inside an initialized process group the trainer is one rank
+    of a data-parallel run, and `step` takes this rank's slice of each
+    global batch."""
 
     def __init__(
         self,
@@ -145,13 +171,21 @@ class Trainer:
         model: StereoAnywhere | None = None,
     ):
         self.device = resolve_device(device)
-        if model_cfg.compute_dtype != "float32":
-            raise ValueError("training runs in float32: the port's modules hold their parameters in the compute "
-                             "dtype, and bf16 master weights are not the JAX package's mixed precision")
         self.cfg = train_cfg
         self.checkpoint_dir = checkpoint_dir
+        self.rank = rank_and_world()[0]
         self.model = model if model is not None else StereoAnywhere(
-            model_cfg, device=self.device, generator=torch.Generator().manual_seed(train_cfg.seed))
+            model_cfg, device=self.device, generator=torch.Generator().manual_seed(train_cfg.seed),
+            param_dtype=torch.float32)
+        if any(p.dtype != torch.float32 for p in self.model.parameters()):
+            raise ValueError("the trainer's model holds the f32 master parameters: build it with "
+                             "param_dtype=torch.float32")
+        cdt = torch_dtype(self.model.cfg.compute_dtype)
+        # the dtype each parameter enters the forward in (None: f32 throughout)
+        self._forward_dtypes = None if cdt == torch.float32 else {
+            name: torch.float32 if name.split(".")[0] in CAST_AT_USE else cdt
+            for name, _ in self.model.named_parameters()}
+        self._eval_model = self.model if cdt == torch.float32 else None
         tops = frozen_tops(train_cfg.things_to_freeze)
         for name, p in self.model.named_parameters():
             p.requires_grad_(name.split(".")[0] not in tops)
@@ -174,10 +208,11 @@ class Trainer:
     # -- stepping --------------------------------------------------------
     @staticmethod
     def _has_valid_right(batch: dict) -> bool:
-        """Right-gt validity for the gt-as-mono branch: on the host for the
-        loader's numpy batches, so that no step waits for the device."""
+        """Right-gt validity for the gt-as-mono branch, over the global
+        batch: on the host for the loader's numpy batches, so that no step
+        waits for the device."""
         v = batch["validgt_right"]
-        return bool(np.any(v > 0)) if isinstance(v, np.ndarray) else bool((v > 0).any())
+        return any_rank(bool(np.any(v > 0)) if isinstance(v, np.ndarray) else bool((v > 0).any()))
 
     def _tensor(self, x) -> torch.Tensor:
         t = x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x, np.float32))
@@ -196,15 +231,19 @@ class Trainer:
         generator = torch.Generator().manual_seed(step_seed(cfg.seed + 1, self.step_count))
         with record_function("train: forward"):
             m2, m3 = _normalized_mono(b["mono2"], b["mono3"])
-            outputs = self.model(b["im2_aug"], b["im3_aug"], m2, m3, iters=cfg.train_iters, test_mode=False,
-                                 generator=generator)
+            outputs = self._forward(b["im2_aug"], b["im3_aug"], m2, m3, iters=cfg.train_iters, test_mode=False,
+                                    generator=generator)
         with record_function("train: loss"):
+            if self._forward_dtypes is not None:
+                outputs = {k: v.float() for k, v in outputs.items()}
             total, logs = stereoanywhere_loss(outputs, b["gt"], b["validgt"], b["gt_right"], b["validgt_right"],
                                               m2, m3, cfg)
         with record_function("train: backward"):
             self.optimizer.zero_grad(set_to_none=True)
             total.backward()
         with record_function("train: optimizer"):
+            if distributed():
+                self._sum_gradients()
             if cfg.debug_grad:
                 self._dump_grad_census()
             norm = apply_gradients(self.optimizer, self.scheduler, self.params, cfg.grad_clip)
@@ -213,6 +252,26 @@ class Trainer:
         logs["grad_norm"] = norm
         logs["mono_source/gt"] = torch.tensor(used_gt_mono)
         return logs
+
+    def _forward(self, *args, **kwargs) -> dict[str, torch.Tensor]:
+        """The train-mode forward; in mixed precision on the masters cast to
+        the dtypes the forward takes them in (autograd through the casts)."""
+        if self._forward_dtypes is None:
+            return self.model(*args, **kwargs)
+        params = {n: p.to(self._forward_dtypes[n]) for n, p in self.model.named_parameters()}
+        # without tying: a residual block's norm3 is also its downsample.1 (one
+        # module, two names), and tying would swap it twice and restore the cast
+        return torch.func.functional_call(self.model, params, args, kwargs, tie_weights=False)
+
+    def _sum_gradients(self) -> None:
+        """Every trainable gradient summed over the ranks, in one flat
+        buffer (a missing gradient as zeros, as optax sees it), copied back
+        into tensors of their own: a reduction over a view at an odd
+        offset of the buffer could vectorize, and so round, otherwise."""
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]))
+        for p, g, summed in zip(self.params, grads, flat.split([p.numel() for p in self.params])):
+            p.grad = g.copy_(summed.view_as(g))
 
     def _dump_grad_census(self) -> None:
         """Per-parameter NaN / Inf gradient counts, the nonzero ones, into
@@ -249,12 +308,19 @@ class Trainer:
         from stereoanywhere_tpu_torch.eval.programs import EvalPrograms
 
         iters = self.cfg.valid_iters if iters is None else iters
+        if self._eval_model is None:
+            # mixed precision: a copy holding the compute dtype, as inference does
+            self._eval_model = copy.deepcopy(self.model).to(torch_dtype(self.model.cfg.compute_dtype))
+        if self._eval_model is not self.model:
+            with torch.no_grad():
+                for dst, src in zip(self._eval_model.state_dict().values(), self.model.state_dict().values()):
+                    dst.copy_(src)
         if iters not in self._val_programs:
             # one program set an iteration count: their graphs read the
             # parameters in place, so they follow every optimizer step
-            self._val_programs[iters] = EvalPrograms(self.model, None, iters=iters, device=self.device)
+            self._val_programs[iters] = EvalPrograms(self._eval_model, None, iters=iters, device=self.device)
         # the fused loop's packs are copies of the parameters: pack them anew
-        self.model.update_block.refresh_fused_weights()
+        self._eval_model.update_block.refresh_fused_weights()
         ev = Evaluator(self._val_programs[iters].stereo_fn, mono_fn=mono_fn, dataset_name=dataset_name)
         means = ev.run(samples, max_samples=max_samples).mean()
         score = means.get(metric, float("nan"))
@@ -280,7 +346,8 @@ class Trainer:
         return os.path.join(self.checkpoint_dir or ".", f"{tag}.pt")
 
     def save(self, tag: str = "latest") -> None:
-        if not self.checkpoint_dir:
+        """Write the state as `<checkpoint_dir>/<tag>.pt` (rank 0 alone)."""
+        if not self.checkpoint_dir or self.rank != 0:
             return
         path = self.checkpoint_path(tag)
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

@@ -8,6 +8,8 @@ its own `init` and reach the port through `compat.from_jax`.  The JAX side
 runs its default layout (the folded, blocked hourglass; the windowed XLA
 lookup); the port its NCHW modules and the plain gather.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -132,6 +134,101 @@ def test_train_loss_gradients_match_jax(train_case):
         num, den = num + d * d, den + n * n
         checked += 1
     assert checked > 100 and np.sqrt(num) <= 5e-3 * np.sqrt(den)
+
+
+def _grad_gaps(model, grads, skip=()) -> tuple[dict, float]:
+    """Each trainable parameter's gradient gap to JAX's over its norm (but
+    the parameters in `skip`), and the gap of all of them together."""
+    gaps, num, den = {}, 0.0, 0.0
+    for name, p in model.named_parameters():
+        if name.startswith("fnet."):
+            continue
+        path, kind = from_jax._stereo_rename(name)
+        if kind == "bn":
+            path, kind = path[:-1] + [{"weight": "scale", "bias": "bias"}[path[-1]]], "raw"
+        want = from_jax._TO_TORCH[kind](from_jax._get(grads, tuple(path)))
+        got = np.zeros_like(want) if p.grad is None else p.grad.float().numpy()
+        d, n = float(np.linalg.norm(got - want)), float(np.linalg.norm(want))
+        if name not in skip:
+            gaps[name] = d / (n + 1e-30)
+        num, den = num + d * d, den + n * n
+    return gaps, float(np.sqrt(num / den))
+
+
+@pytest.fixture(scope="module")
+def batch_stats_case(train_case):
+    """JAX's train step with batch-statistic BatchNorm (`freeze_bn=False`,
+    `mutable=["batch_stats"]`) from random running statistics: the
+    outputs, the updated statistics, the loss and its gradient (fnet
+    frozen)."""
+    from stereoanywhere_tpu.config import StereoAnywhereConfig as JCfg, TrainConfig as JTrain
+    from stereoanywhere_tpu.models import StereoAnywhere as JSA
+    from stereoanywhere_tpu.train.loss import stereoanywhere_loss as jloss
+    from stereoanywhere_tpu.train.trainer import freeze_mask
+
+    rng = np.random.default_rng(5)
+    v = train_case["v"]
+    stats = jax.tree.map(lambda a: rng.uniform(0.5, 1.5, a.shape).astype(np.float32), v["batch_stats"])
+    ins = train_case["ins"]
+    model = JSA(JCfg(volume_corruption_prob=0.0, freeze_bn=False))
+
+    def loss_fn(params):
+        mask = freeze_mask(params, ("fnet",))
+        params = jax.tree.map(lambda p, t: p if t else jax.lax.stop_gradient(p), params, mask)
+        out, mutated = model.apply({"params": params, "batch_stats": stats}, *ins, iters=ITERS, test_mode=False,
+                                   train=True, mutable=["batch_stats"])
+        total, logs = jloss(out, *train_case["gt"], ins[2], ins[3], JTrain())
+        return total, (out, mutated["batch_stats"], logs)
+
+    (total, (out, new_stats, logs)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(v["params"])
+    as_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    return dict(v={"params": v["params"], "batch_stats": stats}, outputs=as_np(out), stats=as_np(new_stats),
+                total=float(total), logs=as_np(logs), grads=as_np(grads))
+
+
+def test_batch_statistics_train_step_matches_jax(train_case, batch_stats_case):
+    """`freeze_bn=False`: the port's train forward, loss and gradients
+    against JAX's `mutable=["batch_stats"]` step (outputs 1e-4 of their
+    magnitude, the loss and its logs 1e-4 relative; gradients 4e-2 of a
+    parameter's norm, 5e-3 all together, as above), and every updated
+    running statistic (0.9 ra + 0.1 of the batch's, the variance unbiased)
+    to 1e-5 of its magnitude."""
+    from stereoanywhere_tpu_torch.config import StereoAnywhereConfig, TrainConfig
+    from stereoanywhere_tpu_torch.models import StereoAnywhere
+    from stereoanywhere_tpu_torch.models.layers import BatchNorm
+    from stereoanywhere_tpu_torch.train.loss import stereoanywhere_loss
+
+    case = batch_stats_case
+    model = StereoAnywhere(StereoAnywhereConfig(volume_corruption_prob=0.0, freeze_bn=False), device="cpu")
+    from_jax.load_stereo_variables(model, case["v"])
+    for name, p in model.named_parameters():
+        p.requires_grad_(not name.startswith("fnet."))
+    ins = [torch.from_numpy(a) for a in train_case["ins"]]
+    out = model(*ins, iters=ITERS, test_mode=False)
+    for k in ("disparities", "coarse_dispmono2", "coarse_scaled_mde3", "coarse_conf2"):
+        close(out[k].detach().numpy(), case["outputs"][k], 1e-4)
+    total, logs = stereoanywhere_loss(out, *(torch.from_numpy(a) for a in train_case["gt"]), ins[2], ins[3],
+                                      TrainConfig())
+    np.testing.assert_allclose(float(total.detach()), case["total"], rtol=1e-4)
+    for k, v in case["logs"].items():
+        np.testing.assert_allclose(float(logs[k]), float(v), rtol=1e-4, atol=1e-6, err_msg=k)
+    total.backward()
+    # a conv bias ahead of a batch-statistic BatchNorm has a zero gradient
+    # (the batch mean takes it out): both sides hold round-off there
+    ahead_of_bn = {n for n, _ in model.named_parameters() if re.match(r"cnet\..*(conv\d|downsample\.0)\.bias$", n)}
+    assert len(ahead_of_bn) == 33
+    gaps, overall = _grad_gaps(model, case["grads"], skip=ahead_of_bn)
+    assert max(gaps.values()) <= 4e-2 and overall <= 5e-3, (max(gaps.items(), key=lambda kv: kv[1]), overall)
+    largest = max(float(p.grad.norm()) for _, p in model.named_parameters() if p.grad is not None)
+    assert all(float(p.grad.norm()) <= 1e-5 * largest for n, p in model.named_parameters() if n in ahead_of_bn)
+    checked = 0
+    for name, m in model.named_modules():
+        if isinstance(m, BatchNorm):
+            path, _ = from_jax._stereo_rename(f"{name}.running_mean")
+            for buf, key in ((m.running_mean, "mean"), (m.running_var, "var")):
+                close(buf.numpy(), from_jax._get(case["stats"], tuple(path[:-1] + [key])), 1e-5)
+            checked += 1
+    assert checked == 33
 
 
 def test_minmax_statistics_carry_no_gradient(rng):

@@ -3,7 +3,8 @@
 `Trainer` and `cli train` on the CPU at a tiny size (freeze groups,
 gt-as-mono, the gradient census, validation with best-checkpoint
 selection, save / restore, a resumed run equal to an unbroken one, the
-graceful stop, the refusals)."""
+graceful stop, mixed precision against JAX's bf16 gradients, the
+refusals)."""
 import json
 import os
 import signal
@@ -116,13 +117,13 @@ def _batch(seed, b=1, h=32, w=64):
     }
 
 
-def _trainer(tmp_path=None, freeze=("fnet",), corruption=0.0, gt_mono=0.0, **kw):
+def _trainer(tmp_path=None, freeze=("fnet",), corruption=0.0, gt_mono=0.0, compute_dtype="float32", **kw):
     from stereoanywhere_tpu_torch.config import StereoAnywhereConfig, TrainConfig
     from stereoanywhere_tpu_torch.train.trainer import Trainer
 
     tc = TrainConfig(train_iters=1, valid_iters=1, things_to_freeze=tuple(freeze), gt_mono_prob=gt_mono, **kw)
-    return Trainer(StereoAnywhereConfig(volume_corruption_prob=corruption), tc, 20, device="cpu",
-                   checkpoint_dir=None if tmp_path is None else str(tmp_path))
+    return Trainer(StereoAnywhereConfig(volume_corruption_prob=corruption, compute_dtype=compute_dtype), tc, 20,
+                   device="cpu", checkpoint_dir=None if tmp_path is None else str(tmp_path))
 
 
 def _state(model):
@@ -270,17 +271,123 @@ def test_sigterm_requests_a_stop(tmp_path):
             signal.signal(s, h)
 
 
-def test_training_refuses_bf16_and_batch_statistics():
+# ---------------------------------------------------------------------------
+# mixed precision
+
+
+B, H, W, ITERS = 1, 32, 64, 2
+
+
+@pytest.fixture(scope="module")
+def bf16_case():
+    """JAX's loss gradient (fnet frozen) at f32 parameters, with
+    compute_dtype float32 and bfloat16, on one seeded input."""
+    from stereoanywhere_tpu.config import StereoAnywhereConfig as JCfg, TrainConfig as JTrain
+    from stereoanywhere_tpu.models import StereoAnywhere as JSA
+    from stereoanywhere_tpu.train.loss import stereoanywhere_loss as jloss
+    from stereoanywhere_tpu.train.trainer import freeze_mask
+
+    rng = np.random.default_rng(31)
+    ins = [rng.uniform(0, 1, (B, H, W, c)).astype(np.float32) for c in (3, 3, 1, 1)]
+    gt = [rng.uniform(0.5, 12, (B, H, W, 1)).astype(np.float32), np.ones((B, H, W, 1), np.float32),
+          rng.uniform(0.5, 12, (B, H, W, 1)).astype(np.float32), np.ones((B, H, W, 1), np.float32)]
+    v = jax.tree.map(np.asarray, jax.jit(lambda k: JSA(JCfg()).init(k, *ins, iters=1, test_mode=True))(
+        jax.random.PRNGKey(2)))
+    grads = {}
+    for dtype in ("float32", "bfloat16"):
+        model = JSA(JCfg(volume_corruption_prob=0.0, compute_dtype=dtype))
+
+        def loss_fn(params):
+            mask = freeze_mask(params, ("fnet",))
+            params = jax.tree.map(lambda p, t: p if t else jax.lax.stop_gradient(p), params, mask)
+            out, _ = model.apply({"params": params, "batch_stats": v["batch_stats"]}, *ins, iters=ITERS,
+                                 test_mode=False, train=True, mutable=["batch_stats"])
+            return jloss(out, *gt, ins[2], ins[3], JTrain())[0]
+
+        grads[dtype] = jax.tree.map(np.asarray, jax.jit(jax.grad(loss_fn))(v["params"]))
+    return dict(v=v, ins=ins, gt=gt, grads=grads)
+
+
+def _flat_grads(grads, names) -> np.ndarray:
+    """A JAX gradient tree flattened in the order of the port's parameter names."""
+    from stereoanywhere_tpu_torch.compat import from_jax
+
+    out = []
+    for name in names:
+        path, kind = from_jax._stereo_rename(name)
+        if kind == "bn":
+            path, kind = path[:-1] + [{"weight": "scale", "bias": "bias"}[path[-1]]], "raw"
+        out.append(from_jax._TO_TORCH[kind](from_jax._get(grads, tuple(path))).reshape(-1))
+    return np.concatenate(out)
+
+
+def test_bf16_mixed_precision_gradients_match_jax(bf16_case):
+    """`compute_dtype="bfloat16"`: the trainer's forward on bf16 casts of
+    its f32 masters (the hourglass and classifiers on the masters, cast at
+    use), its loss in f32, the gradient reaching the masters, against
+    JAX's bf16 gradient at f32 parameters: norm-wise over the trainable
+    parameters, within twice JAX's own gap between its bf16 and f32
+    gradients (ROADMAP's rule for bf16, as for DAv2)."""
+    from stereoanywhere_tpu_torch.compat import from_jax
+    from stereoanywhere_tpu_torch.config import StereoAnywhereConfig, TrainConfig
+    from stereoanywhere_tpu_torch.models import StereoAnywhere
+    from stereoanywhere_tpu_torch.train.loss import stereoanywhere_loss
+    from stereoanywhere_tpu_torch.train.trainer import Trainer
+
+    case = bf16_case
+    cfg = StereoAnywhereConfig(volume_corruption_prob=0.0, compute_dtype="bfloat16")
+    model = from_jax.load_stereo_variables(StereoAnywhere(cfg, device="cpu", param_dtype=torch.float32), case["v"])
+    tr = Trainer(cfg, TrainConfig(train_iters=ITERS), 10, device="cpu", model=model)
+    ins = [torch.from_numpy(a) for a in case["ins"]]
+    out = tr._forward(*ins, iters=ITERS, test_mode=False)
+    total, _ = stereoanywhere_loss({k: v.float() for k, v in out.items()}, *map(torch.from_numpy, case["gt"]),
+                                   ins[2], ins[3], TrainConfig())
+    total.backward()
+    names = [n for n, _ in tr.named_trainable]
+    got = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1) for p in tr.params]).numpy()
+    assert all(p.grad.dtype == torch.float32 for p in tr.params if p.grad is not None)
+    want, f32 = (_flat_grads(case["grads"][d], names) for d in ("bfloat16", "float32"))
+    own = np.linalg.norm(want - f32) / np.linalg.norm(f32)
+    gap = np.linalg.norm(got - want) / np.linalg.norm(f32)
+    assert 0 < own and gap <= 2 * own, (gap, own)
+
+
+def test_bf16_step_keeps_f32_masters_and_validates_on_a_bf16_copy(tmp_path):
+    """A mixed-precision step: the masters stay f32 and move; validation
+    runs a bf16 copy whose parameters are the masters rounded, refreshed
+    in place at each validation; the checkpoint holds the f32 masters."""
+    from stereoanywhere_tpu_torch.data.datasets import fetch_dataset
+
+    tr = _trainer(tmp_path / "run", compute_dtype="bfloat16")
+    before = _state(tr.model)
+    assert np.isfinite(float(tr.step(_batch(4))["loss/total"]))
+    params = dict(tr.model.named_parameters())
+    # the module holds the optimizer's f32 leaves again, none of the step's casts
+    assert {id(p) for p in params.values()} == {id(p) for g in tr.optimizer.param_groups for p in g["params"]} | {
+        id(p) for n, p in params.items() if n.startswith("fnet.")}
+    assert all(p.dtype == torch.float32 and p.grad_fn is None for p in params.values())
+    assert not torch.equal(params["update_block.flow_head.conv1.weight"], before["update_block.flow_head.conv1.weight"])
+    ds = fetch_dataset("middlebury", str(_middlebury(tmp_path / "mb", np.random.default_rng(1))), mono="DAv2")
+    for _ in range(2):
+        assert np.isfinite(tr.validate(ds, max_samples=1)["avgerr"])
+        copy_params = dict(tr._eval_model.named_parameters())
+        assert all(copy_params[n].dtype == torch.bfloat16 and torch.equal(copy_params[n], p.to(torch.bfloat16))
+                   for n, p in params.items())
+        tr.step(_batch(5))
+    saved = torch.load(tmp_path / "run" / "best.pt", weights_only=False)["model"]
+    assert all(v.dtype == torch.float32 for v in saved.values() if v.is_floating_point())
+
+
+def test_training_refuses_master_weights_in_the_compute_dtype():
+    """The trainer's optimizer steps f32 masters: a model holding bf16
+    parameters (an inference model) is refused."""
     from stereoanywhere_tpu_torch.config import StereoAnywhereConfig, TrainConfig
     from stereoanywhere_tpu_torch.models import StereoAnywhere
     from stereoanywhere_tpu_torch.train.trainer import Trainer
 
-    with pytest.raises(ValueError, match="float32"):
-        Trainer(StereoAnywhereConfig(compute_dtype="bfloat16"), TrainConfig(), 10, device="cpu")
-    model = StereoAnywhere(StereoAnywhereConfig(freeze_bn=False), device="cpu")
-    x = [torch.zeros(1, 32, 64, c) for c in (3, 3, 1, 1)]
-    with pytest.raises(ValueError, match="batch statistics"):
-        model(*x, iters=1, test_mode=False)
+    cfg = StereoAnywhereConfig(compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="f32 master"):
+        Trainer(cfg, TrainConfig(), 10, device="cpu", model=StereoAnywhere(cfg, device="cpu"))
 
 
 # ---------------------------------------------------------------------------
@@ -363,14 +470,18 @@ def test_cli_train_stops_on_sigterm(train_dirs, monkeypatch):
 
 
 def test_cli_train_refusals(train_dirs, monkeypatch):
-    """No card: `train` raises unless --device cpu.  --data-parallel above
-    1 and --multihost wait for ROADMAP §1 item 1."""
+    """No card: `train` raises unless --device cpu.  --data-parallel and
+    --multihost together are refused, and so are more ranks on the card
+    than there are cards (the JAX package's mesh message)."""
     from stereoanywhere_tpu_torch import cli
 
     path, _, root = train_dirs
-    for extra in (["--data-parallel", "2"], ["--multihost"]):
-        with pytest.raises(SystemExit):
-            cli.main(_train_argv(path, root / "x", *extra))
+    with pytest.raises(SystemExit):
+        cli.main(_train_argv(path, root / "x", "--data-parallel", "2", "--multihost"))
+    argv = _train_argv(path, root / "x", "--data-parallel", "2")
+    argv[argv.index("--device") + 1] = "cuda"
+    with pytest.raises(ValueError, match=f"mesh 2x1 needs 2 devices, have {torch.cuda.device_count()}"):
+        cli.main(argv)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = _train_argv(path, root / "y", "--num-steps", "1")
     argv[argv.index("--device") + 1] = "cuda"
