@@ -4,6 +4,7 @@
     python3 chip_smoke.py                # the smoke run below
     python3 chip_smoke.py --tiles        # K9's, K8's and K7's tile candidates, each forced, timed
     python3 chip_smoke.py --ab OTHER     # K1, K3, K7, K8 and K9 of this checkout and OTHER, in turns
+    python3 chip_smoke.py --rowshard-cards  # row sharding over NCCL, one card a rank (2 or 4 cards)
 
 Phases of the smoke run (any failure exits non-zero before the result line):
 1. build the hand-written kernels from `stereoanywhere_tpu_torch/csrc/`
@@ -163,13 +164,30 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    f32; one bf16 step on the card against the CPU's within twice the
    CPU's own bf16-vs-f32 gap; 5 steps with `freeze_bn=False` at the
    reference configuration beside 5 with `freeze_bn=True` on the same
-   batches, s/step, every running statistic moved.
+   batches, s/step, every running statistic moved;
+11. row-sharded inference (after phase 8): the stereo branch at 1024^2
+   with its rows split over ranks (`parallel/spatial.py`), seeded random
+   weights: in f32 (TF32 off) at 1 iteration, a mesh of one rank over NCCL
+   (world size 1) against the direct forward bit for bit, and 2 and 4
+   ranks over gloo on cuda:0 (spawned; NCCL refuses two ranks on one
+   device) within twice the direct forward's move under one rounding of
+   its inputs; then in bf16 at 32 iterations on 2 and 4 ranks, each rank's
+   memory peak above what was resident beside the direct path's (measured
+   in the same call, and PERF.md's earlier figure), ms a request (gloo
+   staged through the host: a correctness run, not a speed), K5's calls on
+   each rank (asserted: 32), the bytes each rank hands to the halo exchanges and band
+   fetches, the gathers and the all-reduces a forward beside
+   ARCHITECTURE.md's estimate; and one request of the pipeline with the
+   ViT-L mono stage and `mesh=` (wrapper calls asserted on every rank:
+   K1-K4 24, K5 32).  One card runs every rank: no scaling over cards is
+   measured.
 It prints a `{"kernels": [...]}` line (with each kernel's wrapper calls on
 the eval path, `eval_launches`, in the ViT-G pipeline's served requests,
 `vitg_launches`, in the train steps, `train_launches`, in the
 trainer's validations (f32 and bf16), `validation_launches`, in the 1024^2 request with
-the mono stage and 2 tiles, `highres_launches`, and in the Booster
-request, `booster_launches`; K1-K3 also their ViT-G
+the mono stage and 2 tiles, `highres_launches`, in the Booster
+request, `booster_launches`, and in the row-sharded pipeline request on
+rank 0 of 2, `rowshard_launches`; K1-K3 also their ViT-G
 rows, `vitg_*`), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
 
@@ -188,6 +206,18 @@ runs in a process of its own, in the order OTHER, this, this, OTHER, so
 that drift of the card hits both alike; a run builds its checkout's
 `vit_dense` and `step_fused` and prints, a kernel and shape, CUDA-event
 ms, device ms and host ms (K8 also its device ms by launch).
+
+--rowshard-cards: row-sharded inference over NCCL, one card a rank, on 2
+and, where 4 cards are visible, 4 cards (one card refuses it): K5 at each
+rank's plane bit for bit; at 1024^2 phase 11's checks and numbers with the
+ranks on cards of their own (f32 at 1 iteration within twice the direct
+forward's one-rounding move, bf16 at 32 iterations: memory a rank, bytes a
+forward, ms a request over NCCL, K5 32 a rank, the pipeline request);
+`cli infer --shard-rows N` (each in a process of its own, f32, TF32 off, 1
+iteration) against `--shard-rows 1` within twice the one-process
+pipeline's one-rounding move; Booster's full 3008x4112 through the
+pipeline with the mono stage over the most cards (memory a rank, ms,
+wrapper calls; a rank out of memory is printed, not failed).
 """
 from __future__ import annotations
 
@@ -199,6 +229,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -951,14 +982,18 @@ def step_kernel_phase() -> dict:
 def booster_lookup_rows() -> None:
     """K5 at a Booster tile's quarter-resolution plane: 544 rows of 4112
     padded to 4128 and width-aligned to 4160, so 136 x 1040 (level widths
-    1040 / 520 / 260 / 130), B = 1 (a sequential tile) and 2, both dtypes,
-    coordinates over the whole row and past both ends: held to the plain
-    gather bit for bit, timed with its window bound."""
-    h4, w4 = 136, 1040
+    1040 / 520 / 260 / 130), B = 1 (a sequential tile) and 2."""
+    plane_lookup_rows("booster tile plane", 136, 1040, (1, 2), 50)
+
+
+def plane_lookup_rows(label: str, h4: int, w4: int, batches: tuple[int, ...], seed: int) -> None:
+    """K5 at one quarter-resolution plane (level widths w4 / 2^i), both
+    dtypes, coordinates over the whole row and past both ends: held to the
+    plain gather bit for bit, timed with its window bound."""
     wls = [w4 // 2 ** i for i in range(4)]
     for dtype in (torch.bfloat16, torch.float32):
-        for b in (1, 2):
-            g = torch.Generator(device="cuda").manual_seed(50 + b)
+        for b in batches:
+            g = torch.Generator(device="cuda").manual_seed(seed + b)
             la, lb = ([torch.randn((b, h4, w4, wl), generator=g, device="cuda").to(dtype) for wl in wls]
                       for _ in range(2))
             xs = torch.arange(w4, device="cuda", dtype=torch.float32)
@@ -968,12 +1003,12 @@ def booster_lookup_rows() -> None:
             got = corr_lookup.dual_lookup(*args)
             torch.cuda.synchronize()
             pairs = zip(got, corr_lookup.dual_lookup_ref(*args))
-            err = max(check(f"dual_lookup booster plane {dtype} B={b}", x, y, dtype, 0.0)[0] for x, y in pairs)
+            err = max(check(f"dual_lookup {label} {dtype} B={b}", x, y, dtype, 0.0)[0] for x, y in pairs)
             es = torch.finfo(dtype).bits // 8
             m4 = b * h4 * w4
             flops, moved = 2 * m4 * 4 * 9 * 4.0, _window_bytes(c, wls, 4, es) + nbytes(c) + 2 * m4 * 36 * es
             bound, by = bound_ms(flops, moved, torch.float32)
-            print(f"kernel dual_lookup {str(dtype)[6:]} booster tile plane {h4}x{w4} B={b}: max_abs_err {err:.3e} "
+            print(f"kernel dual_lookup {str(dtype)[6:]} {label} {h4}x{w4} B={b}: max_abs_err {err:.3e} "
                   f"(tol 0) ms {cuda_ms(lambda: corr_lookup.dual_lookup(*args)):.4f} device_ms "
                   f"{fmt(device_ms(lambda: corr_lookup.dual_lookup(*args)))} plain_ms "
                   f"{cuda_ms(lambda: corr_lookup.dual_lookup_ref(*args)):.4f} bound_ms {bound:.4f} ({by}; "
@@ -2322,6 +2357,469 @@ def voldown_compare() -> None:
 
 
 # ---------------------------------------------------------------------------
+# row-sharded inference: the stereo branch's rows over ranks (parallel/spatial.py)
+
+ROWSHARD = (1024, 1024)
+ROWSHARD_RANKS = (2, 4)
+ROWSHARD_ROUNDS = 3
+# the direct stereo branch at 1024^2, bf16, 32 iterations, eager, as PERF.md's
+# high-resolution table records it: the memory peak and its part above what
+# was resident (DAv2 then resident too)
+DIRECT_PEAK_GB = "9.68 (5.79 above resident)"
+# ARCHITECTURE.md's estimate of the halo traffic a forward at 1024^2 over 2 devices
+HALO_ESTIMATE = "about 100 MB a forward at 1024^2 with N = 2 (ARCHITECTURE.md)"
+
+
+def strict_f32() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+
+
+def rowshard_model(dtype: str) -> StereoAnywhere:
+    return StereoAnywhere(StereoAnywhereConfig(compute_dtype=dtype), device="cuda",
+                          generator=torch.Generator().manual_seed(50))
+
+
+def rowshard_inputs() -> list[np.ndarray]:
+    """The seeded (1, 1024, 1024, *) views and depth maps of the phase."""
+    rng = np.random.default_rng(51)
+    h, w = ROWSHARD
+    return [rng.uniform(0, 1, (1, h, w, c)).astype(np.float32) for c in (3, 3, 1, 1)]
+
+
+def rowshard_rank(rank: int, world: int, init_method: str, out: str, cards: bool = False) -> None:
+    """One of `world` ranks on cuda:0 over gloo (NCCL refuses two ranks on
+    one device; gloo stages the CUDA tensors through the host), or with
+    `cards` on cuda:rank over NCCL, one card a rank.  Runs the
+    stereo branch row-sharded at 1024^2: in f32 (TF32 off) at 1 iteration,
+    gathered on rank 0; then in bf16 at 32 iterations (a warm-up, then one
+    counted request with its memory peak and the bytes its collectives
+    moved, then ROWSHARD_ROUNDS timed); then the pipeline with ViT-L's mono
+    stage and `mesh=` (one counted request).  Writes its numbers to
+    `{out}.{rank}`."""
+    from stereoanywhere_tpu_torch.parallel import multihost as mh
+    from stereoanywhere_tpu_torch.parallel.mesh import make_mesh
+    from stereoanywhere_tpu_torch.parallel.spatial import RowShardedInference
+
+    strict_f32()
+    device = f"cuda:{rank}" if cards else "cuda:0"
+    mh.initialize_distributed(device, rank=rank, world_size=world, init_method=init_method,
+                              backend="nccl" if cards else "gloo")
+    try:
+        mesh = make_mesh(1, world)
+        xs = [torch.from_numpy(x).cuda() for x in rowshard_inputs()]
+        res = {}
+        rs = RowShardedInference(rowshard_model("float32"), mesh, iters=1)
+        full = rs.gather_rows(rs.infer(*xs), dst=0)
+        res["f32"] = None if full is None else full.cpu()
+        del rs, full
+        torch.cuda.empty_cache()
+
+        stereo = rowshard_model("bfloat16")
+        rs = RowShardedInference(stereo, mesh, iters=ITERS)
+
+        def request():
+            return rs.gather_rows(rs.infer(*xs), dst=0)
+        first = sync_ms(request)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        full, calls = counted(request)
+        peak = torch.cuda.max_memory_allocated()
+        shard_rows = (rs.plan(ROWSHARD[0]).starts[rs.index], rs.plan(ROWSHARD[0]).stops[rs.index])
+        res["bf16"] = dict(first_ms=first, peak=peak, base=base, calls=calls, traffic=dict(rs.group.traffic),
+                           rows=shard_rows, ms=[sync_ms(request) for _ in range(ROWSHARD_ROUNDS)],
+                           out=None if full is None else full.cpu())
+        mono = DepthAnythingV2(MonoConfig.for_encoder("vitl"), device="cuda",
+                               generator=torch.Generator().manual_seed(52), dtype=torch.bfloat16)
+        pipe = StereoAnywherePipeline(stereo, mono, ITERS, device=device, mesh=mesh)
+        im2, im3 = xs[0], xs[1]
+        disp, calls = counted(lambda: pipe(im2, im3))
+        res["pipeline"] = dict(calls=calls, ms=[sync_ms(lambda: pipe(im2, im3)) for _ in range(2)],
+                               out=None if disp is None else disp.cpu())
+        torch.save(res, f"{out}.{rank}")
+    finally:
+        mh.destroy_distributed()
+
+
+def rowshard_world1(xs, want: torch.Tensor) -> None:
+    """A mesh of one rank over NCCL (world size 1) against the direct
+    forward, bit for bit; the disparity also all-reduced over the NCCL
+    group, which a sum over one rank leaves as it is."""
+    import torch.distributed as dist
+
+    from stereoanywhere_tpu_torch.parallel import multihost as mh
+    from stereoanywhere_tpu_torch.parallel.mesh import make_mesh
+    from stereoanywhere_tpu_torch.parallel.spatial import RowShardedInference
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{mh.free_port()}", rank=0, world_size=1)
+    try:
+        model = rowshard_model("float32")
+        rs = RowShardedInference(model, make_mesh(1, 1), iters=1)
+        got = rs.gather_rows(rs.infer(*xs))
+        summed = got.clone()
+        dist.all_reduce(summed)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    ok = torch.equal(got, want) and torch.equal(summed, want)
+    print(f"rowshard world size 1 over {backend}: RowShardedInference on make_mesh(1, 1) vs the direct forward "
+          f"(f32, TF32 off, 1 iteration, {ROWSHARD[0]}x{ROWSHARD[1]}): equal bit for bit {ok}", flush=True)
+    if not ok:
+        raise AssertionError("row sharding at world size 1 over NCCL differs from the direct forward")
+
+
+def rowshard_lookup_rows() -> None:
+    """K5 at each rank's own quarter-resolution plane of the row-sharded
+    1024^2 request (B = 1; 2 ranks: 128 x 256, 4 ranks: 64 x 256), held to
+    the plain gather bit for bit in both dtypes and timed, as at Booster's
+    tile plane."""
+    from stereoanywhere_tpu_torch.parallel.halo import plan_rows, row_block
+
+    h, w = ROWSHARD
+    block = row_block(StereoAnywhereConfig())
+    for world in ROWSHARD_RANKS:
+        for h4 in sorted({b - a for a, b in plan_rows(h, world, block).ranges(4)}, reverse=True):
+            plane_lookup_rows(f"row shard of {world} ranks", h4, w // 4, (1,), 60 + world)
+
+
+def rowshard_direct() -> tuple[torch.Tensor, float]:
+    """The direct stereo branch at 1024^2 on cuda:0: its f32 disparity at 1
+    iteration (TF32 off) and the most one rounding of its inputs moves it
+    (the yardstick of the sharded forwards), then its bf16 memory peak and
+    ms a request at 32 iterations, printed."""
+    strict_f32()
+    torch.cuda.empty_cache()
+    h, w = ROWSHARD
+    arrays = rowshard_inputs()
+    xs = [torch.from_numpy(x).cuda() for x in arrays]
+    direct = rowshard_model("float32")
+    want = direct(*xs, iters=1)["disparity"]
+    rng = np.random.default_rng(53)
+    floor = max(float((direct(*[torch.from_numpy(one_rounding(x, rng)).cuda() for x in arrays],
+                               iters=1)["disparity"] - want).abs().max()) for _ in range(2))
+    print(f"rowshard: {card_line()}; stereo branch {h}x{w}, f32 TF32 off, 1 iteration: the direct forward's move "
+          f"under one rounding of its inputs {floor:.3e} px (max |disparity| {want.abs().max().item():.1f} px)",
+          flush=True)
+    del direct
+    # the direct bf16 stereo branch's memory peak in this call, beside PERF.md's
+    bf16 = rowshard_model("bfloat16")
+    bf16(*xs, iters=ITERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    direct_out = bf16(*xs, iters=ITERS)["disparity"]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    direct_ms = [sync_ms(lambda: bf16(*xs, iters=ITERS)) for _ in range(ROWSHARD_ROUNDS)]
+    print(f"rowshard direct bf16 {ITERS} iterations: memory peak {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB "
+          f"above resident, {base / 1e9:.2f} GB) beside PERF.md's earlier {DIRECT_PEAK_GB} GB; "
+          f"{np.median(direct_ms):.1f} ms a request (median of {ROWSHARD_ROUNDS})", flush=True)
+    del bf16, direct_out, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want, floor
+
+
+def rowshard_phase() -> dict:
+    """Exact row-sharded inference of the stereo branch at 1024^2 on the
+    one card (`rowshard_rank`): K5 at each rank's plane; world size 1 over
+    NCCL bit for bit against the direct forward; 2 and 4 ranks over gloo on
+    cuda:0 against it in f32 at 1 iteration, within twice the move one
+    rounding of the inputs gives the direct forward here; bf16 at 32
+    iterations: each rank's memory peak above what was resident beside the
+    direct path's (measured here, and PERF.md's earlier figure), ms a
+    request (gloo staged through the host: a correctness run, not a
+    speed), K5 on each rank, the bytes each rank's collectives moved.  One
+    card runs every rank: this measures no scaling over cards.  Returns the
+    wrappers' calls of one pipeline request (the mono stage whole, the
+    stereo branch on 2 ranks) on rank 0."""
+    rowshard_lookup_rows()
+    want, floor = rowshard_direct()
+    rowshard_world1([torch.from_numpy(x).cuda() for x in rowshard_inputs()], want)
+    failures, pipeline_calls = rowshard_ranks(ROWSHARD_RANKS, want, floor, cards=False)
+    if failures:
+        raise AssertionError("row-sharded inference: " + "; ".join(failures))
+    return pipeline_calls
+
+
+def rowshard_ranks(worlds, want: torch.Tensor, floor: float, cards: bool) -> tuple[list[str], dict | None]:
+    """`rowshard_rank` spawned at each world size (gloo on cuda:0, or NCCL
+    one card a rank with `cards`), its results held to the direct forward
+    and printed.  Returns the failures and the wrapper calls of the
+    pipeline request on rank 0 of the first world size."""
+    from stereoanywhere_tpu_torch.parallel.multihost import free_port
+
+    h, w = ROWSHARD
+    how = "over NCCL, one card a rank" if cards else "over gloo on cuda:0"
+    staged = "" if cards else " (gloo staged through the host: a correctness run, not a speed)"
+    failures, pipeline_calls = [], None
+    tmp = Path(tempfile.mkdtemp(prefix="sa_rowshard_"))
+    try:
+        for world in worlds:
+            out = str(tmp / f"world{world}")
+            t0 = time.perf_counter()
+            ctx = torch.multiprocessing.start_processes(
+                rowshard_rank, args=(world, f"tcp://127.0.0.1:{free_port()}", out, cards), nprocs=world,
+                join=False, start_method="spawn")
+            join_within(ctx, 300, f"rowshard: the {world} ranks")
+            res = [torch.load(f"{out}.{r}", weights_only=False) for r in range(world)]
+            got = res[0]["f32"].cuda()
+            err = float((got - want).abs().max())
+            print(f"rowshard {world} ranks {how} ({time.perf_counter() - t0:.0f} s with the spawn): "
+                  f"f32 1 iteration vs the direct forward max |delta| {err:.3e} px (tol {2 * floor:.3e}, twice the "
+                  f"one-rounding move)", flush=True)
+            if not (got.shape == want.shape and err <= 2 * floor):
+                failures.append(f"{world} ranks f32: max |delta| {err} px > {2 * floor}")
+            traffic = [r["bf16"]["traffic"] for r in res]
+            for r, rr in enumerate(res):
+                b = rr["bf16"]
+                print(f"rowshard {world} ranks bf16 {ITERS} iterations, rank {r} rows {b['rows']}: memory peak "
+                      f"{b['peak'] / 1e9:.2f} GB ({(b['peak'] - b['base']) / 1e9:.2f} GB above resident, "
+                      f"{b['base'] / 1e9:.2f} GB); K5 {b['calls']['dual_lookup']} (expected {ITERS}); bytes handed "
+                      f"to the collectives a forward: halo and band rows {b['traffic']['p2p'] / 1e6:.2f} MB, "
+                      f"gathers {b['traffic']['gather'] / 1e6:.2f} MB, all-reduces "
+                      f"{b['traffic']['reduce'] / 1e6:.3f} MB; ms a request{staged} first {b['first_ms']:.0f}, then "
+                      f"{', '.join(f'{m:.0f}' for m in b['ms'])}", flush=True)
+                want_calls = {n: ITERS if n == "dual_lookup" else 0 for n in COUNTERS}
+                if b["calls"] != want_calls:
+                    failures.append(f"{world} ranks, rank {r}: wrapper calls {b['calls']}, expected {want_calls}")
+                p = rr["pipeline"]
+                if p["calls"] != EXPECTED["default"]:
+                    failures.append(f"{world} ranks, rank {r}: pipeline calls {p['calls']}, expected "
+                                    f"{EXPECTED['default']}")
+            total = sum(t["p2p"] + t["gather"] + t["reduce"] for t in traffic)
+            print(f"rowshard {world} ranks: all ranks' collectives moved {total / 1e6:.1f} MB a forward, beside "
+                  f"{HALO_ESTIMATE}", flush=True)
+            out_b, out_p = res[0]["bf16"]["out"], res[0]["pipeline"]["out"]
+            pipe_ms = ", ".join(f"{m:.0f}" for m in res[0]["pipeline"]["ms"])
+            print(f"rowshard {world} ranks: pipeline request with the ViT-L mono stage and mesh=, bf16: wrapper "
+                  f"calls on rank 0 {res[0]['pipeline']['calls']}; ms {pipe_ms}; disparity range "
+                  f"[{out_p.min().item():.2f}, {out_p.max().item():.2f}] px", flush=True)
+            for name, o in (("stereo branch", out_b), ("pipeline", out_p)):
+                if tuple(o.shape) != (1, h, w, 1) or not torch.isfinite(o).all():
+                    failures.append(f"{world} ranks {name}: bad disparity {tuple(o.shape)}")
+            if any(r["f32"] is not None or r["bf16"]["out"] is not None or r["pipeline"]["out"] is not None
+                   for r in res[1:]):
+                failures.append(f"{world} ranks: a rank other than 0 got the gathered disparity")
+            if pipeline_calls is None:
+                pipeline_calls = res[0]["pipeline"]["calls"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return failures, pipeline_calls
+
+
+def join_within(ctx, seconds: float, what: str) -> None:
+    """Join spawned processes, killing them and raising after `seconds`."""
+    try:
+        deadline = time.monotonic() + seconds
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{what} did not finish within {seconds:.0f} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def run_own_group(cmd: list[str], seconds: float, env: dict) -> str:
+    """Run cmd in a session of its own from the repository's root; after
+    `seconds` kill it with every process it started (the ranks it spawns)
+    and raise.  Returns its output; raises on a non-zero exit."""
+    proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, env=env, start_new_session=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        out, _ = proc.communicate(timeout=seconds)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{' '.join(cmd[3:6])}... did not finish within {seconds:.0f} s") from None
+    if proc.returncode:
+        raise AssertionError(f"{' '.join(cmd[3:])} exited {proc.returncode}: {out[-3000:]}")
+    return out
+
+
+def rowshard_cli_check(worlds) -> list[str]:
+    """`cli infer --shard-rows N` as a user runs it, on a seeded 1024^2 pair
+    (ViT-L's random weights written as a .pth and read through
+    `--mono-checkpoint`, the CLI's seeded stereo weights, f32 at 1
+    iteration, TF32 off through NVIDIA_TF32_OVERRIDE=0), each in a process
+    of its own: N = 1 and each world size over NCCL, one card a rank.  The
+    .npy of N ranks is held to N = 1's within twice the move one rounding
+    of the inputs gives the one-process pipeline (measured here, in this
+    process, TF32 off).  Returns the failures."""
+    from types import SimpleNamespace
+
+    strict_f32()
+    h, w = ROWSHARD
+    tmp = Path(tempfile.mkdtemp(prefix="sa_rowshard_cli_"))
+    failures = []
+    try:
+        left, right, _ = _scene(np.random.default_rng(54), h, w, 120.0)
+        views = [str(tmp / "left.png"), str(tmp / "right.png")]
+        Image.fromarray(left).save(views[0])
+        Image.fromarray(right).save(views[1])
+        dav2 = tmp / "dav2_vitl.pth"
+        torch.save(DepthAnythingV2(MonoConfig.for_encoder("vitl"), device="cpu",
+                                   generator=torch.Generator().manual_seed(11)).state_dict(), dav2)
+        pipe = cli._pipeline(SimpleNamespace(device="cuda", dtype="float32", checkpoint=None,
+                                             mono_checkpoint=str(dav2), mono_encoder="vitl", iters=1))
+        pipe.graphs = False
+        ims = [np.asarray(Image.open(v).convert("RGB"), np.float32)[None] / 255.0 for v in views]
+        here = pipe(*ims).cpu().numpy()[0, ..., 0]
+        rng = np.random.default_rng(55)
+        move = max(float(np.abs(pipe(*[one_rounding(x, rng) for x in ims]).cpu().numpy()[0, ..., 0] - here).max())
+                   for _ in range(2))
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        env = {**os.environ, "NVIDIA_TF32_OVERRIDE": "0"}
+        outs = {}
+        for n in (1, *worlds):
+            t0 = time.perf_counter()
+            run_own_group([sys.executable, "-c", "import sys; from stereoanywhere_tpu_torch import cli; "
+                           "cli.main(sys.argv[1:])", "infer", *views, "-o", str(tmp / f"out{n}"), "--mono-checkpoint",
+                           str(dav2), "--dtype", "float32", "--iters", "1", "--shard-rows", str(n)], 300, env)
+            outs[n] = np.load(tmp / f"out{n}" / "left_disp.npy")
+            print(f"rowshard cli infer --shard-rows {n}: {time.perf_counter() - t0:.1f} s with the process start; "
+                  f"shape {outs[n].shape}, finite {bool(np.isfinite(outs[n]).all())}; max |delta| against this "
+                  f"process's pipeline {np.abs(outs[n] - here).max():.3e} px", flush=True)
+            if outs[n].shape != (h, w) or not np.isfinite(outs[n]).all():
+                failures.append(f"cli --shard-rows {n}: bad disparity {outs[n].shape}")
+        for n in worlds:
+            err = float(np.abs(outs[n] - outs[1]).max())
+            print(f"rowshard cli infer --shard-rows {n} over NCCL vs --shard-rows 1 (f32, TF32 off, 1 iteration): "
+                  f"max |delta| {err:.3e} px (tol {2 * move:.3e}, twice the one-process pipeline's one-rounding "
+                  f"move)", flush=True)
+            if not err <= 2 * move:
+                failures.append(f"cli --shard-rows {n}: max |delta| {err} px > {2 * move}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return failures
+
+
+def rowshard_booster_rank(rank: int, world: int, init_method: str, out: str) -> None:
+    """One of `world` ranks over NCCL on cuda:rank: Booster's 3008 x 4112
+    through the pipeline with ViT-L's mono stage at Booster's DAv2 size and
+    `mesh=` (bf16, 32 iterations, eager): the first request's ms, memory
+    peak above resident and wrapper calls, then BOOSTER_ROUNDS requests
+    timed.  Writes its numbers to `{out}.{rank}`, or the out-of-memory
+    error before it raises it."""
+    from stereoanywhere_tpu_torch.parallel import multihost as mh
+    from stereoanywhere_tpu_torch.parallel.mesh import make_mesh
+
+    strict_f32()
+    device = f"cuda:{rank}"
+    mh.initialize_distributed(device, rank=rank, world_size=world, init_method=init_method, backend="nccl")
+    try:
+        h, w = BOOSTER
+        mono = DepthAnythingV2(MonoConfig.for_encoder("vitl"), device="cuda",
+                               generator=torch.Generator().manual_seed(52), dtype=torch.bfloat16)
+        pipe = StereoAnywherePipeline(rowshard_model("bfloat16"), mono, ITERS, mono_size=harness.DAV2_SIZES["booster"],
+                                      device=device, mesh=make_mesh(1, world))
+        g = torch.Generator(device="cuda").manual_seed(41)
+        im2 = torch.rand((1, h, w, 3), generator=g, device="cuda")
+        im3 = torch.roll(im2, -24, dims=2) * 0.9 + 0.1 * torch.rand((1, h, w, 3), generator=g, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        try:
+            t0 = time.perf_counter()
+            disp, calls = counted(lambda: pipe(im2, im3))
+            first_ms = 1e3 * (time.perf_counter() - t0)
+        except torch.cuda.OutOfMemoryError as e:
+            torch.save(dict(oom=str(e).splitlines()[0], base=base), f"{out}.{rank}")
+            raise
+        peak = torch.cuda.max_memory_allocated()
+        rows = pipe.rows.group.plan.ranges(1)[rank]
+        traffic = dict(pipe.rows.group.traffic)
+        stats = None if disp is None else dict(shape=tuple(disp.shape), finite=bool(torch.isfinite(disp).all()),
+                                               lo=disp.min().item(), hi=disp.max().item())
+        ms = [sync_ms(lambda: pipe(im2, im3)) for _ in range(BOOSTER_ROUNDS)]
+        torch.save(dict(first_ms=first_ms, peak=peak, base=base, calls=calls, rows=rows, traffic=traffic, ms=ms,
+                        out=stats), f"{out}.{rank}")
+    finally:
+        mh.destroy_distributed()
+
+
+def rowshard_booster(world: int) -> list[str]:
+    """Booster's 3008 x 4112 over `world` cards (`rowshard_booster_rank`),
+    printed; a rank out of memory is printed as the finding that the shard
+    does not fit, not counted as a failure.  Returns the failures."""
+    from stereoanywhere_tpu_torch.parallel.multihost import free_port
+
+    h, w = BOOSTER
+    tmp = Path(tempfile.mkdtemp(prefix="sa_rowshard_booster_"))
+    failures = []
+    try:
+        out = str(tmp / "booster")
+        ctx = torch.multiprocessing.start_processes(
+            rowshard_booster_rank, args=(world, f"tcp://127.0.0.1:{free_port()}", out), nprocs=world, join=False,
+            start_method="spawn")
+        try:
+            join_within(ctx, 300, f"rowshard booster: the {world} ranks")
+        except Exception as e:  # noqa: BLE001  (an out-of-memory rank is a finding; anything else fails)
+            ooms = {r: torch.load(f"{out}.{r}")["oom"] for r in range(world) if os.path.exists(f"{out}.{r}")}
+            if not ooms:
+                raise
+            print(f"rowshard booster {h}x{w} over {world} cards: did not fit: " + "; ".join(
+                f"rank {r}: {m}" for r, m in ooms.items()) + f" ({type(e).__name__})", flush=True)
+            return failures
+        res = [torch.load(f"{out}.{r}", weights_only=False) for r in range(world)]
+        for r, b in enumerate(res):
+            print(f"rowshard booster {h}x{w} over {world} cards, NCCL, bf16 {ITERS} iterations, pipeline with the "
+                  f"ViT-L mono stage, rank {r} rows {b['rows']}: memory peak {b['peak'] / 1e9:.2f} GB "
+                  f"({(b['peak'] - b['base']) / 1e9:.2f} GB above resident, {b['base'] / 1e9:.2f} GB); wrapper calls "
+                  f"{b['calls']}; collectives a request: halo and band rows {b['traffic']['p2p'] / 1e6:.1f} MB, "
+                  f"gathers {b['traffic']['gather'] / 1e6:.1f} MB, all-reduces {b['traffic']['reduce'] / 1e6:.3f} "
+                  f"MB; ms a request first {b['first_ms']:.0f}, then {', '.join(f'{m:.0f}' for m in b['ms'])}",
+                  flush=True)
+            if b["calls"] != mono_and_lookup_calls(ITERS):
+                failures.append(f"booster rank {r}: wrapper calls {b['calls']}")
+        o = res[0]["out"]
+        print(f"rowshard booster: rank 0's gathered disparity {o}", flush=True)
+        if o is None or o["shape"] != (1, h, w, 1) or not o["finite"] or any(b["out"] for b in res[1:]):
+            failures.append(f"booster: bad gathered disparity {o}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return failures
+
+
+def rowshard_cards_main() -> int:
+    """`--rowshard-cards`: row-sharded inference over NCCL, one card a rank,
+    at each world size of ROWSHARD_RANKS the visible cards allow (needs 2 or
+    more): K5 at each rank's plane; the direct forward's yardstick on
+    cuda:0; `rowshard_rank` at each world size (f32 against the direct
+    forward within twice its one-rounding move; bf16 memory, bytes, ms a
+    request over NCCL, K5; the pipeline request); `cli infer --shard-rows
+    N` against `--shard-rows 1`; Booster's full 3008 x 4112 over the most
+    cards.  Any failure exits non-zero."""
+    n = torch.cuda.device_count()
+    worlds = [k for k in ROWSHARD_RANKS if k <= n]
+    if not worlds:
+        print(f"chip_smoke --rowshard-cards: needs {ROWSHARD_RANKS[0]} cards or more, has {n}", file=sys.stderr)
+        return 2
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    print(f"cards ({n}): " + "; ".join(cards), flush=True)
+    t0 = time.perf_counter()
+    build.build()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    rowshard_lookup_rows()
+    want, floor = rowshard_direct()
+    failures, _ = rowshard_ranks(worlds, want, floor, cards=True)
+    del want
+    torch.cuda.empty_cache()
+    failures += rowshard_cli_check(worlds)
+    failures += rowshard_booster(worlds[-1])
+    if failures:
+        raise AssertionError("row sharding over cards: " + "; ".join(failures))
+    print(f"rowshard over cards: all checks met on {worlds} cards; {card_line()}", flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # training: `cli train` at the reference configuration, and one step card vs CPU
 
 TRAIN_PAIRS, TRAIN_SIZE, TRAIN_STEPS, TRAIN_RESUMED = 8, (540, 960), 20, 24
@@ -2967,6 +3465,8 @@ def main() -> int:
     args = sys.argv[1:]
     if args == ["--tiles"]:
         return tiles_main()
+    if args == ["--rowshard-cards"]:
+        return rowshard_cards_main()
     if args == ["--ab-run"]:  # one run of --ab, in the checkout this process imported
         print(json.dumps(ab_rows()))
         return 0
@@ -3001,6 +3501,7 @@ def main() -> int:
     compare_phase()
     vitg_compare_phase()
     highres, booster = highres_phase()
+    rowshard = rowshard_phase()
     evaluated = eval_phase()
     eval_compare_phase()
     tmp = Path(tempfile.mkdtemp(prefix="sa_train_"))
@@ -3032,7 +3533,7 @@ def main() -> int:
                             replay_launches=None if per_replay is None else per_replay[name],
                             eval_launches=evaluated[name], vitg_launches=vitg[name], train_launches=trained[name],
                             validation_launches=validated[name], highres_launches=highres[name],
-                            booster_launches=booster[name],
+                            booster_launches=booster[name], rowshard_launches=rowshard[name],
                             max_abs_err=row["max_abs_err"], ms=row["ms"], device_ms=row["device_ms"],
                             host_ms=row["host_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"], unfused_ms=row.get("unfused_ms"),

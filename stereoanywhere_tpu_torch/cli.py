@@ -39,8 +39,12 @@ MASTER_PORT):
       --dataset sceneflow --datapath "ft;monkaa;driving" --mono-precomputed DAv2 --batch-size 8
 
 Either way `--batch-size` is the global batch, which each process loads a
-slice of.  Not ported yet, and refused: flax `.msgpack` checkpoints and
-`--shard-rows` (row sharding over several cards).
+slice of.  `infer --shard-rows N` spawns N ranks the same way and shards
+the stereo branch's image rows over them (`parallel/spatial.py`: exact, no
+tile seams); each rank runs the mono stage whole, and rank 0 writes the
+outputs.  On the card it takes N cards over NCCL, one a rank, and refuses
+with fewer; with `--device cpu` the ranks are gloo processes.  Not ported
+yet, and refused: flax `.msgpack` checkpoints.
 """
 from __future__ import annotations
 
@@ -83,13 +87,14 @@ def _load_mono(checkpoint: str | None, encoder: str = "vitl", device: str = "cud
     return load_state_dict_into(model, load_torch_state_dict(checkpoint))
 
 
-def _pipeline(args, two_stage: bool = False):
+def _pipeline(args, two_stage: bool = False, device=None, mesh=None):
     from stereoanywhere_tpu_torch.serve.pipeline import StereoAnywherePipeline
 
+    device = args.device if device is None else device
     cfg = StereoAnywhereConfig(compute_dtype=args.dtype)
-    stereo = _load_stereo(args.checkpoint, cfg, args.device)
-    mono = _load_mono(args.mono_checkpoint, args.mono_encoder, args.device, torch_dtype(args.dtype))
-    return StereoAnywherePipeline(stereo, mono, iters=args.iters, device=args.device, two_stage=two_stage)
+    stereo = _load_stereo(args.checkpoint, cfg, device)
+    mono = _load_mono(args.mono_checkpoint, args.mono_encoder, device, torch_dtype(args.dtype))
+    return StereoAnywherePipeline(stereo, mono, iters=args.iters, device=device, two_stage=two_stage, mesh=mesh)
 
 
 def cmd_eval(args):
@@ -185,9 +190,10 @@ def cmd_train(args):
     SIGUSR1) at the end.  With `--data-parallel N` it spawns N ranks and
     returns None; otherwise it returns the trainer."""
     from stereoanywhere_tpu_torch.parallel import multihost as mh
+    from stereoanywhere_tpu_torch.parallel.mesh import check_data_axis
 
     if args.data_parallel > 1:
-        mh.check_data_axis(args.data_parallel, args.device)
+        check_data_axis(args.data_parallel, args.device)
         torch.multiprocessing.start_processes(
             _data_parallel_rank, args=(args, f"tcp://127.0.0.1:{mh.free_port()}"), nprocs=args.data_parallel,
             start_method="spawn")
@@ -333,13 +339,43 @@ def cmd_precompute_mono(args):
 
 def cmd_infer(args):
     """File-pair inference: left/right images -> disparity .npy + colormapped
-    PNG."""
+    PNG.  With `--shard-rows N` it spawns N ranks and returns None."""
+    if args.shard_rows > 1:
+        from stereoanywhere_tpu_torch.parallel import multihost as mh
+        from stereoanywhere_tpu_torch.parallel.mesh import check_mesh
+
+        check_mesh(1, args.shard_rows, args.device)
+        torch.multiprocessing.start_processes(
+            _shard_rows_rank, args=(args, f"tcp://127.0.0.1:{mh.free_port()}"), nprocs=args.shard_rows,
+            start_method="spawn")
+        return None
+    return _infer(args)
+
+
+def _shard_rows_rank(rank: int, args, init_method: str) -> None:
+    """One rank of `infer --shard-rows N`, in a spawned process (on the CPU
+    with its share of the cores)."""
+    from stereoanywhere_tpu_torch.parallel import multihost as mh
+    from stereoanywhere_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.device(args.device).type == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // args.shard_rows))
+    device = mh.initialize_distributed(args.device, rank=rank, world_size=args.shard_rows, init_method=init_method)
+    try:
+        _infer(args, device, make_mesh(1, args.shard_rows))
+    finally:
+        mh.destroy_distributed()
+
+
+def _infer(args, device=None, mesh=None):
+    """`cmd_infer` as one process, or as one rank of a row-sharded run
+    (rank 0 writes the outputs)."""
     import numpy as np
     from PIL import Image
 
     from stereoanywhere_tpu_torch.utils.visualization import colorize_disparity
 
-    pipe = _pipeline(args, two_stage=args.two_stage)
+    pipe = _pipeline(args, two_stage=args.two_stage, device=device, mesh=mesh)
 
     def load(path):
         im = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
@@ -353,7 +389,10 @@ def cmd_infer(args):
             ) / 255.0
         return im[None]
 
-    disp = pipe(load(args.left), load(args.right)).cpu().numpy()[0, ..., 0] * args.iscale
+    disp = pipe(load(args.left), load(args.right))
+    if disp is None:  # a row-sharded run's other ranks
+        return
+    disp = disp.cpu().numpy()[0, ..., 0] * args.iscale
 
     os.makedirs(args.output, exist_ok=True)
     stem = os.path.splitext(os.path.basename(args.left))[0]
@@ -457,7 +496,9 @@ def main(argv=None):
     pi.add_argument("right")
     pi.add_argument("-o", "--output", default=".")
     pi.add_argument("--iscale", type=float, default=1.0)
-    pi.add_argument("--shard-rows", type=int, default=1, help="not ported yet: only 1")
+    pi.add_argument("--shard-rows", type=int, default=1,
+                    help="shard the stereo branch's image rows over N ranks, one a card (gloo processes with "
+                         "--device cpu)")
     pi.add_argument("--two-stage", action="store_true",
                     help="mono/stereo as separate programs (lower peak device memory)")
     pi.set_defaults(fn=cmd_infer)
@@ -472,8 +513,8 @@ def main(argv=None):
         if checkpoint and checkpoint.endswith(".msgpack"):
             p.error(f"{checkpoint}: flax .msgpack checkpoints are not read by the port yet; "
                     "give the reference's PyTorch .pth / .tar file")
-    if getattr(args, "shard_rows", 1) != 1:
-        p.error("--shard-rows: row sharding over several cards (parallel/spatial.py) is not ported yet")
+    if getattr(args, "shard_rows", 1) < 1:
+        p.error("--shard-rows: at least 1 rank")
     if getattr(args, "data_parallel", 1) > 1 and args.multihost:
         p.error("--data-parallel spawns its own ranks and --multihost joins a launch's: give one")
     return args.fn(args)

@@ -1,4 +1,7 @@
-"""Feature and context encoders (reference BasicEncoder / MultiBasicEncoder), NCHW."""
+"""Feature and context encoders (reference BasicEncoder / MultiBasicEncoder), NCHW.
+
+Every convolution goes through `row_conv` / `conv_rows`: on a rank's rows
+with its neighbours' halos when a row group is active (`parallel/halo.py`)."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -8,6 +11,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stereoanywhere_tpu_torch.models.layers import BatchNorm, ResidualBlock, instance_norm
+from stereoanywhere_tpu_torch.parallel.halo import conv_rows, row_conv
 
 
 class FeatureEncoder(nn.Module):
@@ -28,9 +32,9 @@ class FeatureEncoder(nn.Module):
         self.conv2 = nn.Conv2d(128, output_dim, 1)
 
     def forward(self, x):
-        x = F.relu(instance_norm(self.conv1(x)))
+        x = F.relu(instance_norm(row_conv(self.conv1, x)))
         x = self.layer3(self.layer2(self.layer1(x)))
-        return self.conv2(x)
+        return row_conv(self.conv2, x)
 
 
 class ContextEncoder(nn.Module):
@@ -68,14 +72,15 @@ class ContextEncoder(nn.Module):
     def forward(self, x: torch.Tensor):
         if x.shape[1] == 1:
             w = self.conv1.weight.sum(dim=1, keepdim=True)
-            x = F.conv2d(x, w, self.conv1.bias, stride=self.stride1, padding=3)
+            x = conv_rows(x, w, self.conv1.bias, self.stride1, 3)
         else:
-            x = self.conv1(x)
+            x = row_conv(self.conv1, x)
         x = F.relu(self.norm1(x))
         x = self.layer3(self.layer2(self.layer1(x)))
-        outs04 = tuple(head(x) for head in self.outputs08)
+        head = lambda h, t: row_conv(h[1], h[0](t))  # noqa: E731  (ResidualBlock, Conv2d)
+        outs04 = tuple(head(h, x) for h in self.outputs08)
         y = self.layer4(x)
-        outs08 = tuple(head(y) for head in self.outputs16)
+        outs08 = tuple(head(h, y) for h in self.outputs16)
         z = self.layer5(y)
-        outs16 = tuple(head(z) for head in self.outputs32)
+        outs16 = tuple(row_conv(h, z) for h in self.outputs32)
         return outs04, outs08, outs16

@@ -7,6 +7,11 @@
   (flax's `use_running_average=False`: over the global batch under several
   ranks); torch's parameter/buffer names minus `num_batches_tracked`.
 - `ResidualBlock`, `BasicConv`: the reference blocks.
+
+With a row group active (`parallel/halo.py`) the convolutions run on the
+rank's rows with halos from its neighbours, and the instance norm's sums
+are taken over the group's ranks; BatchNorm on running statistics needs
+nothing, and on the batch's is for training, which a row group refuses.
 - `init_weights`: random initialization with the JAX package's initializer
   families (truncated-normal He fan-out for convs, LeCun for dense layers),
   drawn from an explicit `torch.Generator`.
@@ -20,16 +25,31 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stereoanywhere_tpu_torch.parallel import halo
+from stereoanywhere_tpu_torch.parallel.halo import conv_rows, row_conv
 from stereoanywhere_tpu_torch.parallel.multihost import sum_over_ranks
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Normalize each (sample, channel) over the spatial axes of an NCHW /
-    NCDHW tensor: var = E[x^2] - E[x]^2 in f32, applied in x's dtype."""
+    NCDHW tensor: var = E[x^2] - E[x]^2 in f32, applied in x's dtype.  With
+    a row group active, the sums of x and x^2 and the count are the
+    group's."""
     dims = tuple(range(2, x.ndim))
     xf = x.float()
-    mean = xf.mean(dim=dims, keepdim=True)
-    var = (xf * xf).mean(dim=dims, keepdim=True) - mean * mean
+    g = halo.active()
+    if g is None:
+        mean = xf.mean(dim=dims, keepdim=True)
+        var = (xf * xf).mean(dim=dims, keepdim=True) - mean * mean
+    else:
+        b, c = x.shape[:2]
+        local = torch.cat([xf.sum(dim=dims).flatten(), (xf * xf).sum(dim=dims).flatten(),
+                           xf.new_full((1,), xf[0, 0].numel())])
+        sums = g.all_reduce(local)
+        count = sums[-1]
+        shape = (b, c) + (1,) * len(dims)
+        mean = (sums[:b * c] / count).view(shape)
+        var = (sums[b * c:2 * b * c] / count).view(shape) - mean * mean
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return (x - mean.to(x.dtype)) * inv
 
@@ -123,19 +143,20 @@ class ResidualBlock(nn.Module):
             self.downsample = nn.Sequential(nn.Conv2d(in_planes, planes, 1, stride=stride), self.norm3)
 
     def forward(self, x):
-        y = F.relu(self.norm1(self.conv1(x)))
-        y = F.relu(self.norm2(self.conv2(y)))
+        y = F.relu(self.norm1(row_conv(self.conv1, x)))
+        y = F.relu(self.norm2(row_conv(self.conv2, y)))
         if self.downsample is not None:
-            x = self.downsample(x)
+            x = self.downsample[1](row_conv(self.downsample[0], x))
         return F.relu(x + y)
 
 
-def conv_in_dtype(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def conv_in_dtype(conv: nn.Module, x: torch.Tensor, row_axis: int = -2) -> torch.Tensor:
     """conv(x) in x's dtype: the parameters are cast to it at the call, as
     the JAX package's convs cast their kernel to the input's dtype (an f32
-    input of a bf16 model runs in f32)."""
+    input of a bf16 model runs in f32).  `row_axis`: x's image rows, which a
+    row group shards."""
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return conv._conv_forward(x, conv.weight.to(x.dtype), bias)
+    return conv_rows(x, conv.weight.to(x.dtype), bias, conv.stride, conv.padding, row_axis)
 
 
 class BasicConv(nn.Module):

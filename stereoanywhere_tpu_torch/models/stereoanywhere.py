@@ -32,6 +32,15 @@ ranks (`parallel/multihost.py`) the batch is the global one: BatchNorm's
 statistics, the "zero" corruption's max and the "noise" corruption's draw
 are the global batch's, so N ranks compute what one process computes.
 
+Row sharding (`parallel/spatial.py`): inside `parallel.halo.row_group`,
+each rank's inputs are its rows of the padded images and every layer runs
+on the rank's rows, the convolutions with halos from the neighbouring
+ranks, the norms, min-max and least squares over the group, the resizes
+from the bands of rows they read (`parallel/halo.py`).  The volumes, the
+disparity and confidence estimates, the warps and the K5 lookups read
+along W only and need nothing.  Test mode and the unfused loop only: train
+mode and `fused_level0="on"` refuse a row group.
+
 Inputs: image2, image3 (B,H,W,3) in [0,1]; mde2, mde3 (B,H,W,1) normalized
 mono depth; H and W multiples of 32.
 """
@@ -77,6 +86,8 @@ from stereoanywhere_tpu_torch.ops.volume import (
     masked_volume,
     truncate_corr_volume,
 )
+from stereoanywhere_tpu_torch.parallel import halo
+from stereoanywhere_tpu_torch.parallel.halo import row_conv
 from stereoanywhere_tpu_torch.parallel.multihost import all_reduce_max, rank_and_world
 
 
@@ -208,6 +219,13 @@ class StereoAnywhere(nn.Module):
 
     def _forward(self, image2, image3, mde2, mde3, iters: int, test_mode: bool, generator) -> dict[str, torch.Tensor]:
         cfg = self.cfg
+        if halo.active() is not None:
+            if not test_mode:
+                raise ValueError("row sharding runs the test-mode forward only: train mode under a row group "
+                                 "is not supported")
+            if cfg.fused_level0 == "on":
+                raise ValueError('row sharding runs the unfused refinement loop only: fused_level0="on" needs '
+                                 "halos inside the K7-K9 kernels, which are not written yet")
         cdt = torch_dtype(cfg.compute_dtype)
         # a fresh NCHW copy whatever the caller's strides, so that the same
         # shapes take the same convolution kernels: a channels-last view, or
@@ -251,7 +269,7 @@ class StereoAnywhere(nn.Module):
         cnet_out = self.cnet(mde2.to(cdt))
         net = [torch.tanh(o[0]) for o in cnet_out]
         inp = [
-            tuple(torch.chunk(conv(F.relu(o[1])), 3, dim=1))
+            tuple(torch.chunk(row_conv(conv, F.relu(o[1])), 3, dim=1))
             for conv, o in zip(self.context_zqr_convs, cnet_out)
         ]
 
@@ -276,7 +294,7 @@ class StereoAnywhere(nn.Module):
         orig_vol_dhw = tuple(mono_vol.shape[1:])
         if cfg.vol_downsample > 0:
             tgt = tuple(s // vf for s in orig_vol_dhw)
-            mono_vol = resize_trilinear_align_corners(mono_vol, tgt)
+            mono_vol = resize_trilinear_align_corners(mono_vol, tgt, row_axis=-3)
             left_masks = resize_nearest(left_masks, (tgt[0], tgt[1]))
             right_masks = resize_nearest(right_masks, (tgt[0], tgt[2]))
 
@@ -284,11 +302,11 @@ class StereoAnywhere(nn.Module):
         # confidence classifier's input is detached (JAX :388, :399)
         agg = self.hourglass_mono(masked_volume(mono_vol, left_masks, right_masks).to(cdt), fmde2, fmde3)
         agg = agg.permute(0, 1, 3, 4, 2)  # (B,C,W3,H,W2) -> (B,C,H,W2,W3)
-        agg_disp = conv_in_dtype(self.classifier_mono, agg).float()[:, 0]  # (B,H,W2,W3)
-        agg_conf = conv_in_dtype(self.classifier_monoconf, agg.detach()).float()[:, 0]
+        agg_disp = conv_in_dtype(self.classifier_mono, agg, row_axis=-3).float()[:, 0]  # (B,H,W2,W3)
+        agg_conf = conv_in_dtype(self.classifier_monoconf, agg.detach(), row_axis=-3).float()[:, 0]
         if cfg.vol_downsample > 0:  # back to (H4, W4, W4) (JAX :404-406)
-            agg_disp = resize_trilinear_align_corners(agg_disp, orig_vol_dhw)
-            agg_conf = resize_trilinear_align_corners(agg_conf, orig_vol_dhw)
+            agg_disp = resize_trilinear_align_corners(agg_disp, orig_vol_dhw, row_axis=-3)
+            agg_conf = resize_trilinear_align_corners(agg_conf, orig_vol_dhw, row_axis=-3)
 
         # coarse disparities and confidences
         coarse_dispmono2_low = estimate_left_disparity(agg_disp)

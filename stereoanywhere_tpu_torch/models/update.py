@@ -8,6 +8,11 @@ un-rotated pre-step without the flow head (JAX `skip_flow_head`);
 `fused_refinement_step`, the rotated body, NHWC, whose quarter-resolution
 plane runs in the K7, K5, K8 and K9 kernels; and `refinement_tail`, the
 flow head, mask head and coordinate update (JAX `tail_only`).
+
+The unfused modules' convolutions go through `row_conv` / `conv_rows`: on
+a rank's rows with its neighbours' halos when a row group is active
+(`parallel/halo.py`).  The fused kernels take no halos: the rotated loop
+refuses a row group (`StereoAnywhere._forward`).
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from stereoanywhere_tpu_torch.ops.corr_lookup import lookup_corr_pyramid_pair
 from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import DualPyramid, dual_lookup
 from stereoanywhere_tpu_torch.ops.cuda.step_fused import conv_gru, flow_head, motion_encoder
 from stereoanywhere_tpu_torch.ops.interp import interp_like, interp_like_nhwc, pool2x, pool2x_nhwc
+from stereoanywhere_tpu_torch.parallel.halo import conv_rows, row_conv
 
 
 class ConvGRU(nn.Module):
@@ -38,7 +44,7 @@ class ConvGRU(nn.Module):
         x = torch.cat(x_list, dim=1)
         hd = h.shape[1]
         # z and r read the same [h, x]: one conv with both kernels stacked
-        zr = F.conv2d(
+        zr = conv_rows(
             torch.cat([h, x], dim=1),
             torch.cat([self.convz.weight, self.convr.weight]),
             torch.cat([self.convz.bias, self.convr.bias]),
@@ -46,7 +52,7 @@ class ConvGRU(nn.Module):
         )
         z = torch.sigmoid(zr[:, :hd] + cz)
         r = torch.sigmoid(zr[:, hd:] + cr)
-        q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)) + cq)
+        q = torch.tanh(row_conv(self.convq, torch.cat([r * h, x], dim=1)) + cq)
         return (1 - z) * h + z * q
 
 
@@ -64,9 +70,9 @@ class MotionEncoder(nn.Module):
 
     def forward(self, flow, corr, corr_mono):
         b = corr.shape[0]
-        both = F.relu(self.convc2(F.relu(self.convc1(torch.cat([corr, corr_mono], dim=0)))))
-        flo = F.relu(self.convf2(F.relu(self.convf1(flow))))
-        out = F.relu(self._conv(torch.cat([both[:b], both[b:], flo], dim=1)))
+        both = F.relu(row_conv(self.convc2, F.relu(row_conv(self.convc1, torch.cat([corr, corr_mono], dim=0)))))
+        flo = F.relu(row_conv(self.convf2, F.relu(row_conv(self.convf1, flow))))
+        out = F.relu(row_conv(self._conv, torch.cat([both[:b], both[b:], flo], dim=1)))
         return torch.cat([out, flow], dim=1)
 
 
@@ -81,8 +87,8 @@ class FlowHead(nn.Module):
     def forward_x(self, x):
         """The x-delta alone: conv2 restricted to its first output channel
         (the reference zeroes the y component)."""
-        y = F.relu(self.conv1(x))
-        return F.conv2d(y, self.conv2.weight[:1], self.conv2.bias[:1], padding=1)
+        y = F.relu(row_conv(self.conv1, x))
+        return conv_rows(y, self.conv2.weight[:1], self.conv2.bias[:1], padding=1)
 
 
 def _leaves(packed) -> list[torch.Tensor]:
@@ -176,7 +182,7 @@ def refinement_tail(block: MultiUpdateBlock, net, coords1, compute_mask: bool):
     """Flow head, mask head and coordinate update (the JAX `tail_only`):
     returns (net, coords1 + delta-x, mask logits or None)."""
     delta_x = block.flow_head.forward_x(net[0])
-    mask = 0.25 * block.mask(net[0]) if compute_mask else None
+    mask = 0.25 * row_conv(block.mask[2], F.relu(row_conv(block.mask[0], net[0]))) if compute_mask else None
     return net, coords1 + delta_x.float(), mask
 
 

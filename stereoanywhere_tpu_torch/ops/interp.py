@@ -19,6 +19,13 @@ Four families, and a nearest resize:
 - nearest (`resize_nearest`), torch's `mode='nearest'` index rule
   floor(i * in / out) with the product taken in f32, as the JAX package
   takes it: the masks of `vol_downsample`.
+
+With a row group active (`parallel/halo.py`), the align-corners and
+nearest resizes, `interp_like` and `pool2x` hold the rank's rows in their
+image-row axis (the first of the last two; the trilinear resize's
+`row_axis`): a resize gives the rank's rows at the target scale, from the
+rows of the constant matrix for them and the band of input rows those rows
+touch, fetched from the neighbours; `pool2x` takes one row from above.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from stereoanywhere_tpu_torch.device import device_constant
+from stereoanywhere_tpu_torch.parallel import halo
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,27 +138,61 @@ _MATRICES = {
 }
 
 
-def _resize(x: torch.Tensor, sizes: tuple[int, ...], kind: str, order=None) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _band(kind: str, in_size: int, out_size: int, start: int, stop: int) -> tuple[int, int]:
+    """The input columns [lo, hi) that output rows [start, stop) of the
+    matrix touch."""
+    cols = np.flatnonzero(_MATRICES[kind](in_size, out_size)[start:stop].any(axis=0))
+    return int(cols[0]), int(cols[-1]) + 1
+
+
+def _band_matrix(kind: str, in_size: int, out_size: int, start: int, stop: int) -> np.ndarray:
+    lo, hi = _band(kind, in_size, out_size, start, stop)
+    return np.ascontiguousarray(_MATRICES[kind](in_size, out_size)[start:stop, lo:hi])
+
+
+def _resize_rows(g, x: torch.Tensor, axis: int, out_local: int, kind: str) -> torch.Tensor:
+    """The row axis of a sharded x resized: this rank's output rows at the
+    scale where it holds out_local rows, from the band of input rows they
+    touch."""
+    h_in, _ = g.span(x.shape[axis])
+    h_out, out_ranges = g.span(out_local)
+    if h_in == h_out:
+        return x
+    band = g.fetch(x, axis, [_band(kind, h_in, h_out, a, b) for a, b in out_ranges])
+    a, b = out_ranges[g.index]
+    m = device_constant(_band_matrix, (kind, h_in, h_out, a, b), x.device, x.dtype)
+    return torch.movedim(torch.tensordot(band, m, dims=([axis], [1])), -1, axis)
+
+
+def _resize(x: torch.Tensor, sizes: tuple[int, ...], kind: str, order=None, row_axis: int | None = None) -> torch.Tensor:
     """Resize the last len(sizes) axes to `sizes` with the matrices of
     `kind`, one axis at a time in `order` (indices into sizes); axes
-    already at their size are skipped."""
+    already at their size are skipped.  With a row group active, `row_axis`
+    holds the rank's rows and its size is the rank's rows at the target."""
     nd = len(sizes)
+    g = halo.active() if row_axis is not None else None
     for i in range(nd) if order is None else order:
         axis = x.ndim - nd + i
-        if x.shape[axis] != sizes[i]:
+        if g is not None and axis == row_axis % x.ndim:
+            x = _resize_rows(g, x, axis, sizes[i], kind)
+        elif x.shape[axis] != sizes[i]:
             m = device_constant(_MATRICES[kind], (x.shape[axis], sizes[i]), x.device, x.dtype)
             x = torch.movedim(torch.tensordot(x, m, dims=([axis], [1])), -1, axis)
     return x
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of the last two axes, align_corners=True."""
-    return _resize(x, tuple(out_hw), "align_corners")
+    """Bilinear resize of the last two axes, align_corners=True (the first
+    of them the image rows)."""
+    return _resize(x, tuple(out_hw), "align_corners", row_axis=-2)
 
 
-def resize_trilinear_align_corners(x: torch.Tensor, out_dhw: tuple[int, int, int]) -> torch.Tensor:
-    """Trilinear resize of the last three axes, align_corners=True."""
-    return _resize(x, tuple(out_dhw), "align_corners")
+def resize_trilinear_align_corners(x: torch.Tensor, out_dhw: tuple[int, int, int], row_axis: int = -2) -> torch.Tensor:
+    """Trilinear resize of the last three axes, align_corners=True; the
+    image rows are `row_axis`: -2 in the hourglass's (B,C,W3,H,W2), -3 in a
+    (B,H,W2,W3) volume."""
+    return _resize(x, tuple(out_dhw), "align_corners", row_axis=row_axis)
 
 
 def resize_bilinear_halfpix(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
@@ -181,10 +223,25 @@ def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
     return np.floor(np.arange(out_size, dtype=np.float32) * np.float32(in_size / out_size)).astype(np.int64)
 
 
+def _nearest_band(in_size: int, out_size: int, start: int, stop: int) -> np.ndarray:
+    idx = _nearest_index(in_size, out_size)[start:stop]
+    return idx - idx[0]
+
+
 def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Nearest resize of the last two axes (torch `mode='nearest'`)."""
+    """Nearest resize of the last two axes (torch `mode='nearest'`), the
+    first of them the image rows."""
+    g = halo.active()
     for axis, out_size in ((x.ndim - 2, out_hw[0]), (x.ndim - 1, out_hw[1])):
-        idx = device_constant(_nearest_index, (x.shape[axis], out_size), x.device, torch.int64)
+        if g is not None and axis == x.ndim - 2:
+            h_in, _ = g.span(x.shape[axis])
+            h_out, ranges = g.span(out_size)
+            src = _nearest_index(h_in, h_out)
+            x = g.fetch(x, axis, [(int(src[a]), int(src[b - 1]) + 1) for a, b in ranges])
+            a, b = ranges[g.index]
+            idx = device_constant(_nearest_band, (h_in, h_out, a, b), x.device, torch.int64)
+        else:
+            idx = device_constant(_nearest_index, (x.shape[axis], out_size), x.device, torch.int64)
         x = torch.index_select(x, axis, idx)
     return x
 
@@ -195,8 +252,13 @@ def interp_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 def pool2x(x: torch.Tensor) -> torch.Tensor:
-    """3x3 stride-2 pad-1 average pool, zero padding counted."""
-    return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+    """3x3 stride-2 pad-1 average pool, zero padding counted.  Under a row
+    group, the row above the rank's (zero at the image's top) stands for
+    the padding, which the divisor counts either way."""
+    g = halo.active()
+    if g is None:
+        return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+    return F.avg_pool2d(g.halo(x, -2, 1, 0), 3, stride=2, padding=(0, 1), count_include_pad=True)
 
 
 def interp_like_nhwc(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

@@ -4,6 +4,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from stereoanywhere_tpu_torch.parallel import halo
+
 
 def weighted_lsq(
     mde: torch.Tensor,
@@ -18,7 +20,17 @@ def weighted_lsq(
     Statistics are per sample over all non-batch elements; the 2x2 normal
     equations are solved in closed form in f32.  Returns (scale, shift),
     each (B,1,1,1) in mde's dtype.
+
+    With a row group active the inputs (B,C,H,W) hold the rank's rows, and
+    every rank fits on the group's gathered maps: the quantiles need the
+    whole disparity anyway, the maps are at quarter resolution (2 x H/4 x
+    W/4 values each), and the fit is then the one-process fit bit for bit,
+    where five sums reduced over the ranks would be reordered and the 2x2
+    solve amplifies that reordering well past f32 rounding.
     """
+    g = halo.active()
+    if g is not None:
+        mde, disp, conf = (g.gather_rows(t, -2) for t in (mde, disp, conf))
     b = mde.shape[0]
     m = torch.abs(mde.reshape(b, -1).float())
     d = F.relu(disp.reshape(b, -1).float())

@@ -1,5 +1,5 @@
 """Training over several processes on `torch.distributed`: the JAX package's
-`parallel/multihost.py`, with the data axis of its `parallel/mesh.py`.
+`parallel/multihost.py` (the mesh's axes are in `mesh.py`).
 
 JAX runs one SPMD program over a global mesh, and its collectives follow
 from the sharding.  Here every rank runs the step on its own slice of the
@@ -26,6 +26,8 @@ import socket
 import torch
 import torch.distributed as dist
 
+from stereoanywhere_tpu_torch.parallel.mesh import check_data_axis
+
 _host_group = None  # the gloo group of the host's flags, beside an NCCL group
 
 
@@ -37,13 +39,6 @@ def distributed() -> bool:
 def rank_and_world() -> tuple[int, int]:
     """(this process's rank, the number of ranks); (0, 1) without a group."""
     return (dist.get_rank(), dist.get_world_size()) if distributed() else (0, 1)
-
-
-def check_data_axis(n: int, device: str | torch.device) -> None:
-    """The data axis of the JAX package's `make_mesh`: n ranks on the card
-    need n visible cards (NCCL refuses two ranks on one device)."""
-    if torch.device(device).type == "cuda" and n > torch.cuda.device_count():
-        raise ValueError(f"mesh {n}x1 needs {n} devices, have {torch.cuda.device_count()}")
 
 
 def free_port() -> int:

@@ -20,6 +20,13 @@ memory between them, hold the activations of one branch at a time.  A
 capture or replay that fails raises; nothing falls back to eager.  On the
 CPU, and with `graphs=False`, the same calls run eagerly.
 
+With a `mesh` (`parallel/mesh.py`), as the JAX pipeline's `mesh=`, the
+stereo branch's image rows are sharded over the mesh's `shard_axis`
+(`parallel/spatial.py`): each rank runs the mono stage whole, the joint
+min-max and the padding, then its rows of the stereo forward, and the
+axis's first rank gets the gathered, unpadded disparity (the others get
+None).  Such a pipeline runs eagerly.
+
 `serve_http` keeps the JAX request format: POST /infer with an
 X-Meta-Length JSON header ({"h", "w"}) and float32 (2, H, W, 3) pixels,
 answered with uint16 disparity x256.
@@ -41,6 +48,7 @@ from stereoanywhere_tpu_torch.models.dpt import DepthAnythingV2, dav2_input_size
 from stereoanywhere_tpu_torch.models.stereoanywhere import StereoAnywhere
 from stereoanywhere_tpu_torch.ops.geometry import joint_minmax_normalize
 from stereoanywhere_tpu_torch.ops.interp import resize_jax_image
+from stereoanywhere_tpu_torch.parallel.spatial import RowShardedInference
 
 
 def _pad_sizes(h: int, w: int, multiple: int = 32):
@@ -171,7 +179,8 @@ class StereoAnywherePipeline(GraphOwner):
     A load of weights into the models is seen by the graphs: parameters
     are filled in place and the fused loop's packed weights packed anew in
     place; a load that replaces the parameter tensors (`assign=True`)
-    needs a new pipeline.
+    needs a new pipeline.  `mesh` shards the stereo branch's rows over
+    its `shard_axis` (eager only; None on all but the axis's first rank).
     """
 
     def __init__(
@@ -183,14 +192,27 @@ class StereoAnywherePipeline(GraphOwner):
         device: str | torch.device = "cuda",
         two_stage: bool = False,
         graphs: bool | None = None,
+        mesh=None,
+        shard_axis: str = "tile",
     ):
-        super().__init__(device, graphs)
+        self.rows = None
+        super().__init__(device, False if mesh is not None else graphs)
         self.stereo = stereo.to(self.device)
         self.mono = mono.to(self.device) if mono is not None else None
         self.iters = iters
         self.mono_size = mono_size
         self.two_stage = two_stage
+        if mesh is not None:
+            self.rows = RowShardedInference(self.stereo, mesh, shard_axis, iters)
+            self.graphs = bool(graphs)
         self._cache: dict = {}
+
+    @GraphOwner.graphs.setter
+    def graphs(self, on: bool) -> None:
+        if on and self.rows is not None:
+            raise ValueError("a row-sharded pipeline (mesh=...) runs eagerly: CUDA graphs of its collectives "
+                             "are not supported")
+        GraphOwner.graphs.fset(self, on)
 
     def _build(self, b: int, h: int, w: int) -> _Program:
         """The one-graph program of (b, h, w): mono (when loaded), pad and
@@ -234,12 +256,19 @@ class StereoAnywherePipeline(GraphOwner):
     def stereo_stage(self, im2, im3, mde2, mde3) -> torch.Tensor:
         """Joint min-max normalize the depth pair, edge-pad to a multiple of
         32, run StereoAnywhere, unpad.  (B,H,W,3) views and (B,H,W,1) depth
-        -> (B,H,W,1) disparity, f32.  Runs eagerly."""
+        -> (B,H,W,1) disparity, f32 (None on a row-sharded pipeline's
+        other ranks).  Runs eagerly."""
         im2, im3, mde2, mde3 = (self._tensor(x) for x in (im2, im3, mde2, mde3))
         _, h, w, _ = im2.shape
         inputs, (t, l) = normalize_and_pad(im2, im3, mde2, mde3)
-        out = self.stereo(*inputs, iters=self.iters)
-        return out["disparity"][:, t : t + h, l : l + w].float()
+        if self.rows is None:
+            disparity = self.stereo(*inputs, iters=self.iters)["disparity"]
+        else:
+            self.rows.iters = self.iters
+            disparity = self.rows.gather_rows(self.rows.infer(*inputs), dst=0)
+            if disparity is None:
+                return None
+        return disparity[:, t : t + h, l : l + w].float()
 
     @torch.inference_mode()
     def __call__(self, im2, im3, mde2=None, mde3=None) -> torch.Tensor:

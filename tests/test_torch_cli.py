@@ -7,7 +7,9 @@ under the same parameter names.  No mono checkpoint: both CLIs then run
 stereo-only on zero depth.  Disparity tolerance: the pipeline's, 1e-3 px
 plus 5e-5 of its magnitude (`tests/test_torch_pipeline.py` gives the
 reasons).  `serve` is driven up to `serve_http`, which is replaced so the
-test does not block; the flags the port does not support yet are refused.
+test does not block; the flags the port does not support yet, and a
+`--shard-rows` of no rank, are refused (`--shard-rows N` itself runs:
+`tests/test_torch_rowshard.py`).
 """
 import numpy as np
 import pytest
@@ -91,7 +93,7 @@ def test_loaders_read_reference_names_and_leave_out_what_the_converter_does(file
 
 
 @pytest.mark.parametrize("argv", [["--checkpoint", "weights.msgpack"], ["--mono-checkpoint", "dav2.msgpack"],
-                                  ["--shard-rows", "2"]], ids=["msgpack", "mono-msgpack", "shard-rows"])
+                                  ["--shard-rows", "0"]], ids=["msgpack", "mono-msgpack", "shard-rows"])
 def test_unported_options_are_refused(files, argv):
     from stereoanywhere_tpu_torch import cli
 
