@@ -95,7 +95,7 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    and one more visit of a sample on the warm graphs traced (device busy,
    idle share, host ms of decode, resize and normalise, programs,
    metrics).  Then `cli eval` on the card (f32, TF32 off, ViT-S, 4
-   iterations, 2 scenes at 96x160) against the CPU: avgerr and rms within
+   iterations, one scene at 96x160) against the CPU: avgerr and rms within
    1e-3 relative, disparity within 1e-2 px + 1e-4 relative or twice the
    CPU's own move under one rounding of its stereo inputs, the larger.  The kernel
    phase holds K1-K4 at the eval's largest T too.
@@ -180,14 +180,35 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    ARCHITECTURE.md's estimate; and one request of the pipeline with the
    ViT-L mono stage and `mesh=` (wrapper calls asserted on every rank:
    K1-K4 24, K5 32).  One card runs every rank: no scaling over cards is
-   measured.
+   measured;
+12. the live capture loop of `cli camera` at the OAK-D's 400P (after phase
+   6): K1-K4 at the camera's T = 2184 (bf16, B = 2) and K5 at its 104 x 160
+   plane (bf16 and f32, bit for bit) against their plain versions; 24
+   synthetic 640x400 grey-as-RGB PNG pairs replayed by `DirectorySource`
+   through `CaptureLoop` on the ViT-L pipeline (default configuration,
+   bf16, 32 iterations, random weights read from a reference `.tar` and
+   `.pth`, PyTorch's defaults as the CLI runs them) on its CUDA graph: the
+   loop's fps, the warm frame's ms, the capture, the wrapper calls a frame
+   (asserted: twice a forward's on the first, none after; one eager frame
+   K1-K4 24, K5 32), one traced warm frame (device busy, idle share, the
+   host's ms by part, launches from the trace asserted); the same loop
+   through `infer_remote` against `make_http_server` (every remote
+   disparity within the protocol's quantisation of the local one); `cli
+   camera` on 8 frames with `--clip-top 8` from the `.tar` and from the
+   `.msgpack` that `cli convert` writes of it (8 PNGs of 392x640 each, the
+   disparities equal bit for bit); `chained_timer` of the 512^2 request
+   beside its `cuda_ms`.  The native library (`native/stereodata.cc`) is
+   built with g++ after the kernels, and the decoders each path takes are
+   printed (the eval phase's traced sample too).  Every phase prints its
+   wall seconds (`phase <name>: <s> s`).
 It prints a `{"kernels": [...]}` line (with each kernel's wrapper calls on
 the eval path, `eval_launches`, in the ViT-G pipeline's served requests,
 `vitg_launches`, in the train steps, `train_launches`, in the
 trainer's validations (f32 and bf16), `validation_launches`, in the 1024^2 request with
 the mono stage and 2 tiles, `highres_launches`, in the Booster
 request, `booster_launches`, and in the row-sharded pipeline request on
-rank 0 of 2, `rowshard_launches`; K1-K3 also their ViT-G
+rank 0 of 2, `rowshard_launches`, and in one eager camera frame,
+`camera_launches`; K1-K3 also their ViT-G
 rows, `vitg_*`), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
 
@@ -221,9 +242,12 @@ wrapper calls; a rank out of memory is printed, not failed).
 """
 from __future__ import annotations
 
+import argparse
 import bisect
 import ctypes
+import functools
 import gc
+import glob
 import io
 import json
 import os
@@ -248,6 +272,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 import stereoanywhere_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 from stereoanywhere_tpu_torch import cli
 from stereoanywhere_tpu_torch import device as port_device
+from stereoanywhere_tpu_torch import native as port_native
 from stereoanywhere_tpu_torch.config import MonoConfig, StereoAnywhereConfig
 from stereoanywhere_tpu_torch.data.frame_utils import write_pfm
 from stereoanywhere_tpu_torch.eval import harness
@@ -263,8 +288,10 @@ from stereoanywhere_tpu_torch.ops.interp import resize_jax_image
 from stereoanywhere_tpu_torch.ops.cuda import build, corr_lookup, step_fused, vit_attention, vit_dense, vit_mlp
 from stereoanywhere_tpu_torch.parallel.presets import get_preset_for_dataset, select_tiling_parameters
 from stereoanywhere_tpu_torch.parallel.tiles import TileParallelInference, plan_row_tiles
-from stereoanywhere_tpu_torch.serve.pipeline import (
-    StereoAnywherePipeline, build_pipeline, infer_remote, make_http_server)
+from stereoanywhere_tpu_torch.serve import camera as port_camera
+from stereoanywhere_tpu_torch.serve.client import infer_remote
+from stereoanywhere_tpu_torch.serve.pipeline import StereoAnywherePipeline, build_pipeline, make_http_server
+from stereoanywhere_tpu_torch.utils.profiling import chained_timer
 
 # H100 SXM peaks (NVIDIA data sheet, dense): FLOP/s by operand type, HBM bytes/s
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -1800,7 +1827,8 @@ def trace_repeat_sample(rec: _EvalRecorder, ds, index: int, label: str) -> None:
             host[e.name] += (e.time_range.end - e.time_range.start) / 1e3
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 if kernels else None
     idle = "not measured" if busy is None else f"{1 - busy / wall:.3f}"
-    print(f"eval trace {label} sample {index} (a repeat, graphs): wall {wall:.1f} ms, device busy ms "
+    print(f"eval trace {label} sample {index} (a repeat, graphs; decoder {decoders()}): wall {wall:.1f} ms, "
+          f"device busy ms "
           f"{fmt(busy)}, idle share {idle}, {len(kernels)} kernels; host ms by part: "
           + ", ".join(f"{k} {host.get(k, 0.0):.1f}" for k in ("decode", "resize and normalise", "programs", "metrics"))
           + f"; the rest {wall - sum(host.values()):.1f}", flush=True)
@@ -1916,9 +1944,14 @@ def one_rounding(x: np.ndarray, rng) -> np.ndarray:
     return (x.astype(np.float64) * (1 + rng.choice([-1.0, 1.0], x.shape) * 2.0 ** -24)).astype(np.float32)
 
 
+# one scene since the camera phase came (two before): the CPU's DAv2 at Middlebury's DAv2 size is most of the
+# phase's time
+EVAL_COMPARE_SCENES = 1
+
+
 def eval_compare_phase() -> None:
     """`cli eval` on the card against the CPU: f32 with TF32 off, ViT-S,
-    4 GRU iterations, a 2-scene 96x160 Middlebury directory (the CPU runs
+    4 GRU iterations, a one-scene 96x160 Middlebury directory (the CPU runs
     the kernels' plain versions).  avgerr and rms within 1e-3 relative;
     disparity within 1e-2 px + 1e-4 of its magnitude, or within twice the
     CPU's own move when its stereo inputs take one rounding, if that is
@@ -1931,7 +1964,7 @@ def eval_compare_phase() -> None:
     tmp = Path(tempfile.mkdtemp(prefix="sa_eval_cmp_"))
     try:
         rng = np.random.default_rng(1)
-        for i in range(2):
+        for i in range(EVAL_COMPARE_SCENES):
             scene = tmp / "mb" / f"scene{i}"
             scene.mkdir(parents=True)
             left, right, disp = _scene(rng, 96, 160, 30.0)
@@ -1972,11 +2005,12 @@ def eval_compare_phase() -> None:
               f"its stereo inputs: {floor:.3e} px", flush=True)
         tol = max(1e-2 + 1e-4 * scale, 2 * floor)
         rel = {k: abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in ("avgerr", "rms")}
-        print(f"eval card vs CPU, ViT-S f32 TF32 off, 2 scenes 96x160, iters 4: disparity max_abs_err {err:.3e} px "
+        print(f"eval card vs CPU, ViT-S f32 TF32 off, {EVAL_COMPARE_SCENES} scene(s) 96x160, iters 4: disparity "
+              f"max_abs_err {err:.3e} px "
               f"(max|cpu| {scale:.3e}; tol {tol:.3e}, the larger of 1e-2 px + 1e-4 rel. and twice the CPU's own "
               f"move); avgerr {mc['avgerr']:.5f} / {mp['avgerr']:.5f}, rms {mc['rms']:.5f} / {mp['rms']:.5f} "
               f"(rel. {rel['avgerr']:.2e}, {rel['rms']:.2e}, tol 1e-3)", flush=True)
-        if not (len(dc) == len(dp) == 2 and err <= tol and max(rel.values()) <= 1e-3):
+        if not (len(dc) == len(dp) == EVAL_COMPARE_SCENES and err <= tol and max(rel.values()) <= 1e-3):
             raise AssertionError("cli eval on the card disagrees with the CPU")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3389,6 +3423,338 @@ def train_batch_stats_phase(path: str) -> None:
         raise AssertionError("freeze_bn=False: a loss is not finite, or the running statistics moved wrongly")
 
 
+# ---------------------------------------------------------------------------
+# the live capture loop at the OAK-D's 400P (phase 12)
+
+CAMERA = (400, 640)  # the OAK-D's 400P, H x W
+CAMERA_PLANE = (104, 160)  # K5's quarter-resolution plane: 400 padded to 416, over 4
+CAMERA_FRAMES, CAMERA_CLI_FRAMES = 24, 8
+# the host's parts of one frame, each a record_function range in the trace
+CAMERA_PARTS = ("PNG decode", "pipeline call", ".cpu()", "EMA", "on_frame")
+
+
+def decoders() -> str:
+    """Which decoder the readers take: the native library where it built, PIL otherwise."""
+    if port_native.available():
+        return f"native ({port_native.library_path().name}: libpng, libjpeg)"
+    return f"PIL (the native library did not build: {port_native.build_error()})"
+
+
+def write_camera_frames(root: Path, rng) -> tuple[str, str]:
+    """CAMERA_FRAMES synthetic 640x400 pairs as PNGs under root/left and
+    root/right: grey, repeated to RGB, as OakDSource delivers a mono
+    camera's rectified frames.  Returns the two globs."""
+    for side in ("left", "right"):
+        (root / side).mkdir(parents=True)
+    for i in range(CAMERA_FRAMES):
+        left, right, _ = _scene(rng, *CAMERA, 48.0)
+        for side, view in (("left", left), ("right", right)):
+            grey = np.round(view.astype(np.float32).mean(-1)).astype(np.uint8)
+            Image.fromarray(np.repeat(grey[..., None], 3, axis=-1)).save(root / side / f"{i:05d}.png")
+    return str(root / "left" / "*.png"), str(root / "right" / "*.png")
+
+
+def recording_loop(seen: list, base=None):
+    """port_camera.CaptureLoop that also keeps each frame's result dict and
+    the host clock at its on_frame call in `seen`."""
+    base = base or port_camera.CaptureLoop
+
+    class Recording(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            on_frame = self.on_frame
+
+            def both(res):
+                seen.append(dict(res, at=time.perf_counter()))
+                return on_frame(res) if on_frame is not None else None
+
+            self.on_frame = both
+
+    return Recording
+
+
+def frame_ms(seen: list, t0: float) -> list[float]:
+    """Each frame's wall ms: from the previous frame's on_frame call (the
+    loop's start for the first) to its own."""
+    at = [t0] + [r["at"] for r in seen]
+    return [1e3 * (b - a) for a, b in zip(at, at[1:])]
+
+
+def camera_kernel_rows() -> None:
+    """K1-K4 at the camera's T (DAv2 at 518 x 826 for 400 x 640, B = 2
+    views) and K5 at its 104 x 160 plane, bf16 and f32, against their plain
+    versions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = tokens_of(*CAMERA)
+    if t != 2184:
+        raise AssertionError(f"the camera's DAv2 tokens a view: {t}, expected 2184")
+    vit_kernel_rows(torch.bfloat16, t, torch.Generator().manual_seed(40), VIT_L, label="camera ")
+    plane_lookup_rows("camera plane", *CAMERA_PLANE, (1,), 60)
+
+
+def traced_frame(pipe, source, on_frame) -> None:
+    """The second frame of a two-frame CaptureLoop (warm: a replay, and the
+    EMA's first real step), read from a trace of the loop, its host parts in
+    ranges: device busy ms, idle share of the frame's wall time (its decode's
+    start to its on_frame's end), host ms by part, and the replay's launches
+    by wrapper (asserted: K1-K4 24, K5 32).  The profiler now and then drops
+    a replay's events: three loops are traced and the one that kept the most
+    kernels read."""
+    def infer(left, right):
+        with record_function("pipeline call"):
+            out = pipe(left[None], right[None])
+        with record_function(".cpu()"):
+            return out.cpu().numpy()[0, ..., 0]
+
+    ema = port_camera.ema_filter
+
+    def ranged_ema(alpha):
+        step = ema(alpha)
+
+        def call(x):
+            with record_function("EMA"):
+                return step(x)
+        return call
+
+    def ranged_on_frame(res):
+        with record_function("on_frame"):
+            return on_frame(res)
+
+    def ranged_source():
+        frames = iter(source)
+        for _ in range(2):
+            with record_function("PNG decode"):
+                frame = next(frames)
+            yield frame
+
+    def one_try():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            port_camera.CaptureLoop(infer, on_frame=ranged_on_frame).run(ranged_source(), max_frames=2)
+            torch.cuda.synchronize()
+        events = prof.events()
+        # the second frame starts at its decode; the first frame's kernels all ended before its .cpu() returned
+        start = sorted(e.time_range.start for e in events
+                       if e.device_type == DeviceType.CPU and e.name == "PNG decode")[1]
+        frame = [e for e in events if e.time_range.start >= start]
+        kernels = [e for e in frame if e.device_type == DeviceType.CUDA and e.name not in CAMERA_PARTS]
+        host = defaultdict(float)
+        end = start
+        for e in frame:
+            if e.device_type == DeviceType.CPU and e.name in CAMERA_PARTS:
+                host[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+                end = max(end, e.time_range.end)
+        return kernels, host, (end - start) / 1e3
+
+    port_camera.ema_filter = ranged_ema
+    try:
+        tries = [one_try() for _ in range(3)]
+    finally:
+        port_camera.ema_filter = ema
+    kernels, host, wall = max(tries, key=lambda t: len(t[0]))
+    parts = ", ".join(f"{k} {host.get(k, 0.0):.2f}" for k in CAMERA_PARTS)
+    if not kernels:
+        print(f"camera trace: wall {wall:.1f} ms; device busy not measured (the profiler saw no device events); "
+              f"host ms by part: {parts}", flush=True)
+        return
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+    counts = trace_launches(e.name for e in kernels)
+    print(f"camera trace, a warm frame (the second of a loop, a graph replay): wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}, {len(kernels)} kernels (the three traces: "
+          f"{[len(t[0]) for t in tries]}); host ms by part: {parts}, the rest {wall - sum(host.values()):.2f} (the "
+          f"pipeline call and .cpu() include the wait for the card); launches by wrapper from the trace {counts}",
+          flush=True)
+    if counts != EXPECTED["default"]:
+        raise AssertionError(f"camera: the replayed frame launched {counts}, expected {EXPECTED['default']}")
+
+
+def camera_phase() -> dict:
+    """`cli camera`'s path at the OAK-D's 400P: ViT-L and the default
+    stereo configuration, bf16, 32 iterations, random weights written as a
+    reference `.tar` (stereo) and `.pth` (DAv2), PyTorch's defaults as the
+    CLI runs them.  The local CaptureLoop over a DirectorySource of 24
+    frames on the pipeline's graph (fps, warm frame ms, capture, wrapper
+    calls a frame, one traced frame); the same loop through `infer_remote`
+    against `make_http_server` (every remote disparity within the
+    protocol's quantisation of the local one); `cli camera` on 8 frames
+    with `--clip-top 8` from the `.tar` and from the `.msgpack` that `cli
+    convert` writes (the PNGs, the disparities equal bit for bit);
+    `chained_timer` of the 512^2 request beside `cuda_ms`; the decoders.
+    Returns the wrapper calls of one eager frame, counted from 0."""
+    print(f"native library: {'built' if port_native.available() else 'NOT built'}; the readers decode with "
+          f"{decoders()}; the camera's DirectorySource decodes with PIL (as the JAX package's)", flush=True)
+    camera_kernel_rows()
+    # what the CLI runs: convolutions in TF32, products in f32, cuDNN's heuristics
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.benchmark = False
+    tmp = Path(tempfile.mkdtemp(prefix="sa_camera_"))
+    try:
+        t0 = time.perf_counter()
+        left_glob, right_glob = write_camera_frames(tmp / "frames", np.random.default_rng(14))
+        tar, pth = tmp / "stereo.tar", tmp / "dav2_vitl.pth"
+        stereo = StereoAnywhere(StereoAnywhereConfig(), device="cuda", generator=torch.Generator().manual_seed(41))
+        torch.save({"state_dict": {f"module.{k}": v.cpu() for k, v in stereo.state_dict().items()}}, tar)
+        mono = DepthAnythingV2(MonoConfig.for_encoder("vitl"), device="cuda", generator=torch.Generator().manual_seed(42))
+        torch.save({k: v.cpu() for k, v in mono.state_dict().items()}, pth)
+        del stereo, mono
+        t1 = time.perf_counter()
+        args = argparse.Namespace(checkpoint=str(tar), mono_checkpoint=str(pth), mono_encoder="vitl",
+                                  dtype="bfloat16", iters=ITERS, device="cuda")
+        pipe = cli._pipeline(args)
+        print(f"camera: {CAMERA_FRAMES} frame pairs and the weights ({tar.stat().st_size / 1e6:.0f} + "
+              f"{pth.stat().st_size / 1e6:.0f} MB) written in {t1 - t0:.1f} s; the CLI's pipeline loaded in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        source = port_camera.DirectorySource(sorted(glob.glob(left_glob)), sorted(glob.glob(right_glob)))
+
+        written_ms = defaultdict(list)
+
+        def writer(out: Path):
+            out.mkdir()
+
+            def on_frame(res):  # what cli camera writes a frame
+                t = time.perf_counter()
+                Image.fromarray(port_camera.disparity_frame(res["smoothed"])).save(
+                    out / f"frame_{res['index']:05d}.png")
+                written_ms[out.name].append(1e3 * (time.perf_counter() - t))
+            return on_frame
+
+        calls = []
+
+        def infer(left, right):
+            before = {n: f.launches for n, f in COUNTERS.items()}
+            disp = pipe(left[None], right[None]).cpu().numpy()[0, ..., 0]
+            calls.append({n: f.launches - before[n] for n, f in COUNTERS.items()})
+            return disp
+
+        # the local loop: the first frame runs eagerly and captures the shape's graph, the others replay it; each
+        # frame's on_frame writes its PNG, as cli camera's does
+        local = []
+        t0 = time.perf_counter()
+        loop = recording_loop(local)(infer, on_frame=writer(tmp / "local"))
+        n = loop.run(source)
+        ms = frame_ms(local, t0)
+        warm = ms[1:]
+        program = pipe._build(1, *CAMERA)
+        print(f"camera local loop, {n} frames of {CAMERA[1]}x{CAMERA[0]} (ViT-L, bf16, {ITERS} iterations, CUDA "
+              f"graph, a JET PNG written a frame): {loop.stats['fps']:.2f} fps over the loop (the first frame's "
+              f"warm-up and capture included); first frame {ms[0]:.1f} ms; warm frame median {np.median(warm):.1f} "
+              f"ms [{min(warm):.1f}-{max(warm):.1f}] over {len(warm)} frames ({1e3 / np.median(warm):.2f} fps), of "
+              f"which on_frame (JET and PNG) {np.median(written_ms['local']):.1f}; capture {program.capture_ms:.0f} "
+              f"ms; graph pool {pipe.graph_pool_bytes() / 2 ** 30:.2f} GiB", flush=True)
+        want = {k: 2 * v for k, v in EXPECTED["default"].items()}
+        zero = {k: 0 for k in COUNTERS}
+        if calls[0] != want or any(c != zero for c in calls[1:]):
+            raise AssertionError(f"camera: wrapper calls a frame {calls[:3]}..., expected {want} then none")
+        for f in COUNTERS.values():
+            f.launches = 0
+        eager_frame = eagerly(pipe, lambda: infer(*next(iter(source))))
+        one = {n: f.launches for n, f in COUNTERS.items()}
+        print(f"camera wrapper calls: the first frame {calls[0]} (warm-up and capture), each later frame none "
+              f"(replays); one eager frame {one}", flush=True)
+        if one != EXPECTED["default"]:
+            raise AssertionError(f"camera: one eager frame ran the wrappers {one}, expected {EXPECTED['default']}")
+        if not (np.isfinite(eager_frame).all() and all(np.isfinite(r["disparity"]).all() for r in local)
+                and local[0]["disparity"].shape == CAMERA):
+            raise AssertionError("camera: non-finite or misshapen disparity")
+        t0 = time.perf_counter()
+        traced_frame(pipe, source, writer(tmp / "traced"))
+        print(f"camera: the traced loops took {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # the remote loop: the server answers on this thread (where the graph was captured), the loop asks from
+        # another and writes its PNGs as the local one does
+        remote = []
+        server = make_http_server(pipe, "127.0.0.1", 0)
+        server.timeout = 0.25  # handle_request returns when idle this long, so the loop below sees the client end
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        box = {}
+
+        def client():
+            try:
+                t = time.perf_counter()
+                rl = recording_loop(remote)(functools.partial(infer_remote, url), on_frame=writer(tmp / "remote"))
+                box["n"], box["loop"], box["t0"] = rl.run(source), rl, t
+            except BaseException as e:  # noqa: BLE001 - reported on this thread
+                box["error"] = e
+        thread = threading.Thread(target=client)
+        thread.start()
+        try:
+            while thread.is_alive():
+                server.handle_request()
+            thread.join()
+        finally:
+            server.server_close()
+        if "error" in box:
+            raise box["error"]
+        rms = frame_ms(remote, box["t0"])
+        print(f"camera remote loop (infer_remote against make_http_server on 127.0.0.1, the same pipeline, a JET "
+              f"PNG written a frame): {box['n']} frames, {box['loop'].stats['fps']:.2f} fps over the loop; frame "
+              f"median {np.median(rms):.1f} ms [{min(rms):.1f}-{max(rms):.1f}], of which on_frame (JET and PNG) "
+              f"{np.median(written_ms['remote']):.1f}", flush=True)
+        worst = 0.0
+        for a, b in zip((r["disparity"] for r in local), (r["disparity"] for r in remote)):
+            inside = (a >= 0) & (a < 256)  # the protocol's range: uint16 / 256, negatives clipped to 0
+            gap = a[inside] - b[inside]
+            worst = max(worst, float(gap.max()))
+            if not (gap.min() >= 0 and gap.max() < 1 / 256 and (b[a < 0] == 0).all()):
+                raise AssertionError(f"camera: a remote disparity lies outside the protocol's quantisation of the "
+                                     f"local one: gap in [{gap.min()}, {gap.max()}]")
+        print(f"camera remote vs local: 0 <= local - remote < 1/256 px where 0 <= local < 256 (largest gap "
+              f"{worst:.3e} px), remote 0 where local < 0, over {len(remote)} frames", flush=True)
+
+        # chained_timer of the default 512^2 request beside cuda_ms of the same request, on the same pipeline
+        g = torch.Generator(device="cuda").manual_seed(43)
+        im2, im3 = (torch.rand((1, 512, 512, 3), generator=g, device="cuda") for _ in range(2))
+        pipe(im2, im3)
+        chained, samples = chained_timer(pipe, im2, im3, return_samples=True)
+        events = cuda_ms(lambda: pipe(im2, im3), iters=10)
+        print(f"camera tools: chained_timer of the 512x512 request (graph) {1e3 * chained:.2f} ms (runs "
+              f"{[round(1e3 * s, 2) for s in samples]}) beside cuda_ms {events:.2f} ms: ratio "
+              f"{1e3 * chained / events:.3f}", flush=True)
+        del pipe, program
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # cli camera, from the .tar and from the .msgpack cli convert writes, in this process and thread (so
+        # cuDNN's heuristics pick the same algorithms)
+        packed = tmp / "stereo.msgpack"
+        with redirect_stdout(io.StringIO()) as said:
+            cli.main(["convert", "--input", str(tar), "--output", str(packed)])
+        print(f"camera: cli convert: {said.getvalue().strip()}", flush=True)
+        runs = {}
+        for label, ckpt in (("tar", tar), ("msgpack", packed)):
+            seen = runs[label] = []
+            port_camera.CaptureLoop, base = recording_loop(seen), port_camera.CaptureLoop
+            try:
+                t0 = time.perf_counter()
+                with redirect_stdout(io.StringIO()):
+                    cli.main(["camera", "--left-glob", left_glob, "--right-glob", right_glob, "-o",
+                              str(tmp / f"cli_{label}"), "--checkpoint", str(ckpt), "--mono-checkpoint", str(pth),
+                              "--dtype", "bfloat16", "--iters", str(ITERS), "--max-frames", str(CAMERA_CLI_FRAMES),
+                              "--clip-top", "8"])
+                wall = time.perf_counter() - t0
+            finally:
+                port_camera.CaptureLoop = base
+            pngs = sorted((tmp / f"cli_{label}").iterdir())
+            shapes = {np.asarray(Image.open(p)).shape for p in pngs}
+            print(f"camera: cli camera --checkpoint {ckpt.name}: {len(pngs)} PNGs of {shapes} in {wall:.1f} s "
+                  f"(models loaded, the capture included)", flush=True)
+            if [p.name for p in pngs] != [f"frame_{i:05d}.png" for i in range(CAMERA_CLI_FRAMES)] or shapes != {
+                    (CAMERA[0] - 8, CAMERA[1], 3)}:
+                raise AssertionError(f"cli camera wrote {[p.name for p in pngs]} of {shapes}")
+            gc.collect()
+            torch.cuda.empty_cache()
+        same = all(np.array_equal(a["smoothed"], b["smoothed"]) and np.array_equal(a["disparity"], b["disparity"])
+                   for a, b in zip(runs["tar"], runs["msgpack"]))
+        print(f"camera: cli camera from the .msgpack equals the .tar run bit for bit: {same} "
+              f"({len(runs['tar'])} frames)", flush=True)
+        if not (same and len(runs["tar"]) == len(runs["msgpack"]) == CAMERA_CLI_FRAMES):
+            raise AssertionError("cli camera from the .msgpack differs from the .tar run")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return one
+
+
 def ab_rows() -> list[dict]:
     """One --ab run over the package this process imported: K1 and K3 at
     both token counts, K7, K8 (with its device ms by launch), K9 at each
@@ -3458,6 +3824,18 @@ def ab_main(other: Path) -> int:
     return 0
 
 
+START = time.perf_counter()
+
+
+def timed(name: str, fn, *args):
+    """fn(*args), with its wall seconds printed on a line of their own."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3487,35 +3865,45 @@ def main() -> int:
             if ("Compiling entry" in line or "Used" in line or "Performance Loss" in line
                     or ("spill" in line and " 0 bytes spill stores" not in line)):
                 print(f"  {p.stem}: {line.strip()}", flush=True)
+    t0 = time.perf_counter()
+    built = port_native.available()
+    print(f"native library (native/stereodata.cc, g++): {'built' if built else 'NOT built'} in "
+          f"{time.perf_counter() - t0:.1f} s" + (f" at {port_native.library_path()}" if built else
+                                               f": {port_native.build_error()}"), flush=True)
     sass_counts(paths)
-    records = {**kernel_phase(), **step_kernel_phase()}
-    vitg_records = vitg_kernel_phase()
-    capture_phase()
-    launches, replayed = pipeline_phase("default", StereoAnywhereConfig(compute_dtype="bfloat16"))
+    records = {**timed("kernels K1-K4", kernel_phase), **timed("kernels K5-K9", step_kernel_phase)}
+    vitg_records = timed("kernels ViT-G", vitg_kernel_phase)
+    timed("capture", capture_phase)
+    launches, replayed = timed("pipeline default", pipeline_phase, "default",
+                               StereoAnywhereConfig(compute_dtype="bfloat16"))
     torch.cuda.empty_cache()
-    fused, fused_replayed = pipeline_phase("fused", StereoAnywhereConfig(compute_dtype="bfloat16", fused_level0="on"))
+    fused, fused_replayed = timed("pipeline fused", pipeline_phase, "fused",
+                                  StereoAnywhereConfig(compute_dtype="bfloat16", fused_level0="on"))
     torch.cuda.empty_cache()
-    vitg, _ = pipeline_phase("vitg", StereoAnywhereConfig(compute_dtype="bfloat16"), encoder="vitg", extras=False)
+    vitg, _ = timed("pipeline vitg", pipeline_phase, "vitg", StereoAnywhereConfig(compute_dtype="bfloat16"), "vitg",
+                    False)
     torch.cuda.empty_cache()
-    hourglass_phase()
-    compare_phase()
-    vitg_compare_phase()
-    highres, booster = highres_phase()
-    rowshard = rowshard_phase()
-    evaluated = eval_phase()
-    eval_compare_phase()
+    timed("hourglass", hourglass_phase)
+    timed("compare", compare_phase)
+    timed("compare vitg", vitg_compare_phase)
+    highres, booster = timed("highres", highres_phase)
+    rowshard = timed("rowshard", rowshard_phase)
+    evaluated = timed("eval", eval_phase)
+    timed("eval card vs cpu", eval_compare_phase)
+    camera = timed("camera", camera_phase)
     tmp = Path(tempfile.mkdtemp(prefix="sa_train_"))
     try:
         path, mb = write_train_data(tmp)
-        trained, validated = train_phase(tmp, path, mb)
-        train_compare_phase()
-        train_dp_phase(tmp, path)
-        train_two_rank_phase(tmp)
-        bf16_validated = train_bf16_phase(tmp, path, mb)
-        train_bf16_compare_phase()
-        train_batch_stats_phase(path)
+        trained, validated = timed("train", train_phase, tmp, path, mb)
+        timed("train card vs cpu", train_compare_phase)
+        timed("train dp", train_dp_phase, tmp, path)
+        timed("train two ranks", train_two_rank_phase, tmp)
+        bf16_validated = timed("train bf16", train_bf16_phase, tmp, path, mb)
+        timed("train bf16 card vs cpu", train_bf16_compare_phase)
+        timed("train batch stats", train_batch_stats_phase, path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase all: {time.perf_counter() - START:.1f} s since the script started", flush=True)
     validated = {n: c + bf16_validated[n] for n, c in validated.items()}
     if GRAPH_FAILURES:
         raise AssertionError("replays differ from eager: " + "; ".join(GRAPH_FAILURES))
@@ -3534,6 +3922,7 @@ def main() -> int:
                             eval_launches=evaluated[name], vitg_launches=vitg[name], train_launches=trained[name],
                             validation_launches=validated[name], highres_launches=highres[name],
                             booster_launches=booster[name], rowshard_launches=rowshard[name],
+                            camera_launches=camera[name],
                             max_abs_err=row["max_abs_err"], ms=row["ms"], device_ms=row["device_ms"],
                             host_ms=row["host_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"], unfused_ms=row.get("unfused_ms"),

@@ -1,9 +1,9 @@
 """Command-line entry points of the port: `eval`, `train`,
-`precompute-mono`, `infer` and `serve`.
+`precompute-mono`, `convert`, `infer`, `serve` and `camera`.
 
 The counterparts of the JAX package's `cli.py` subcommands of those names,
 with its flags and a `--device` (default the card; "cpu" runs eagerly
-there):
+there; `convert` runs on the host):
 
   python -m stereoanywhere_tpu_torch.cli eval --dataset middlebury --datapath ... \\
       --checkpoint sceneflow.tar --mono-checkpoint depth_anything_v2_vitl.pth
@@ -14,9 +14,15 @@ there):
   python -m stereoanywhere_tpu_torch.cli infer left.png right.png -o out \\
       --checkpoint sceneflow.tar --mono-checkpoint depth_anything_v2_vitl.pth
   python -m stereoanywhere_tpu_torch.cli serve --checkpoint ... --port 8008
+  python -m stereoanywhere_tpu_torch.cli convert --input sceneflow.tar --output sceneflow.msgpack
+  python -m stereoanywhere_tpu_torch.cli camera --left-glob "left/*.png" --right-glob "right/*.png" \\
+      --checkpoint sceneflow.msgpack --mono-checkpoint depth_anything_v2_vitl.pth -o camera_out
 
 Checkpoints are the reference's PyTorch files (`.pth` / `.tar`), read
-straight into the port's modules under the reference parameter names.
+straight into the port's modules under the reference parameter names, or
+the JAX package's flax `.msgpack` files, which `convert` writes from a
+reference file (`--kind stereo|dav2`) and which load through the same name
+table (`compat/msgpack.py`, `compat/from_jax.py`), in place.
 Without `--checkpoint` the stereo model gets seeded random weights (`eval`
 first looks for `$SA_CHECKPOINT`, else `sceneflow.tar` in the working
 directory); without `--mono-checkpoint` `infer` and `serve` run stereo-only
@@ -43,8 +49,12 @@ slice of.  `infer --shard-rows N` spawns N ranks the same way and shards
 the stereo branch's image rows over them (`parallel/spatial.py`: exact, no
 tile seams); each rank runs the mono stage whole, and rank 0 writes the
 outputs.  On the card it takes N cards over NCCL, one a rank, and refuses
-with fewer; with `--device cpu` the ranks are gloo processes.  Not ported
-yet, and refused: flax `.msgpack` checkpoints.
+with fewer; with `--device cpu` the ranks are gloo processes.  `camera` is
+the live capture loop (`serve/camera.py`): frames from an OAK-D (`--source
+oak`, which needs the depthai SDK) or replayed from two globs, inferred by
+the pipeline on its CUDA graphs (or by a `serve` endpoint, `--server`),
+EMA-smoothed and written as `frame_%05d.png` (and the camera's SGM stream
+as `frame_%05d_sgm.png`); it returns the `CaptureLoop`.
 """
 from __future__ import annotations
 
@@ -69,7 +79,12 @@ def _load_stereo(checkpoint: str | None, cfg: StereoAnywhereConfig, device: str 
 
     model = StereoAnywhere(cfg, device=resolve_device(device), generator=torch.Generator().manual_seed(0),
                            param_dtype=param_dtype)
-    if checkpoint:
+    if checkpoint and checkpoint.endswith(".msgpack"):
+        from stereoanywhere_tpu_torch.compat import msgpack
+        from stereoanywhere_tpu_torch.compat.from_jax import load_stereo_variables
+
+        load_stereo_variables(model, msgpack.read(checkpoint))
+    elif checkpoint:
         load_state_dict_into(model, load_torch_state_dict(checkpoint))
     return model
 
@@ -84,6 +99,11 @@ def _load_mono(checkpoint: str | None, encoder: str = "vitl", device: str = "cud
     from stereoanywhere_tpu_torch.models.dpt import DepthAnythingV2
 
     model = DepthAnythingV2(MonoConfig.for_encoder(encoder), device=resolve_device(device), dtype=dtype)
+    if checkpoint.endswith(".msgpack"):
+        from stereoanywhere_tpu_torch.compat import msgpack
+        from stereoanywhere_tpu_torch.compat.from_jax import load_dav2_variables
+
+        return load_dav2_variables(model, msgpack.read(checkpoint))
     return load_state_dict_into(model, load_torch_state_dict(checkpoint))
 
 
@@ -337,6 +357,27 @@ def cmd_precompute_mono(args):
           if args.outdir is None else f"wrote the mono depth of {len(ds)} pairs to {args.outdir}")
 
 
+def cmd_convert(args):
+    """A reference PyTorch checkpoint (`.tar` / `.pth`, DataParallel's
+    `module.` prefixes stripped) -> the flax `.msgpack` file the JAX CLI's
+    `convert` writes, byte for byte: the JAX package's variable tree (f32
+    leaves in the flax layouts) in flax's msgpack layout."""
+    from stereoanywhere_tpu_torch.compat import msgpack
+    from stereoanywhere_tpu_torch.compat.from_jax import dav2_tree, stereo_tree
+    from stereoanywhere_tpu_torch.compat.torch_checkpoint import load_torch_state_dict
+
+    state = load_torch_state_dict(args.input)
+    tree = stereo_tree(state) if args.kind == "stereo" else dav2_tree(state)
+    size = msgpack.write(args.output, tree)
+
+    def leaves(node):
+        for v in node.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+
+    n = sum(leaf.size for leaf in leaves(tree))
+    print(f"wrote {args.output}: {n / 1e6:.1f}M params ({size / 1e6:.1f} MB)")
+
+
 def cmd_infer(args):
     """File-pair inference: left/right images -> disparity .npy + colormapped
     PNG.  With `--shard-rows N` it spawns N ranks and returns None."""
@@ -407,6 +448,52 @@ def cmd_serve(args):
     pipe = _pipeline(args)
     print(f"serving on :{args.port} ({'CUDA graphs' if pipe.graphs else 'eager'}, {pipe.device})")
     serve_http(pipe, port=args.port)
+
+
+def cmd_camera(args):
+    """The live capture loop (reference demo/fast_demo_oak.py): frames from
+    an OAK-D (needs depthai) or replayed from two globs, inferred locally
+    (the pipeline, on its CUDA graphs on the card) or by a remote `serve`
+    endpoint, EMA-smoothed and written as colormapped PNGs.  Returns the
+    `CaptureLoop` (its `stats`: frames, fps)."""
+    import functools
+    import glob
+
+    from PIL import Image
+
+    from stereoanywhere_tpu_torch.serve.camera import CaptureLoop, DirectorySource, OakDSource, disparity_frame
+
+    if args.source == "oak":
+        source = OakDSource(resolution=args.resolution)
+    else:
+        source = DirectorySource(sorted(glob.glob(args.left_glob)), sorted(glob.glob(args.right_glob)),
+                                 loop=args.loop)
+
+    if args.server:
+        from stereoanywhere_tpu_torch.serve.client import infer_remote
+
+        infer = functools.partial(infer_remote, args.server)
+    else:
+        pipe = _pipeline(args)
+
+        def infer(left, right):
+            return pipe(left[None], right[None]).cpu().numpy()[0, ..., 0]
+
+    os.makedirs(args.output, exist_ok=True)
+
+    def on_frame(res):
+        Image.fromarray(disparity_frame(res["smoothed"])).save(
+            os.path.join(args.output, f"frame_{res['index']:05d}.png"))
+        if res["sgm"] is not None:  # the OAK's on-board SGM stream, for comparison
+            Image.fromarray(disparity_frame(res["sgm"])).save(
+                os.path.join(args.output, f"frame_{res['index']:05d}_sgm.png"))
+        print(f"frame {res['index']}  {res['fps']:.1f} fps")
+
+    loop = CaptureLoop(infer, ema_alpha=args.ema_alpha,
+                       clip=(args.clip_top, args.clip_bottom, args.clip_left, args.clip_right), on_frame=on_frame)
+    n = loop.run(source, max_frames=args.max_frames)
+    print(f"{n} frames -> {args.output}")
+    return loop
 
 
 def main(argv=None):
@@ -490,6 +577,12 @@ def main(argv=None):
                          "default: beside the images, where --mono-precomputed reads them")
     pm.set_defaults(fn=cmd_precompute_mono)
 
+    pc = sub.add_parser("convert", help="reference .tar/.pth checkpoint -> flax .msgpack")
+    pc.add_argument("--input", required=True, help="torch .tar/.pth checkpoint")
+    pc.add_argument("--output", required=True, help="output .msgpack path")
+    pc.add_argument("--kind", choices=["stereo", "dav2"], default="stereo")
+    pc.set_defaults(fn=cmd_convert)
+
     pi = sub.add_parser("infer", help="file-pair inference -> .npy + colormap PNG")
     common(pi)
     pi.add_argument("left")
@@ -503,16 +596,27 @@ def main(argv=None):
                     help="mono/stereo as separate programs (lower peak device memory)")
     pi.set_defaults(fn=cmd_infer)
 
-    ps = sub.add_parser("serve")
+    ps = sub.add_parser("serve", help="HTTP inference server (POST /infer; serve/client.py is its client)")
     common(ps)
     ps.add_argument("--port", type=int, default=8008)
     ps.set_defaults(fn=cmd_serve)
 
+    pcam = sub.add_parser("camera", help="live capture loop (OAK-D or replay)")
+    common(pcam)
+    pcam.add_argument("--source", default="dir", choices=["dir", "oak"])
+    pcam.add_argument("--left-glob", default="left/*.png")
+    pcam.add_argument("--right-glob", default="right/*.png")
+    pcam.add_argument("--loop", action="store_true", help="replay forever")
+    pcam.add_argument("--resolution", default="400", choices=["400", "720", "800"])
+    pcam.add_argument("--server", default=None, help="remote serve endpoint")
+    pcam.add_argument("-o", "--output", default="camera_out")
+    pcam.add_argument("--ema-alpha", type=float, default=0.15)
+    pcam.add_argument("--max-frames", type=int, default=None)
+    for side in ("top", "bottom", "left", "right"):
+        pcam.add_argument(f"--clip-{side}", type=int, default=0)
+    pcam.set_defaults(fn=cmd_camera)
+
     args = p.parse_args(argv)
-    for checkpoint in (args.checkpoint, args.mono_checkpoint):
-        if checkpoint and checkpoint.endswith(".msgpack"):
-            p.error(f"{checkpoint}: flax .msgpack checkpoints are not read by the port yet; "
-                    "give the reference's PyTorch .pth / .tar file")
     if getattr(args, "shard_rows", 1) < 1:
         p.error("--shard-rows: at least 1 rank")
     if getattr(args, "data_parallel", 1) > 1 and args.multihost:

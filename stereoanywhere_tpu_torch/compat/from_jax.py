@@ -1,10 +1,15 @@
-"""Load the JAX package's flax variable trees into the port's modules.
+"""The JAX package's flax variable trees, to and from the port's modules.
 
 The port's parameters carry the reference PyTorch names, and the JAX
 package's converter maps those names onto its flax paths.  This module is
-the port's own copy of that name table, run in the other direction: for
-every tensor of the port's `state_dict()` it finds the flax leaf, undoes the
-layout change, and copies it in.
+the port's own copy of that name table.  `load_*_variables` run it from the
+port's side: for every tensor of the port's `state_dict()` they find the
+flax leaf, undo the layout change, and copy it in.  `stereo_tree` and
+`dav2_tree` run it the other way, from a state dict (the port's, or a
+reference checkpoint's from `compat/torch_checkpoint.py`) to the tree the
+JAX package's `convert_stereo_checkpoint` / `convert_dav2_checkpoint` give:
+the same paths, f32 leaves in the flax layouts, and the same names left
+out.
 
 Layouts (flax -> torch):
   Conv2d   (kh,kw,I,O)    -> (O,I,kh,kw)
@@ -14,7 +19,8 @@ Layouts (flax -> torch):
   norm scale/bias, LayerScale gamma, tokens: as they are.
 
 `load_*_variables` raise on a flax leaf left unused and on a port parameter
-or buffer left unfilled.
+or buffer left unfilled.  They take numpy leaves and torch tensors (a
+bfloat16 leaf of a msgpack checkpoint comes as a tensor, `compat/msgpack.py`).
 """
 from __future__ import annotations
 
@@ -171,6 +177,22 @@ _BN_LEAF = {
 }
 
 
+_TO_FLAX = {
+    "conv2d": lambda a: a.transpose(2, 3, 1, 0),
+    "conv3d": lambda a: a.transpose(2, 3, 4, 1, 0),
+    "convT2d": lambda a: a.transpose(2, 3, 1, 0),
+    "linear": lambda a: a.T,
+    "raw": lambda a: a,
+}
+_BN_FLAX = {"running_mean": "mean", "running_var": "var", "weight": "scale", "bias": "bias"}
+
+
+def _f32(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(leaf, dtype=np.float32)
+
+
 def _leaves(tree: Mapping, prefix: tuple = ()):
     for k, v in tree.items():
         if isinstance(v, Mapping):
@@ -202,7 +224,7 @@ def _load(model: torch.nn.Module, variables: Mapping[str, Any], rename, what: st
             else:
                 full = ("params", *path)
             try:
-                value = np.asarray(_get(variables, full), dtype=np.float32)
+                value = _f32(_get(variables, full))
             except KeyError:
                 unmapped.append(name)
                 continue
@@ -216,6 +238,54 @@ def _load(model: torch.nn.Module, variables: Mapping[str, Any], rename, what: st
     unused = sorted("/".join(p) for p in _leaves(variables) if p not in used)
     if unused:
         raise ValueError(f"{what}: flax leaves left unused ({len(unused)}): {unused[:10]}")
+
+
+def _set(tree: dict, path: list[str], value: np.ndarray) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def _tree(state: Mapping[str, Any], rename, skipped: tuple[str, ...], what: str) -> tuple[dict, dict]:
+    """(params, batch_stats) of a state dict, in its order, as the JAX
+    converters build them."""
+    params: dict = {}
+    stats: dict = {}
+    unmapped = []
+    for name, w in state.items():
+        if any(s in name for s in skipped):
+            continue
+        mapped = rename(name)
+        if mapped is None:
+            unmapped.append(name)
+            continue
+        path, kind = mapped
+        w = _f32(w)
+        if kind == "bn":
+            leaf = _BN_FLAX[path[-1]]
+            _set(stats if leaf in ("mean", "var") else params, path[:-1] + [leaf], w)
+        else:
+            _set(params, path, _TO_FLAX[kind](w))
+    if unmapped:
+        raise ValueError(f"{what}: names with no flax path ({len(unmapped)}): {unmapped[:10]}")
+    return params, stats
+
+
+def stereo_tree(state: Mapping[str, Any]) -> dict[str, dict]:
+    """A stereo state dict (torch tensors or numpy arrays under the
+    reference names) -> the JAX package's {'params', 'batch_stats'} tree,
+    as its `convert_stereo_checkpoint` gives it (the norms' batch counters
+    left out)."""
+    params, stats = _tree(state, _stereo_rename, ("num_batches_tracked",), "stereo_tree")
+    return {"params": params, "batch_stats": stats}
+
+
+def dav2_tree(state: Mapping[str, Any]) -> dict[str, dict]:
+    """A DAv2 state dict -> the JAX package's {'params'} tree, as its
+    `convert_dav2_checkpoint` gives it (mask_token, resize_layers.2 and
+    refinenet4.resConfUnit1, which the reference never runs, left out)."""
+    params, _ = _tree(state, _dav2_rename, ("mask_token", "resize_layers.2", "refinenet4.resConfUnit1"), "dav2_tree")
+    return {"params": params}
 
 
 def load_stereo_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> torch.nn.Module:

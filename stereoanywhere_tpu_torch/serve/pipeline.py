@@ -29,7 +29,7 @@ None).  Such a pipeline runs eagerly.
 
 `serve_http` keeps the JAX request format: POST /infer with an
 X-Meta-Length JSON header ({"h", "w"}) and float32 (2, H, W, 3) pixels,
-answered with uint16 disparity x256.
+answered with uint16 disparity x256; `serve/client.py` is its client.
 """
 from __future__ import annotations
 
@@ -358,18 +358,3 @@ def serve_http(pipeline: StereoAnywherePipeline, host: str = "0.0.0.0", port: in
     finally:
         server.server_close()
 
-
-def infer_remote(server: str, im2: np.ndarray, im3: np.ndarray, timeout: float = 600.0) -> np.ndarray:
-    """Client of `serve_http`: (H,W,3) float images in [0,1] -> (H,W) disparity."""
-    import urllib.request
-
-    h, w, _ = im2.shape
-    meta = json.dumps({"h": h, "w": w}).encode()
-    payload = meta + np.stack([im2, im3]).astype(np.float32).tobytes()
-    req = urllib.request.Request(
-        f"{server.rstrip('/')}/infer", data=payload, method="POST",
-        headers={"Content-Type": "application/octet-stream", "X-Meta-Length": str(len(meta))},
-    )
-    with urllib.request.urlopen(req, timeout=timeout) as resp:
-        raw = resp.read()
-    return np.frombuffer(raw, np.uint16).reshape(h, w).astype(np.float32) / 256.0

@@ -1,1 +1,2 @@
-"""Host-side helpers of the entry points."""
+"""Host-side helpers of the entry points: logging, visualisation and
+profiling."""

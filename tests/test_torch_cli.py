@@ -7,9 +7,9 @@ under the same parameter names.  No mono checkpoint: both CLIs then run
 stereo-only on zero depth.  Disparity tolerance: the pipeline's, 1e-3 px
 plus 5e-5 of its magnitude (`tests/test_torch_pipeline.py` gives the
 reasons).  `serve` is driven up to `serve_http`, which is replaced so the
-test does not block; the flags the port does not support yet, and a
-`--shard-rows` of no rank, are refused (`--shard-rows N` itself runs:
-`tests/test_torch_rowshard.py`).
+test does not block; a flax `.msgpack` cut short or lacking a leaf, and a
+`--shard-rows` of no rank, are refused (whole `.msgpack` files run:
+`tests/test_torch_msgpack.py`; `--shard-rows N`: `tests/test_torch_rowshard.py`).
 """
 import numpy as np
 import pytest
@@ -92,13 +92,38 @@ def test_loaders_read_reference_names_and_leave_out_what_the_converter_does(file
         cli._load_mono(str(tmp_path / "bad.pth"), "vits", "cpu")
 
 
-@pytest.mark.parametrize("argv", [["--checkpoint", "weights.msgpack"], ["--mono-checkpoint", "dav2.msgpack"],
-                                  ["--shard-rows", "0"]], ids=["msgpack", "mono-msgpack", "shard-rows"])
-def test_unported_options_are_refused(files, argv):
+def _refused_inputs(root):
+    """A stereo .msgpack cut short, and a DAv2 ViT-S .msgpack whose tree
+    lacks one leaf (both as `cli convert` writes them otherwise)."""
+    from stereoanywhere_tpu_torch.compat import msgpack
+    from stereoanywhere_tpu_torch.compat.from_jax import dav2_tree
+    from stereoanywhere_tpu_torch.config import MonoConfig
+    from stereoanywhere_tpu_torch.models.dpt import DepthAnythingV2
+
+    data = msgpack.serialize({"params": {"w": np.ones((4, 4), np.float32)}})
+    (root / "cut.msgpack").write_bytes(data[:-5])
+    tree = dav2_tree(DepthAnythingV2(MonoConfig.for_encoder("vits"), device="cpu").state_dict())
+    del tree["params"]["depth_head"]["scratch_output_conv2_2"]["bias"]
+    msgpack.write(root / "missing.msgpack", tree)
+
+
+@pytest.mark.parametrize("argv, error, match", [
+    (["--checkpoint", "{root}/cut.msgpack"], ValueError, "cut.msgpack: not a whole flax msgpack checkpoint"),
+    (["--mono-checkpoint", "{root}/missing.msgpack", "--mono-encoder", "vits"], ValueError,
+     "load_dav2_variables: port tensors left unfilled .*scratch.output_conv2.2.bias"),
+    (["--shard-rows", "0"], SystemExit, None)], ids=["msgpack", "mono-msgpack", "shard-rows"])
+def test_unported_options_are_refused(files, argv, error, match):
+    """What the CLI refuses: a `.msgpack` cut short, a `.msgpack` tree that
+    lacks a leaf the model has (`compat/from_jax.py` is strict both ways),
+    and a `--shard-rows` of no rank.  Nothing is written."""
     from stereoanywhere_tpu_torch import cli
 
     root, _, (left, right), _ = files
-    with pytest.raises(SystemExit) as e:
-        cli.main(["infer", left, right, "-o", str(root / "refused"), "--device", "cpu", *argv])
-    assert e.value.code != 0
+    if not (root / "missing.msgpack").exists():
+        _refused_inputs(root)
+    with pytest.raises(error, match=match) as e:
+        cli.main(["infer", left, right, "-o", str(root / "refused"), "--device", "cpu",
+                  *(a.format(root=root) for a in argv)])
+    if error is SystemExit:
+        assert e.value.code != 0
     assert not (root / "refused").exists()

@@ -3,10 +3,10 @@ synthetic trees in the reference layouts (the trees of
 `tests/test_datasets.py`, one for every reader).
 
 Every key of every sample must be equal bit for bit, with the same dtype and
-shape: the readers and decoders are copies, and the port decodes through PIL
-where the JAX package decodes through its native C++ decoder when it is
-built, so 16-bit PNGs (KITTI disparity, mono16, depth in millimetres) are
-where the two could part.
+shape: the readers and decoders are copies, and each package decodes
+through its own build of the native C++ decoder where it is built (through
+PIL otherwise), so 16-bit PNGs (KITTI disparity, mono16, depth in
+millimetres) are where the two could part.
 """
 import os
 import pickle

@@ -519,7 +519,8 @@ def test_fused_pipeline_serves_a_request(monkeypatch):
     import threading
 
     from stereoanywhere_tpu_torch.config import StereoAnywhereConfig
-    from stereoanywhere_tpu_torch.serve.pipeline import build_pipeline, infer_remote, make_http_server
+    from stereoanywhere_tpu_torch.serve.client import infer_remote
+    from stereoanywhere_tpu_torch.serve.pipeline import build_pipeline, make_http_server
 
     calls = _count_fused_bodies(monkeypatch)
     pipe = build_pipeline(StereoAnywhereConfig(fused_level0="on"), mono_cfg=None, iters=3, device="cpu")

@@ -1,5 +1,7 @@
 """The port stands alone: no file of `stereoanywhere_tpu_torch/`, nor
-`chip_smoke.py`, imports JAX, flax or the JAX package; and its entry points
+`chip_smoke.py`, imports JAX, flax or the JAX package, nor the `msgpack` and
+`ml_dtypes` packages, which the card's machine lacks (the port reads and
+writes flax's msgpack files itself); and its entry points
 refuse to run without a CUDA device unless the caller asks for the CPU."""
 import ast
 from pathlib import Path
@@ -8,7 +10,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "stereoanywhere_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "stereoanywhere_tpu", "msgpack", "ml_dtypes"}
 
 
 def _port_files():

@@ -98,7 +98,8 @@ def test_http_server_roundtrip():
     on a stereo-only CPU pipeline."""
     import threading
 
-    from stereoanywhere_tpu_torch.serve.pipeline import build_pipeline, infer_remote, make_http_server
+    from stereoanywhere_tpu_torch.serve.client import infer_remote
+    from stereoanywhere_tpu_torch.serve.pipeline import build_pipeline, make_http_server
 
     pipe = build_pipeline(mono_cfg=None, iters=1, device="cpu")
     server = make_http_server(pipe, "127.0.0.1", 0)
