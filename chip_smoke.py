@@ -179,8 +179,13 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    fetches, the gathers and the all-reduces a forward beside
    ARCHITECTURE.md's estimate; and one request of the pipeline with the
    ViT-L mono stage and `mesh=` (wrapper calls asserted on every rank:
-   K1-K4 24, K5 32).  One card runs every rank: no scaling over cards is
-   measured;
+   K1-K4 24, K5 32); then the fused loop (`fused_level0="on"`, its K7, K8
+   and K9 launches on bands of rows) on the same ranks: f32 at 2
+   iterations against the fused direct forward within twice its
+   one-rounding move, bf16 at 32 iterations with each rank's memory peak,
+   bytes a forward, ms a request and wrapper calls (asserted: K5 32, K7 and
+   K8 31, K9 93 a rank), beside the fused direct forward's peak and ms.
+   One card runs every rank: no scaling over cards is measured;
 12. the live capture loop of `cli camera` at the OAK-D's 400P (after phase
    6): K1-K4 at the camera's T = 2184 (bf16, B = 2) and K5 at its 104 x 160
    plane (bf16 and f32, bit for bit) against their plain versions; 24
@@ -199,8 +204,21 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    disparities equal bit for bit); `chained_timer` of the 512^2 request
    beside its `cuda_ms`.  The native library (`native/stereodata.cc`) is
    built with g++ after the kernels, and the decoders each path takes are
-   printed (the eval phase's traced sample too).  Every phase prints its
-   wall seconds (`phase <name>: <s> s`).
+   printed (the eval phase's traced sample too);
+13. the variants no shipped model uses: the aggregation variant
+   (`use_aggregate_stereo_vol=True`, `n_additional_hourglass=2`; ViT-L,
+   default widths, bf16, 32 iterations) served like phase 4's pipelines
+   after the ViT-G one (two 512^2 and two 375x1242 pairs on its graphs;
+   wrapper calls K1-K4 24 and K5 32, its lookups reading the aggregated
+   stereo volume's pyramid; replay = eager; the split, one traced replay
+   and eager request, the stereo hourglasses in the module ranges), without
+   the two-stage and reload checks; then, after phase 7's comparison, the
+   variant's ViT-S pipeline card vs CPU (f32 and bf16) and its coarse
+   outputs, and the standalone modules card vs CPU in f32:
+   `DeformableConv2d`, the MobileNet extractors `Feature` and `FeatureV4`,
+   `MultiUpdateScalerBlock`, `sgm_disparity` (bit for bit), the
+   scale/shift estimators, `upflow` and the Zadeh combinators.  Every phase
+   prints its wall seconds (`phase <name>: <s> s`).
 It prints a `{"kernels": [...]}` line (with each kernel's wrapper calls on
 the eval path, `eval_launches`, in the ViT-G pipeline's served requests,
 `vitg_launches`, in the train steps, `train_launches`, in the
@@ -208,7 +226,10 @@ trainer's validations (f32 and bf16), `validation_launches`, in the 1024^2 reque
 the mono stage and 2 tiles, `highres_launches`, in the Booster
 request, `booster_launches`, and in the row-sharded pipeline request on
 rank 0 of 2, `rowshard_launches`, and in one eager camera frame,
-`camera_launches`; K1-K3 also their ViT-G
+`camera_launches`, in the aggregation variant's served requests,
+`variant_launches`, and its replayed request, `variant_replay_launches`,
+and in the fused row-sharded stereo request on rank 0 of 2,
+`rowshard_fused_launches`; K1-K3 also their ViT-G
 rows, `vitg_*`), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
 
@@ -1116,7 +1137,14 @@ EXPECTED = {
              "dual_lookup": ITERS},
     "fused": {**{n: MAIN_PATH.get(n, 0) for n in COUNTERS}, "flow_head": ITERS - 1,
               "motion_encoder": ITERS - 1, "conv_gru": 3 * (ITERS - 1)},
+    # the aggregation variant: the stereo volume's hourglasses and classifier
+    # are cuDNN convolutions; K5 reads the aggregated volume's pyramid
+    "variant": {n: MAIN_PATH.get(n, 0) for n in COUNTERS},
 }
+# the aggregation variant no shipped model uses, at the default widths: the
+# stereo volume through its own hourglass, one stacked hourglass after each
+# volume's first (the reference's identity-first stack of n = 2)
+VARIANT = dict(use_aggregate_stereo_vol=True, n_additional_hourglass=2)
 
 
 class _Recorder:
@@ -1242,7 +1270,11 @@ def module_parts(pipe) -> dict:
         "extractors": [(st.cnet, "forward"), (st.fnet, "forward")],
         "volumes": [(sa_model, n) for n in ("all_pairs_correlation", "generate_masks", "masked_volume",
                                             "truncate_corr_volume", "build_corr_pyramid")],
-        "hourglass and classifiers": [(st.hourglass_mono, "forward"), (sa_model, "conv_in_dtype")],
+        # the aggregation variant's stereo hourglass and the stacks too
+        "hourglass and classifiers": [(m, "forward") for m in (
+            [st.hourglass_mono, getattr(st, "hourglass_stereo", None)]
+            + [m for n in ("hourglass_mono_stack", "hourglass_stereo_stack") for m in list(getattr(st, n, []))[1:]])
+            if m is not None] + [(sa_model, "conv_in_dtype")],
         "refinement loop": [(sa_model, n) for n in ("update_nets", "refinement_step", "fused_refinement_step",
                                                     "refinement_tail")],
         "loop glue (pool/interp)": [(sa_update, n) for n in ("pool2x", "interp_like", "pool2x_nhwc",
@@ -1649,6 +1681,127 @@ def compare_phase() -> None:
           f"(max|default| {scale:.3e})", flush=True)
     if not err <= 1e-2 + 1e-4 * scale:
         raise AssertionError(f"the fused pipeline disagrees with the default one on the card: {err}")
+
+
+def _held(what: str, got: torch.Tensor, want: torch.Tensor, rel: float) -> None:
+    """The card's result against the CPU's, within `rel` of max |CPU| (0:
+    bit for bit), printed."""
+    got, want = got.detach().float().cpu(), want.detach().float()
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    print(f"  {what}, card vs CPU: max_abs_err {err:.3e} (max|cpu| {scale:.3e}, tol "
+          f"{'0, bit for bit' if rel == 0 else f'{rel:g} rel.'})", flush=True)
+    if not (got.shape == want.shape and torch.isfinite(got).all() and err <= rel * scale):
+        raise AssertionError(f"{what}: the card disagrees with the CPU by {err} (scale {scale})")
+
+
+def variants_compare_phase() -> None:
+    """The variants no shipped model uses, on the card against the CPU
+    (TF32 off): the aggregation variant's ViT-S pipeline at 64x96 in f32
+    (1e-2 px + 1e-4 rel., as phase 5's) and bf16 (twice bf16's own distance
+    from f32); its mono stack and stereo hourglass alone in f32 (1e-4);
+    then the standalone modules in f32 with seeded weights copied to the
+    CPU: `DeformableConv2d` (offsets of a few pixels), `Feature`,
+    `FeatureV4`, `MultiUpdateScalerBlock`, the scale/shift estimators,
+    `upflow`, the Zadeh combinators (1e-4 for the networks and the deformable
+    conv, 1e-5 for the rest), and `sgm_disparity` bit for bit (integer costs
+    in f32)."""
+    from stereoanywhere_tpu_torch.models.dcn import DeformableConv2d
+    from stereoanywhere_tpu_torch.models.mobile_extractors import Feature, FeatureV4
+    from stereoanywhere_tpu_torch.models.update import MultiUpdateScalerBlock
+    from stereoanywhere_tpu_torch.ops import fuzzy, lsq, sgm
+    from stereoanywhere_tpu_torch.ops.upsample import upflow
+
+    strict_f32()
+    rng = np.random.default_rng(70)
+    im2, im3 = (rng.uniform(0, 1, (1, 64, 96, 3)).astype(np.float32) for _ in range(2))
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = StereoAnywhereConfig(compute_dtype=dtype, **VARIANT)
+        kw = dict(stereo_cfg=cfg, mono_cfg=MonoConfig.for_encoder("vits"), iters=4, mono_size=(56, 56), seed=71)
+        pc, pg = build_pipeline(device="cpu", **kw), build_pipeline(device="cuda", graphs=False, **kw)
+        want, (got, calls) = pc(im2, im3), counted(lambda: pg(im2, im3))
+        results[dtype] = (got.cpu(), want)
+        err, scale = (got.cpu() - want).abs().max().item(), want.abs().max().item()
+        if dtype == "float32":
+            tol, how = 1e-2 + 1e-4 * scale, "1e-2 px + 1e-4 rel."
+        else:
+            gap = max((got.cpu() - results["float32"][0]).abs().max().item(),
+                      (want - results["float32"][1]).abs().max().item())
+            tol, how = 2 * gap, f"2 x bf16's distance from f32, {gap:.3e}"
+        print(f"pipeline variant ({VARIANT}) ViT-S 64x96 {dtype} iters 4, card vs CPU: max_abs_err {err:.3e} px "
+              f"(max|cpu| {scale:.3e}, tol {how}); wrapper calls {calls}", flush=True)
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise AssertionError(f"variant {dtype} pipeline on the card disagrees with the CPU: {err}")
+        if calls["dual_lookup"] != 4 or calls["ln_dense"] != 12:
+            raise AssertionError(f"variant {dtype}: wrapper calls {calls}, expected K1-K4 12 (ViT-S), K5 4")
+    # the stereo model's variant outputs alone, f32
+    cfg = StereoAnywhereConfig(**VARIANT)
+    mc = StereoAnywhere(cfg, device="cpu", generator=torch.Generator().manual_seed(72))
+    mg = StereoAnywhere(cfg, device="cuda", generator=torch.Generator().manual_seed(72))
+    mg.load_state_dict(mc.state_dict())
+    xs = [torch.from_numpy(rng.uniform(0, 1, (1, 64, 96, c)).astype(np.float32)) for c in (3, 3, 1, 1)]
+    oc, og = mc(*xs, iters=1), mg(*[x.cuda() for x in xs], iters=1)
+    for k in ("coarse_dispstereo2", "coarse_dispstereo3", "coarse_dispmono2"):
+        _held(f"variant stereo model 64x96 f32 {k}", og[k], oc[k], 1e-4)
+    del pc, pg, mc, mg
+
+    g = torch.Generator().manual_seed(73)
+    x = torch.randn(2, 32, 96, 128, generator=g)
+    dcn = DeformableConv2d(32, 48, stride=1, bias=True)
+    with torch.no_grad():
+        dcn.offset_modulator_conv.weight.normal_(0, 0.1, generator=g)
+        dcn.offset_modulator_conv.bias.normal_(0, 1.0, generator=g)
+    dcn_g = DeformableConv2d(32, 48, stride=1, bias=True).cuda()
+    dcn_g.load_state_dict(dcn.state_dict())
+    with torch.no_grad():
+        # 1e-4 as the networks': its sample positions come out of a conv
+        # whose f32 sums the card orders otherwise, and a position's rounding
+        # moves its sample by the image's gradient
+        _held("DeformableConv2d 32->48 at 96x128, B 2", dcn_g(x.cuda()), dcn(x), 1e-4)
+        img = torch.rand(1, 3, 128, 192, generator=g) * 2 - 1
+        for name, make in (("Feature (MobileNetV2)", Feature), ("FeatureV4 (MobileNetV4-S)", FeatureV4)):
+            # He fan-out weights, as the port's models draw theirs: the
+            # outputs keep their scale through the trunk
+            mc = init_weights(make(), torch.Generator().manual_seed(74))
+            mg = make().cuda()
+            mg.load_state_dict(mc.state_dict())
+            for i, (a, b) in enumerate(zip(mg(img.cuda()), mc(img))):
+                _held(f"{name} 128x192 output {i}", a, b, 1e-4)
+        hd, (h, w) = 128, (64, 96)
+        block = MultiUpdateScalerBlock((hd, hd, hd), 3, 36)
+        block_g = MultiUpdateScalerBlock((hd, hd, hd), 3, 36).cuda()
+        block_g.load_state_dict(block.state_dict())
+        net = [torch.randn(1, hd, h // 2 ** i, w // 2 ** i, generator=g) for i in range(3)]
+        inp = [tuple(torch.randn(1, hd, h // 2 ** i, w // 2 ** i, generator=g) for _ in range(3)) for i in range(3)]
+        args = [torch.randn(1, 36, h, w, generator=g), torch.randn(1, 36, h, w, generator=g),
+                torch.randn(1, 2, h, w, generator=g), torch.rand(1, 1, h, w, generator=g)]
+        oc = block(net, inp, *args)
+        og = block_g([n.cuda() for n in net], [tuple(t.cuda() for t in tr) for tr in inp], *[a.cuda() for a in args])
+        for i, (a, b) in enumerate(zip(og[0], oc[0])):
+            _held(f"MultiUpdateScalerBlock 64x96 net[{i}]", a, b, 1e-5)
+        for name, a, b in zip(("lscale", "gscale", "gshift", "conf"), og[1:], oc[1:]):
+            _held(f"MultiUpdateScalerBlock 64x96 delta_{name}", a, b, 1e-5)
+        left = torch.rand(2, 96, 160, generator=g)
+        right = torch.roll(left, -7, dims=2) + 0.02 * torch.randn(2, 96, 160, generator=g)
+        t0 = time.perf_counter()
+        dg = sgm.sgm_disparity(left.cuda(), right.cuda(), 48)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        dc = sgm.sgm_disparity(left, right, 48)
+        _held(f"sgm_disparity 96x160, 48 disparities, B 2 ({ms:.0f} ms on the card, the first call; median "
+              f"{dc[:, :, 48:].median().item():.0f} px)", dg, dc, 0)
+        mde, conf = torch.rand(2, 2, 96, 128, generator=g), torch.rand(2, 2, 96, 128, generator=g)
+        disp = mde * 40 + 3 + torch.randn(2, 2, 96, 128, generator=g)
+        for name, fn, tol in (("normalized_scale_and_shift", lsq.normalized_scale_and_shift, 1e-4),
+                              ("naive_scale_shift", lsq.naive_scale_shift, 1e-5)):
+            for a, b in zip(fn(mde.cuda(), disp.cuda(), conf.cuda()), fn(mde, disp, conf)):
+                _held(name, a, b, tol)
+        flow = torch.randn(1, 1, 96, 128, generator=g)
+        _held("upflow x4", upflow(flow.cuda()), upflow(flow), 1e-5)
+        _held("fuzzy_and_zadeh", fuzzy.fuzzy_and_zadeh(mde.cuda(), conf.cuda()), fuzzy.fuzzy_and_zadeh(mde, conf), 1e-5)
+        _held("fuzzy_or_zadeh", fuzzy.fuzzy_or_zadeh(mde.cuda(), conf.cuda()), fuzzy.fuzzy_or_zadeh(mde, conf), 1e-5)
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2410,9 +2563,15 @@ def strict_f32() -> None:
     torch.backends.cudnn.benchmark = False
 
 
-def rowshard_model(dtype: str) -> StereoAnywhere:
-    return StereoAnywhere(StereoAnywhereConfig(compute_dtype=dtype), device="cuda",
-                          generator=torch.Generator().manual_seed(50))
+def rowshard_model(dtype: str, fused: bool = False) -> StereoAnywhere:
+    """The phase's stereo model (seeded: the same weights in either loop)."""
+    return StereoAnywhere(StereoAnywhereConfig(compute_dtype=dtype, fused_level0="on" if fused else "off"),
+                          device="cuda", generator=torch.Generator().manual_seed(50))
+
+
+# the fused loop's rows are held against its direct forward at 2 iterations
+# (1 runs no rotated body: K7-K9 launch once a body)
+FUSED_CHECK_ITERS = 2
 
 
 def rowshard_inputs() -> list[np.ndarray]:
@@ -2472,6 +2631,23 @@ def rowshard_rank(rank: int, world: int, init_method: str, out: str, cards: bool
         disp, calls = counted(lambda: pipe(im2, im3))
         res["pipeline"] = dict(calls=calls, ms=[sync_ms(lambda: pipe(im2, im3)) for _ in range(2)],
                                out=None if disp is None else disp.cpu())
+        del pipe, mono, stereo, rs
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the fused loop on the same rows: its K7, K8 and K9 launches on bands
+        rs = RowShardedInference(rowshard_model("float32", fused=True), mesh, iters=FUSED_CHECK_ITERS)
+        full = rs.gather_rows(rs.infer(*xs), dst=0)
+        res["fused_f32"] = None if full is None else full.cpu()
+        rs = RowShardedInference(rowshard_model("bfloat16", fused=True), mesh, iters=ITERS)
+        first = sync_ms(request)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        full, calls = counted(request)
+        peak = torch.cuda.max_memory_allocated()
+        res["fused_bf16"] = dict(first_ms=first, peak=peak, base=base, calls=calls, traffic=dict(rs.group.traffic),
+                                 rows=shard_rows, ms=[sync_ms(request) for _ in range(ROWSHARD_ROUNDS)],
+                                 out=None if full is None else full.cpu())
         torch.save(res, f"{out}.{rank}")
     finally:
         mh.destroy_distributed()
@@ -2518,11 +2694,13 @@ def rowshard_lookup_rows() -> None:
             plane_lookup_rows(f"row shard of {world} ranks", h4, w // 4, (1,), 60 + world)
 
 
-def rowshard_direct() -> tuple[torch.Tensor, float]:
+def rowshard_direct() -> tuple[torch.Tensor, float, torch.Tensor, float]:
     """The direct stereo branch at 1024^2 on cuda:0: its f32 disparity at 1
     iteration (TF32 off) and the most one rounding of its inputs moves it
     (the yardstick of the sharded forwards), then its bf16 memory peak and
-    ms a request at 32 iterations, printed."""
+    ms a request at 32 iterations, printed; then the same for the fused
+    loop (f32 at FUSED_CHECK_ITERS), whose disparity and move it returns
+    too."""
     strict_f32()
     torch.cuda.empty_cache()
     h, w = ROWSHARD
@@ -2550,10 +2728,32 @@ def rowshard_direct() -> tuple[torch.Tensor, float]:
     print(f"rowshard direct bf16 {ITERS} iterations: memory peak {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB "
           f"above resident, {base / 1e9:.2f} GB) beside PERF.md's earlier {DIRECT_PEAK_GB} GB; "
           f"{np.median(direct_ms):.1f} ms a request (median of {ROWSHARD_ROUNDS})", flush=True)
-    del bf16, direct_out, xs
+    del bf16, direct_out
+    # the fused loop's direct forward: f32 at FUSED_CHECK_ITERS (the rotated
+    # body runs) with its one-rounding move, then bf16 at 32 iterations
+    fused = rowshard_model("float32", fused=True)
+    fused_want = fused(*xs, iters=FUSED_CHECK_ITERS)["disparity"]
+    fused_floor = max(float((fused(*[torch.from_numpy(one_rounding(x, rng)).cuda() for x in arrays],
+                                   iters=FUSED_CHECK_ITERS)["disparity"] - fused_want).abs().max()) for _ in range(2))
+    unfused = float((rowshard_model("float32")(*xs, iters=FUSED_CHECK_ITERS)["disparity"] - fused_want).abs().max())
+    print(f"rowshard fused direct f32 {FUSED_CHECK_ITERS} iterations: the move under one rounding of its inputs "
+          f"{fused_floor:.3e} px; fused vs unfused direct {unfused:.3e} px", flush=True)
+    del fused
+    fused = rowshard_model("bfloat16", fused=True)
+    fused(*xs, iters=ITERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _, calls = counted(lambda: fused(*xs, iters=ITERS))
+    peak = torch.cuda.max_memory_allocated()
+    fused_ms = [sync_ms(lambda: fused(*xs, iters=ITERS)) for _ in range(ROWSHARD_ROUNDS)]
+    print(f"rowshard fused direct bf16 {ITERS} iterations: memory peak {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} "
+          f"GB above resident); {np.median(fused_ms):.1f} ms a request (median of {ROWSHARD_ROUNDS}); wrapper calls "
+          f"{calls}", flush=True)
+    del fused, xs
     gc.collect()
     torch.cuda.empty_cache()
-    return want, floor
+    return want, floor, fused_want, fused_floor
 
 
 def rowshard_phase() -> dict:
@@ -2570,25 +2770,29 @@ def rowshard_phase() -> dict:
     wrappers' calls of one pipeline request (the mono stage whole, the
     stereo branch on 2 ranks) on rank 0."""
     rowshard_lookup_rows()
-    want, floor = rowshard_direct()
-    rowshard_world1([torch.from_numpy(x).cuda() for x in rowshard_inputs()], want)
-    failures, pipeline_calls = rowshard_ranks(ROWSHARD_RANKS, want, floor, cards=False)
+    direct = rowshard_direct()
+    rowshard_world1([torch.from_numpy(x).cuda() for x in rowshard_inputs()], direct[0])
+    failures, pipeline_calls, fused_calls = rowshard_ranks(ROWSHARD_RANKS, direct, cards=False)
     if failures:
         raise AssertionError("row-sharded inference: " + "; ".join(failures))
-    return pipeline_calls
+    return pipeline_calls, fused_calls
 
 
-def rowshard_ranks(worlds, want: torch.Tensor, floor: float, cards: bool) -> tuple[list[str], dict | None]:
+def rowshard_ranks(worlds, direct, cards: bool) -> tuple[list[str], dict | None, dict | None]:
     """`rowshard_rank` spawned at each world size (gloo on cuda:0, or NCCL
-    one card a rank with `cards`), its results held to the direct forward
-    and printed.  Returns the failures and the wrapper calls of the
-    pipeline request on rank 0 of the first world size."""
+    one card a rank with `cards`), its results held to the direct forwards
+    (`rowshard_direct`: the unfused one at 1 iteration, the fused one at
+    FUSED_CHECK_ITERS, each within twice its one-rounding move) and
+    printed.  Returns the failures, the wrapper calls of the pipeline
+    request on rank 0 of the first world size, and those of its fused
+    stereo request."""
+    want, floor, fused_want, fused_floor = direct
     from stereoanywhere_tpu_torch.parallel.multihost import free_port
 
     h, w = ROWSHARD
     how = "over NCCL, one card a rank" if cards else "over gloo on cuda:0"
     staged = "" if cards else " (gloo staged through the host: a correctness run, not a speed)"
-    failures, pipeline_calls = [], None
+    failures, pipeline_calls, fused_calls = [], None, None
     tmp = Path(tempfile.mkdtemp(prefix="sa_rowshard_"))
     try:
         for world in worlds:
@@ -2639,9 +2843,48 @@ def rowshard_ranks(worlds, want: torch.Tensor, floor: float, cards: bool) -> tup
                 failures.append(f"{world} ranks: a rank other than 0 got the gathered disparity")
             if pipeline_calls is None:
                 pipeline_calls = res[0]["pipeline"]["calls"]
+            failures += rowshard_fused_rows(world, res, fused_want, fused_floor, how, staged)
+            if fused_calls is None:
+                fused_calls = res[0]["fused_bf16"]["calls"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return failures, pipeline_calls
+    return failures, pipeline_calls, fused_calls
+
+
+def rowshard_fused_rows(world: int, res: list[dict], want: torch.Tensor, floor: float, how: str,
+                        staged: str) -> list[str]:
+    """The fused loop's row-sharded forwards of `world` ranks, held to the
+    fused direct forward and printed: f32 within twice its one-rounding
+    move; bf16 at 32 iterations, each rank's memory peak, bytes a forward
+    and wrapper calls (asserted: K5 32, K7 and K8 31, K9 93 a rank)."""
+    h, w = ROWSHARD
+    failures = []
+    got = res[0]["fused_f32"].cuda()
+    err = float((got - want).abs().max())
+    print(f"rowshard fused {world} ranks {how}: f32 {FUSED_CHECK_ITERS} iterations vs the fused direct forward max "
+          f"|delta| {err:.3e} px (tol {2 * floor:.3e}, twice the one-rounding move)", flush=True)
+    if not (got.shape == want.shape and err <= 2 * floor):
+        failures.append(f"{world} ranks fused f32: max |delta| {err} px > {2 * floor}")
+    for r, rr in enumerate(res):
+        b = rr["fused_bf16"]
+        print(f"rowshard fused {world} ranks bf16 {ITERS} iterations, rank {r} rows {b['rows']}: memory peak "
+              f"{b['peak'] / 1e9:.2f} GB ({(b['peak'] - b['base']) / 1e9:.2f} GB above resident, "
+              f"{b['base'] / 1e9:.2f} GB); wrapper calls {b['calls']}; bytes handed to the collectives a forward: "
+              f"halo and band rows {b['traffic']['p2p'] / 1e6:.2f} MB, gathers {b['traffic']['gather'] / 1e6:.2f} MB, "
+              f"all-reduces {b['traffic']['reduce'] / 1e6:.3f} MB; ms a request{staged} first {b['first_ms']:.0f}, "
+              f"then {', '.join(f'{m:.0f}' for m in b['ms'])}", flush=True)
+        want_calls = {n: ITERS if n == "dual_lookup" else 0 for n in COUNTERS}
+        want_calls.update({n: EXPECTED["fused"][n] for n in ("flow_head", "motion_encoder", "conv_gru")})
+        if b["calls"] != want_calls:
+            failures.append(f"{world} ranks fused, rank {r}: wrapper calls {b['calls']}, expected {want_calls}")
+    total = sum(sum(rr["fused_bf16"]["traffic"].values()) for rr in res)
+    print(f"rowshard fused {world} ranks: all ranks' collectives moved {total / 1e6:.1f} MB a forward", flush=True)
+    out = res[0]["fused_bf16"]["out"]
+    if tuple(out.shape) != (1, h, w, 1) or not torch.isfinite(out).all():
+        failures.append(f"{world} ranks fused bf16: bad disparity {tuple(out.shape)}")
+    if any(rr["fused_f32"] is not None or rr["fused_bf16"]["out"] is not None for rr in res[1:]):
+        failures.append(f"{world} ranks fused: a rank other than 0 got the gathered disparity")
+    return failures
 
 
 def join_within(ctx, seconds: float, what: str) -> None:
@@ -2826,7 +3069,9 @@ def rowshard_cards_main() -> int:
     more): K5 at each rank's plane; the direct forward's yardstick on
     cuda:0; `rowshard_rank` at each world size (f32 against the direct
     forward within twice its one-rounding move; bf16 memory, bytes, ms a
-    request over NCCL, K5; the pipeline request); `cli infer --shard-rows
+    request over NCCL, K5; the pipeline request; the fused loop's rows, f32
+    against its direct forward, bf16 memory, bytes, ms and K5, K7, K8, K9 a
+    rank); `cli infer --shard-rows
     N` against `--shard-rows 1`; Booster's full 3008 x 4112 over the most
     cards.  Any failure exits non-zero."""
     n = torch.cuda.device_count()
@@ -2841,9 +3086,9 @@ def rowshard_cards_main() -> int:
     build.build()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     rowshard_lookup_rows()
-    want, floor = rowshard_direct()
-    failures, _ = rowshard_ranks(worlds, want, floor, cards=True)
-    del want
+    direct = rowshard_direct()
+    failures, _, _ = rowshard_ranks(worlds, direct, cards=True)
+    del direct
     torch.cuda.empty_cache()
     failures += rowshard_cli_check(worlds)
     failures += rowshard_booster(worlds[-1])
@@ -3883,11 +4128,15 @@ def main() -> int:
     vitg, _ = timed("pipeline vitg", pipeline_phase, "vitg", StereoAnywhereConfig(compute_dtype="bfloat16"), "vitg",
                     False)
     torch.cuda.empty_cache()
+    variant, variant_replayed = timed("pipeline variant", pipeline_phase, "variant",
+                                      StereoAnywhereConfig(compute_dtype="bfloat16", **VARIANT), "vitl", False)
+    torch.cuda.empty_cache()
     timed("hourglass", hourglass_phase)
     timed("compare", compare_phase)
     timed("compare vitg", vitg_compare_phase)
+    timed("variants card vs cpu", variants_compare_phase)
     highres, booster = timed("highres", highres_phase)
-    rowshard = timed("rowshard", rowshard_phase)
+    rowshard, rowshard_fused = timed("rowshard", rowshard_phase)
     evaluated = timed("eval", eval_phase)
     timed("eval card vs cpu", eval_compare_phase)
     camera = timed("camera", camera_phase)
@@ -3922,7 +4171,9 @@ def main() -> int:
                             eval_launches=evaluated[name], vitg_launches=vitg[name], train_launches=trained[name],
                             validation_launches=validated[name], highres_launches=highres[name],
                             booster_launches=booster[name], rowshard_launches=rowshard[name],
-                            camera_launches=camera[name],
+                            camera_launches=camera[name], variant_launches=variant[name],
+                            variant_replay_launches=None if variant_replayed is None else variant_replayed[name],
+                            rowshard_fused_launches=rowshard_fused[name],
                             max_abs_err=row["max_abs_err"], ms=row["ms"], device_ms=row["device_ms"],
                             host_ms=row["host_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"], unfused_ms=row.get("unfused_ms"),

@@ -76,10 +76,14 @@ def _stereo_rename(name: str):
     m = re.match(r"context_zqr_convs\.(\d)\.(weight|bias)", name)
     if m:
         return _wb([f"context_zqr_convs_{m.group(1)}"], m.group(2), "conv2d")
-    m = re.match(r"(classifier_mono|classifier_monoconf)\.weight", name)
+    m = re.match(r"(classifier_mono|classifier_monoconf|classifier_stereo)\.weight", name)
     if m:
         return [m.group(1), "conv", "kernel"], "conv3d"
-    m = re.match(r"(hourglass_mono)\.(.*)", name)
+    # the stacks' entries N >= 1 (entry 0, the reference's identity, has none)
+    m = re.match(r"(hourglass_mono|hourglass_stereo)_stack\.(\d+)\.(.*)", name)
+    if m:
+        return _hourglass_rename(f"{m.group(1)}_stack_{m.group(2)}", m.group(3).split("."))
+    m = re.match(r"(hourglass_mono|hourglass_stereo)\.(.*)", name)
     if m:
         return _hourglass_rename(m.group(1), m.group(2).split("."))
     m = re.match(r"update_block\.(.*)", name)
@@ -208,7 +212,9 @@ def _get(tree: Mapping, path: tuple):
     return node
 
 
-def _load(model: torch.nn.Module, variables: Mapping[str, Any], rename, what: str) -> None:
+def _load(model: torch.nn.Module, variables: Mapping[str, Any], rename, what: str, unused_ok=()) -> None:
+    """Fill `model` from `variables`; the flax module names in `unused_ok`
+    (at the root of a collection) may stay unused."""
     used = set()
     unmapped = []
     with torch.no_grad():
@@ -235,7 +241,7 @@ def _load(model: torch.nn.Module, variables: Mapping[str, Any], rename, what: st
             used.add(full)
     if unmapped:
         raise ValueError(f"{what}: port tensors left unfilled ({len(unmapped)}): {unmapped[:10]}")
-    unused = sorted("/".join(p) for p in _leaves(variables) if p not in used)
+    unused = sorted("/".join(p) for p in _leaves(variables) if p not in used and p[1] not in unused_ok)
     if unused:
         raise ValueError(f"{what}: flax leaves left unused ({len(unused)}): {unused[:10]}")
 
@@ -293,11 +299,58 @@ def load_stereo_variables(model: torch.nn.Module, variables: Mapping[str, Any]) 
     'batch_stats'} tree (nested dicts of arrays).  The parameters are
     filled in place, and the fused loop's packed weights packed anew into
     their tensors, so that a CUDA graph that read them sees the new
-    weights."""
-    _load(model, variables, _stereo_rename, "load_stereo_variables")
+    weights.  A tree converted from a reference checkpoint of the stacked
+    variant holds the stacks' last, never-applied hourglass
+    (`hourglass_*_stack_N`, N = n_additional_hourglass), which the JAX
+    model's own tree lacks: it is left unused."""
+    n = getattr(getattr(model, "cfg", None), "n_additional_hourglass", 0)
+    unused_ok = tuple(f"hourglass_{v}_stack_{n}" for v in ("mono", "stereo")) if n else ()
+    _load(model, variables, _stereo_rename, "load_stereo_variables", unused_ok)
     for m in model.modules():
         if hasattr(m, "refresh_fused_weights"):
             m.refresh_fused_weights()
+    return model
+
+
+def _module_rename(model: torch.nn.Module):
+    """torch name -> (flax path, kind) for a module whose submodules carry
+    the flax module names, a numbered `nn.Sequential` entry joined to its
+    name (`scaler.2` -> `scaler_2`): the standalone variants
+    (`models/dcn.py`, `models/mobile_extractors.py`, the update block's
+    scaler heads)."""
+    from stereoanywhere_tpu_torch.models.layers import BatchNorm
+
+    def rename(name: str):
+        parts = name.split(".")
+        owner = model.get_submodule(".".join(parts[:-1]))
+        path: list[str] = []
+        for p in parts[:-1]:
+            if p.isdigit() and path:
+                path[-1] += f"_{p}"
+            else:
+                path.append(p)
+        leaf = parts[-1]
+        if isinstance(owner, BatchNorm):
+            return path + [leaf], "bn"
+        if leaf == "bias":
+            return path + ["bias"], "raw"
+        if leaf != "weight":
+            return None
+        if isinstance(owner, torch.nn.ConvTranspose2d):
+            return path + ["kernel"], "convT2d"
+        if isinstance(owner, torch.nn.Linear):
+            return path + ["kernel"], "linear"
+        return path + ["kernel"], "conv2d"
+
+    return rename
+
+
+def load_module_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> torch.nn.Module:
+    """Fill a standalone port module (`DeformableConv2d`, a mobile
+    extractor or one of its blocks, `MultiUpdateScalerBlock` and its heads)
+    from its JAX counterpart's {'params'[, 'batch_stats']} tree; strict as
+    `load_stereo_variables`."""
+    _load(model, variables, _module_rename(model), f"load_module_variables({type(model).__name__})")
     return model
 
 

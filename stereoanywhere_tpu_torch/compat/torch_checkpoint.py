@@ -8,8 +8,10 @@ numpy arrays under names without the `module.` prefix of
 names, so `load_state_dict_into` fills them with no renaming; it leaves out
 what the JAX package's converters leave out (the batch counters of the
 stereo model's norms; DAv2's `mask_token`, and the `resize_layers.2` and
-`refinenet4.resConfUnit1` that the reference builds and never runs) and
-raises on any other name that does not match.
+`refinenet4.resConfUnit1` that the reference builds and never runs, and
+the last hourglass of a stacked variant's `hourglass_{mono,stereo}_stack`,
+which the reference builds and never runs either: `models/stereoanywhere.py`
+`hourglass_stack`) and raises on any other name that does not match.
 """
 from __future__ import annotations
 
@@ -37,6 +39,13 @@ def load_torch_state_dict(path: str) -> dict[str, np.ndarray]:
 def load_state_dict_into(model: torch.nn.Module, state: dict[str, np.ndarray]) -> torch.nn.Module:
     """Copy `state` (from `load_torch_state_dict`) into `model`, in place
     and in the model's dtypes; strict but for `SKIPPED`."""
-    kept = {k: torch.from_numpy(v) for k, v in state.items() if not any(s in k for s in SKIPPED)}
+    cfg = getattr(model, "cfg", None)
+    unused = ()
+    if cfg is not None and hasattr(cfg, "n_additional_hourglass"):
+        from stereoanywhere_tpu_torch.models.stereoanywhere import unused_stack_entries
+
+        unused = unused_stack_entries(cfg)
+    kept = {k: torch.from_numpy(v) for k, v in state.items()
+            if not any(s in k for s in SKIPPED) and not k.startswith(unused)}
     model.load_state_dict(kept)
     return model

@@ -11,12 +11,15 @@ select the kernels of the refinement loop:
 Their values and defaults are the JAX package's; its CPU-test mode
 `fused_level0="interpret"` has no counterpart and is refused.  The training
 fields (`freeze_bn`, `vol_aug_n_masks`, `volume_corruption_prob`) and
-`TrainConfig` are the JAX package's too.  Left out:
-- the other TPU layout switches (`hourglass_folded`, `hourglass_blocked`,
-  `scan_unroll`): each selects between formulations of the same function
-  there, and the port has one;
-- the non-default aggregation variants (`use_aggregate_stereo_vol`,
-  `n_additional_hourglass`), which no shipped model uses.
+`TrainConfig` are the JAX package's too, and so are the aggregation
+variants that no shipped model uses: `use_aggregate_stereo_vol` (the
+stereo volume through its own hourglass and classifier, whose output
+replaces the raw volume in the refinement loop) and
+`n_additional_hourglass` (stacked hourglasses after each volume's first,
+with the reference's identity-first quirk: n - 1 of them run).  Left out:
+the other TPU layout switches (`hourglass_folded`, `hourglass_blocked`,
+`scan_unroll`): each selects between formulations of the same function
+there, and the port has one.
 `vol_downsample` (the reference's `--vol_downsample`: the mono volume and
 its hourglass at 1/2^v of the quarter-resolution volume on each axis) is
 kept: it is how the JAX package fits high-resolution inputs on one device.
@@ -42,9 +45,11 @@ class StereoAnywhereConfig:
     fnet_dim: int = 256
 
     # Volume aggregation
+    n_additional_hourglass: int = 0
     volume_channels: int = 8
     vol_n_masks: int = 8
     vol_downsample: int = 0
+    use_aggregate_stereo_vol: bool = False
     use_aggregate_mono_vol: bool = True
 
     # Mirror handling
@@ -86,6 +91,8 @@ class StereoAnywhereConfig:
     def __post_init__(self):
         if self.vol_downsample < 0:
             raise ValueError(f"vol_downsample {self.vol_downsample}: the volume is resized by 2^-v, v >= 0")
+        if self.n_additional_hourglass < 0:
+            raise ValueError(f"n_additional_hourglass {self.n_additional_hourglass}: a count, >= 0")
         if self.lookup_impl not in LOOKUP_IMPLS:
             raise ValueError(f"lookup_impl {self.lookup_impl!r}: use one of {LOOKUP_IMPLS}")
         if self.fused_level0 == "interpret":

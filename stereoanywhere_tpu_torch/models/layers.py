@@ -160,17 +160,24 @@ def conv_in_dtype(conv: nn.Module, x: torch.Tensor, row_axis: int = -2) -> torch
 
 
 class BasicConv(nn.Module):
-    """conv (no bias) -> instance norm -> leaky ReLU(0.01), 2-D or 3-D, in
-    the input's dtype."""
+    """conv (no bias) -> instance norm -> leaky ReLU(0.01), 2-D or 3-D, or a
+    2-D transposed conv (`deconv`, torch's ConvTranspose2d; not row-aware),
+    in the input's dtype."""
 
     def __init__(self, in_ch: int, out_ch: int, is_3d: bool = False, kernel_size: int = 3,
-                 stride: int = 1, padding: int = 1):
+                 stride: int = 1, padding: int = 1, deconv: bool = False):
         super().__init__()
-        conv = nn.Conv3d if is_3d else nn.Conv2d
+        if deconv and is_3d:
+            raise ValueError("BasicConv: a 3-D transposed conv is not used by any model")
+        conv = nn.ConvTranspose2d if deconv else nn.Conv3d if is_3d else nn.Conv2d
         self.conv = conv(in_ch, out_ch, kernel_size, stride=stride, padding=padding, bias=False)
 
     def forward(self, x):
-        return F.leaky_relu(instance_norm(conv_in_dtype(self.conv, x)), negative_slope=0.01)
+        if isinstance(self.conv, nn.ConvTranspose2d):
+            y = F.conv_transpose2d(x, self.conv.weight.to(x.dtype), None, self.conv.stride, self.conv.padding)
+        else:
+            y = conv_in_dtype(self.conv, x)
+        return F.leaky_relu(instance_norm(y), negative_slope=0.01)
 
 
 # ---------------------------------------------------------------------------

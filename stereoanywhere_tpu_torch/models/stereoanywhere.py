@@ -36,10 +36,11 @@ Row sharding (`parallel/spatial.py`): inside `parallel.halo.row_group`,
 each rank's inputs are its rows of the padded images and every layer runs
 on the rank's rows, the convolutions with halos from the neighbouring
 ranks, the norms, min-max and least squares over the group, the resizes
-from the bands of rows they read (`parallel/halo.py`).  The volumes, the
-disparity and confidence estimates, the warps and the K5 lookups read
-along W only and need nothing.  Test mode and the unfused loop only: train
-mode and `fused_level0="on"` refuse a row group.
+from the bands of rows they read (`parallel/halo.py`), the fused loop's
+K7, K8 and K9 launches on bands of the rows they read (`models/update.py`
+`on_band`).  The volumes, the disparity and confidence estimates, the
+warps and the K5 lookups read along W only and need nothing.  Test mode
+only: train mode refuses a row group.
 
 Inputs: image2, image3 (B,H,W,3) in [0,1]; mde2, mde3 (B,H,W,1) normalized
 mono depth; H and W multiples of 32.
@@ -133,6 +134,27 @@ def _classifier(ch: int) -> nn.Conv3d:
     return conv
 
 
+def hourglass_stack(cfg: StereoAnywhereConfig) -> nn.ModuleList:
+    """The stacked hourglasses after a volume's first, under the reference's
+    names `hourglass_{mono,stereo}_stack.N`: entry 0 is the reference's
+    `HourglassIdentity` (no parameters), entries 1 .. n-1 hourglasses.  The
+    reference builds n + 1 entries and runs the first n, so its last
+    hourglass, `stack.n`, never runs: the JAX package's model has no
+    variables for it, and neither has this list (a reference checkpoint's
+    `stack.n` is dropped on load: `unused_stack_entries`)."""
+    n = cfg.n_additional_hourglass
+    return nn.ModuleList([nn.Identity()] + [Hourglass(cfg.volume_channels, cfg.volume_channels) for _ in range(1, n)])
+
+
+def unused_stack_entries(cfg: StereoAnywhereConfig) -> tuple[str, ...]:
+    """The name prefixes of a reference checkpoint's never-applied stack
+    entries for `cfg` (see `hourglass_stack`)."""
+    n = cfg.n_additional_hourglass
+    if not n:
+        return ()
+    return tuple(f"hourglass_{v}_stack.{n}." for v in ("mono", "stereo"))
+
+
 class StereoAnywhere(nn.Module):
     """The stereo network.  `device` defaults to the card and raises without
     one unless "cpu" is asked for; weights are random from `generator`
@@ -158,6 +180,17 @@ class StereoAnywhere(nn.Module):
         self.classifier_mono = _classifier(cfg.volume_channels)
         self.classifier_monoconf = _classifier(cfg.volume_channels)
         self.update_block = MultiUpdateBlock(dims, cfg.n_gru_layers, cfg.n_downsample, cfg.corr_channels)
+        if cfg.n_additional_hourglass > 1:
+            self.hourglass_mono_stack = hourglass_stack(cfg)
+        if cfg.use_aggregate_stereo_vol:
+            if cfg.vol_downsample > 0:
+                raise ValueError(
+                    "use_aggregate_stereo_vol with vol_downsample > 0: the JAX package downsamples the masks but "
+                    "not the stereo volume, and its forward fails on the shapes; the port refuses the combination")
+            self.hourglass_stereo = Hourglass(cfg.vol_n_masks, cfg.volume_channels)
+            if cfg.n_additional_hourglass > 1:
+                self.hourglass_stereo_stack = hourglass_stack(cfg)
+            self.classifier_stereo = _classifier(cfg.volume_channels)
         init_weights(self, generator or torch.Generator().manual_seed(0))
         self.to(device=dev, dtype=param_dtype or torch_dtype(cfg.compute_dtype))
 
@@ -176,6 +209,13 @@ class StereoAnywhere(nn.Module):
             and cfg.corr_radius == 4
             and fused_step_supported((b, h4, w4, c))
         )
+
+    @staticmethod
+    def _global_shape(t: torch.Tensor) -> tuple[int, ...]:
+        """An NCHW tensor's shape over the whole image: its rows are the
+        rank's under a row group, whose height the JAX gate sees."""
+        g = halo.active()
+        return tuple(t.shape) if g is None else (*t.shape[:2], g.span(t.shape[2])[0], t.shape[3])
 
     def forward(self, image2, image3, mde2, mde3, iters: int = 32, test_mode: bool = True,
                 generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
@@ -223,9 +263,6 @@ class StereoAnywhere(nn.Module):
             if not test_mode:
                 raise ValueError("row sharding runs the test-mode forward only: train mode under a row group "
                                  "is not supported")
-            if cfg.fused_level0 == "on":
-                raise ValueError('row sharding runs the unfused refinement loop only: fused_level0="on" needs '
-                                 "halos inside the K7-K9 kernels, which are not written yet")
         cdt = torch_dtype(cfg.compute_dtype)
         # a fresh NCHW copy whatever the caller's strides, so that the same
         # shapes take the same convolution kernels: a channels-last view, or
@@ -298,9 +335,27 @@ class StereoAnywhere(nn.Module):
             left_masks = resize_nearest(left_masks, (tgt[0], tgt[1]))
             right_masks = resize_nearest(right_masks, (tgt[0], tgt[2]))
 
-        # masked mono volume -> hourglass -> classifiers over (H, W2, W3); the
-        # confidence classifier's input is detached (JAX :388, :399)
+        # the stereo-volume aggregation (JAX :265-320): the masked stereo
+        # volume -> its hourglass and stack -> its classifier, whose volume
+        # replaces the raw one in the loop; its coarse disparities are
+        # outputs (and loss terms)
+        agg_disp_stereo = None
+        if cfg.use_aggregate_stereo_vol:
+            agg_s = self.hourglass_stereo(masked_volume(stereo_vol.float(), left_masks, right_masks).to(cdt),
+                                          fmde2, fmde3)
+            for hourglass in getattr(self, "hourglass_stereo_stack", [])[1:]:
+                agg_s = hourglass(agg_s, fmde2, fmde3)
+            agg_s = agg_s.permute(0, 1, 3, 4, 2)  # (B,C,W3,H,W2) -> (B,C,H,W2,W3)
+            agg_disp_stereo = conv_in_dtype(self.classifier_stereo, agg_s, row_axis=-3).float()[:, 0]
+            coarse_dispstereo2 = resize_bilinear_align_corners(estimate_left_disparity(agg_disp_stereo), (h, w)) * f
+            coarse_dispstereo3 = resize_bilinear_align_corners(estimate_right_disparity(agg_disp_stereo), (h, w)) * f
+
+        # masked mono volume -> hourglass (and stack: JAX :345-357) ->
+        # classifiers over (H, W2, W3); the confidence classifier's input is
+        # detached (JAX :388, :399)
         agg = self.hourglass_mono(masked_volume(mono_vol, left_masks, right_masks).to(cdt), fmde2, fmde3)
+        for hourglass in getattr(self, "hourglass_mono_stack", [])[1:]:
+            agg = hourglass(agg, fmde2, fmde3)
         agg = agg.permute(0, 1, 3, 4, 2)  # (B,C,W3,H,W2) -> (B,C,H,W2,W3)
         agg_disp = conv_in_dtype(self.classifier_mono, agg, row_axis=-3).float()[:, 0]  # (B,H,W2,W3)
         agg_conf = conv_in_dtype(self.classifier_monoconf, agg.detach(), row_axis=-3).float()[:, 0]
@@ -341,6 +396,8 @@ class StereoAnywhere(nn.Module):
                 coarse_dispmono2_low, scaled_mde2_low, dispconf2_low, lrc_scaled2_low, conf_th=cfg.mirror_conf_th
             )
             trunc_mask = truncate_corr_volume(scaled_mde2_low, mirror_conf, None, cfg.mirror_attenuation).detach()
+        if agg_disp_stereo is not None:  # JAX :451
+            stereo_vol = agg_disp_stereo
         mono_src = agg_disp if cfg.use_aggregate_mono_vol else mono_vol
         # the train mode's volume corruption, before the truncation (JAX :454-462)
         if not test_mode and cfg.volume_corruption_prob > 0:
@@ -373,7 +430,7 @@ class StereoAnywhere(nn.Module):
                 )
                 flows.append(coords1 - coords0)
                 masks.append(mask.float())
-        elif iters >= 1 and self.fused_step_used(net[0].shape):
+        elif iters >= 1 and self.fused_step_used(self._global_shape(net[0])):
             net = update_nets(self.update_block, net, inp, pyramids, coords1, coords0, cfg.corr_radius, lookup_impl)
             if iters > 1:
                 ws = self.update_block.fused_weights(cdt)
@@ -403,6 +460,9 @@ class StereoAnywhere(nn.Module):
             ups = convex_upsample(torch.cat(flows), torch.cat(masks), cfg.n_downsample)  # (iters*B,1,H,W)
             result["disparities"] = -to_nhwc(ups).reshape(iters, b, h, w, 1)
             result["disparity"] = result["disparities"][-1]
+        if agg_disp_stereo is not None:  # JAX :683-685
+            result.update(coarse_dispstereo2=to_nhwc(coarse_dispstereo2),
+                          coarse_dispstereo3=to_nhwc(coarse_dispstereo3))
         result.update(
             coarse_dispmono2=to_nhwc(coarse_dispmono2),
             coarse_dispmono3=to_nhwc(coarse_dispmono3),

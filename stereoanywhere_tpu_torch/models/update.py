@@ -11,8 +11,12 @@ flow head, mask head and coordinate update (JAX `tail_only`).
 
 The unfused modules' convolutions go through `row_conv` / `conv_rows`: on
 a rank's rows with its neighbours' halos when a row group is active
-(`parallel/halo.py`).  The fused kernels take no halos: the rotated loop
-refuses a row group (`StereoAnywhere._forward`).
+(`parallel/halo.py`).  The fused kernels read neighbouring rows inside one
+launch (K7 two, K8 five, K9 two), so under a row group each launch runs
+unchanged on a band: the rank's rows widened by that radius with its
+neighbours' rows, up to the image's edges and no further (the kernel's own
+zero padding is then the image's there), and the widened rows, which the
+band's inner edges spoil, are dropped (`on_band`).  K5 reads along W only.
 """
 from __future__ import annotations
 
@@ -27,7 +31,12 @@ from stereoanywhere_tpu_torch.ops.corr_lookup import lookup_corr_pyramid_pair
 from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import DualPyramid, dual_lookup
 from stereoanywhere_tpu_torch.ops.cuda.step_fused import conv_gru, flow_head, motion_encoder
 from stereoanywhere_tpu_torch.ops.interp import interp_like, interp_like_nhwc, pool2x, pool2x_nhwc
+from stereoanywhere_tpu_torch.parallel import halo
 from stereoanywhere_tpu_torch.parallel.halo import conv_rows, row_conv
+
+# rows each fused kernel reads beyond its output's: K7 3x3 then 3x3; K8 7x7
+# (flow), 3x3, 3x3; K9 3x3 (z, r), then 3x3 over r * h
+HEAD_ROWS, MOTION_ROWS, GRU_ROWS = 2, 5, 2
 
 
 class ConvGRU(nn.Module):
@@ -142,21 +151,111 @@ class MultiUpdateBlock(nn.Module):
             for old, new in zip(_leaves(packed), _leaves(self._pack(dtype))):
                 old.copy_(new)
 
-    def cascade(self, net, inp, motion):
-        net = list(net)
-        n = self.n_gru_layers
-        if n == 3:
-            net[2] = self.gru32(net[2], *inp[2], pool2x(net[1]))
-        if n >= 2:
-            if n > 2:
-                net[1] = self.gru16(net[1], *inp[1], pool2x(net[0]), interp_like(net[2], net[1]))
-            else:
-                net[1] = self.gru16(net[1], *inp[1], pool2x(net[0]))
-        if n > 1:
-            net[0] = self.gru08(net[0], *inp[0], motion, interp_like(net[1], net[0]))
+
+def gru_cascade(block: nn.Module, net, inp, motion):
+    """The 3-scale ConvGRU cascade of `block` (its `gru32`, `gru16`, `gru08`
+    and `n_gru_layers`): net the hidden states [1/4, 1/8, 1/16], inp each
+    scale's (cz, cr, cq), motion the finest scale's input."""
+    net = list(net)
+    n = block.n_gru_layers
+    if n == 3:
+        net[2] = block.gru32(net[2], *inp[2], pool2x(net[1]))
+    if n >= 2:
+        if n > 2:
+            net[1] = block.gru16(net[1], *inp[1], pool2x(net[0]), interp_like(net[2], net[1]))
         else:
-            net[0] = self.gru08(net[0], *inp[0], motion)
-        return net
+            net[1] = block.gru16(net[1], *inp[1], pool2x(net[0]))
+    if n > 1:
+        net[0] = block.gru08(net[0], *inp[0], motion, interp_like(net[1], net[0]))
+    else:
+        net[0] = block.gru08(net[0], *inp[0], motion)
+    return net
+
+
+class SigmoidUpdateHead(nn.Module):
+    """conv-ReLU-conv-sigmoid (the reference's, for its confidence and
+    local-scale outputs)."""
+
+    def __init__(self, input_dim: int = 128, hidden_dim: int = 256, output_dim: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(input_dim, hidden_dim, 3, padding=1)
+        self.conv2 = nn.Conv2d(hidden_dim, output_dim, 3, padding=1)
+
+    def forward(self, x):
+        return torch.sigmoid(row_conv(self.conv2, F.relu(row_conv(self.conv1, x))))
+
+
+class ScaleShiftUpdateHead(nn.Module):
+    """Global scale and shift: two 3x3 convs, a max over the image, then
+    Linear-ReLU-Linear (`scaler.2`, `scaler.4` as in the reference).
+    Returns (B, output_dim, 1, 1)."""
+
+    def __init__(self, input_dim: int = 128, hidden_dim: int = 256, output_dim: int = 2):
+        super().__init__()
+        self.conv1 = nn.Conv2d(input_dim, hidden_dim, 3, padding=1)
+        self.conv2 = nn.Conv2d(hidden_dim, hidden_dim, 3, padding=1)
+        self.scaler = nn.Sequential(nn.AdaptiveMaxPool2d(1), nn.Flatten(), nn.Linear(hidden_dim, hidden_dim),
+                                    nn.ReLU(), nn.Linear(hidden_dim, output_dim))
+
+    def forward(self, x):
+        h = self.conv2(F.relu(self.conv1(x)))
+        return self.scaler(h).view(x.shape[0], -1, 1, 1)
+
+
+class ConfidenceAwareMotionEncoder(nn.Module):
+    """The motion encoder with a flow-confidence stream: the two
+    correlations through the shared convc1/convc2, the flow and its
+    confidence through their own 7x7 and 3x3 convs, merged into 125
+    channels, then [merged | flow | flow_conf] (128 channels)."""
+
+    def __init__(self, corr_channels: int):
+        super().__init__()
+        self.convc1 = nn.Conv2d(corr_channels, 64, 1)
+        self.convc2 = nn.Conv2d(64, 64, 3, padding=1)
+        self.convf1 = nn.Conv2d(2, 64, 7, padding=3)
+        self.convf2 = nn.Conv2d(64, 64, 3, padding=1)
+        self.convcf1 = nn.Conv2d(1, 64, 7, padding=3)
+        self.convcf2 = nn.Conv2d(64, 64, 3, padding=1)
+        self._conv_with_conf = nn.Conv2d(64 * 4, 128 - 3, 3, padding=1)
+
+    def forward(self, flow, flow_conf, corr, corr_mono):
+        b = corr.shape[0]
+        both = F.relu(row_conv(self.convc2, F.relu(row_conv(self.convc1, torch.cat([corr, corr_mono], dim=0)))))
+        flo = F.relu(row_conv(self.convf2, F.relu(row_conv(self.convf1, flow))))
+        cfl = F.relu(row_conv(self.convcf2, F.relu(row_conv(self.convcf1, flow_conf))))
+        out = F.relu(row_conv(self._conv_with_conf, torch.cat([both[:b], both[b:], flo, cfl], dim=1)))
+        return torch.cat([out, flow, flow_conf], dim=1)
+
+
+class MultiUpdateScalerBlock(nn.Module):
+    """The 3-scale GRU cascade predicting a local scale, a global scale and
+    shift and a confidence delta instead of a flow delta (the reference's
+    `BasicMultiUpdateScalerBlock`, which its model builds and never uses).
+    As in the JAX package, the encoder gets both correlation streams: the
+    reference calls it with three arguments where it takes four, an error
+    on a path it never runs.  Returns (net, delta_lscale, delta_gscale,
+    delta_gshift, delta_conf): the local ones (B,1,H,W), the global ones
+    (B,1,1,1)."""
+
+    def __init__(self, hidden_dims: Sequence[int] = (128, 128, 128), n_gru_layers: int = 3,
+                 corr_channels: int = 36):
+        super().__init__()
+        hd = tuple(hidden_dims)
+        self.n_gru_layers = n_gru_layers
+        self.encoder = ConfidenceAwareMotionEncoder(corr_channels)
+        self.gru08 = ConvGRU(hd[2], 128 + hd[1] * (n_gru_layers > 1))
+        self.gru16 = ConvGRU(hd[1], hd[0] * (n_gru_layers == 3) + hd[2])
+        self.gru32 = ConvGRU(hd[0], hd[1])
+        self.gscale_gshift_head = ScaleShiftUpdateHead(hd[2], 256, 2)
+        self.conf_head = SigmoidUpdateHead(hd[2], 256, 1)
+        self.lscale_head = SigmoidUpdateHead(hd[2], 256, 1)
+
+    def forward(self, net, inp, corr, corr_mono, flow, flow_conf):
+        motion = self.encoder(flow, flow_conf, corr, corr_mono)
+        net = gru_cascade(self, net, inp, motion)
+        gscale_gshift = self.gscale_gshift_head(net[0])
+        return (net, self.lscale_head(net[0]), gscale_gshift[:, 0:1], gscale_gshift[:, 1:2],
+                self.conf_head(net[0]))
 
 
 def update_nets(block: MultiUpdateBlock, net, inp, pyramids, coords1, coords0, radius: int,
@@ -175,7 +274,7 @@ def update_nets(block: MultiUpdateBlock, net, inp, pyramids, coords1, coords0, r
     flow_x = coords1 - coords0
     flow = torch.cat([flow_x, torch.zeros_like(flow_x)], dim=1).to(cdt)
     motion = block.encoder(flow, stereo_corr, mono_corr)
-    return [n.to(cdt) for n in block.cascade(net, inp, motion)]
+    return [n.to(cdt) for n in gru_cascade(block, net, inp, motion)]
 
 
 def refinement_tail(block: MultiUpdateBlock, net, coords1, compute_mask: bool):
@@ -198,6 +297,24 @@ def refinement_step(block: MultiUpdateBlock, net, inp, pyramids, coords1, coords
     return refinement_tail(block, net, coords1, compute_mask)
 
 
+def on_band(fn, radius: int, *planes: torch.Tensor) -> torch.Tensor:
+    """fn(*planes) for NHWC / (B,H,W) planes of this rank's rows: with no
+    row group, fn itself; with one, fn over the band of global rows
+    [a - radius, b + radius) clipped to the image, fetched from the
+    neighbours, and the result's rows [a, b) of it.  Exact when fn reads at
+    most `radius` rows beyond each output row and zero-pads at its input's
+    edges, as the kernels do."""
+    g = halo.active()
+    if g is None:
+        return fn(*planes)
+    n = planes[0].shape[1]
+    height, ranges = g.span(n)
+    needs = [(max(0, a - radius), min(height, b + radius)) for a, b in ranges]
+    lo, a = needs[g.index][0], ranges[g.index][0]
+    out = fn(*(g.fetch(p, 1, needs).contiguous() for p in planes))
+    return out.narrow(1, a - lo, n).contiguous()
+
+
 def fused_refinement_step(ws: sf.FusedWeights, net, czrq, pyramids: DualPyramid, coords1: torch.Tensor,
                           radius: int):
     """The rotated body of the fused loop (JAX `FusedRefinementStep`):
@@ -211,13 +328,19 @@ def fused_refinement_step(ws: sf.FusedWeights, net, czrq, pyramids: DualPyramid,
 
     net: the three hidden states, NHWC in the compute dtype; czrq: each
     scale's context injections [cz | cr | cq], NHWC; coords1 (B,H4,W4) f32,
-    the x-coordinate.  Returns (net, coords1)."""
-    coords1 = flow_head(net[0], coords1, ws.head)
+    the x-coordinate.  Returns (net, coords1).  Under a row group every
+    plane holds the rank's rows: K7, K8 and K9 run on bands (`on_band`),
+    the pooling and resizes are the row-aware ones."""
+    coords1 = on_band(lambda h, c: flow_head(h, c, ws.head), HEAD_ROWS, net[0], coords1)
     corr_a, corr_b = dual_lookup(pyramids, coords1, radius)
     net = list(net)
-    net[2] = conv_gru(net[2], [pool2x_nhwc(net[1])], czrq[2], ws.gru[2])
-    net[1] = conv_gru(net[1], [pool2x_nhwc(net[0]), interp_like_nhwc(net[2], net[1])], czrq[1], ws.gru[1])
+
+    def gru(i, xs):
+        return on_band(lambda h, c, *x: conv_gru(h, list(x), c, ws.gru[i]), GRU_ROWS, net[i], czrq[i], *xs)
+
+    net[2] = gru(2, [pool2x_nhwc(net[1])])
+    net[1] = gru(1, [pool2x_nhwc(net[0]), interp_like_nhwc(net[2], net[1])])
     xup = interp_like_nhwc(net[1], net[0])
-    motion = motion_encoder(corr_a, corr_b, coords1, ws.motion)
-    net[0] = conv_gru(net[0], [motion, xup], czrq[0], ws.gru[0])
+    motion = on_band(lambda a, b, c: motion_encoder(a, b, c, ws.motion), MOTION_ROWS, corr_a, corr_b, coords1)
+    net[0] = gru(0, [motion, xup])
     return net, coords1

@@ -1,9 +1,11 @@
-"""Convex (learned) upsampling of a coarse flow / disparity field (NCHW)."""
+"""Convex (learned) upsampling of a coarse flow / disparity field, and its
+plain bilinear counterpart `upflow` (NCHW)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from stereoanywhere_tpu_torch.ops.interp import resize_bilinear_align_corners
 from stereoanywhere_tpu_torch.parallel import halo
 
 
@@ -26,3 +28,12 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor, n_downsample: int = 
     neigh = neigh.view(b, d, 9, 1, 1, h, w)
     up = torch.sum(m * neigh, dim=2)  # (B,D,f,f,H,W)
     return up.permute(0, 1, 4, 2, 5, 3).reshape(b, d, h * f, w * f)
+
+
+def upflow(flow: torch.Tensor, factor: int = 2, use_scale_factor: bool = True) -> torch.Tensor:
+    """Bilinear x 2^factor upsampling with aligned corners of (B,D,H,W),
+    the values scaled by 2^factor too when `use_scale_factor` (the
+    reference's `upflow`)."""
+    scale = 2 ** factor
+    out = resize_bilinear_align_corners(flow, (flow.shape[-2] * scale, flow.shape[-1] * scale))
+    return out * scale if use_scale_factor else out

@@ -15,8 +15,10 @@ same layers on its own rows and the row-aware layers exchange halos and
 reduce over the group themselves (`halo.py`); the rows are cut at the
 model's coarsest row stride (`halo.row_block`), so shards may be uneven.
 The forward runs eagerly (no CUDA graph: graphs of collectives over NCCL
-are a later item).  The stereo model's test-mode forward with the unfused
-refinement loop: train mode and `fused_level0="on"` refuse a row group.
+are a later item).  The stereo model's test-mode forward, with either
+refinement loop (`fused_level0="on"` runs its K7, K8 and K9 launches on
+bands of rows: `models/update.py` `on_band`) and any aggregation variant;
+train mode refuses a row group.
 """
 from __future__ import annotations
 

@@ -242,9 +242,20 @@ def test_the_training_augmentor_is_refused(tmp_path):
     assert len(seen) == 1 and seen[0] > 1.0 and sample["im2_aug"].max() <= 1.0
 
 
-def test_decoders_match_jax(tmp_path):
-    """Each decoder on the formats it reads, against the JAX package's
-    (which decodes PNGs natively when its library is built)."""
+def test_decoders_match_jax(tmp_path, monkeypatch):
+    """Each decoder on the formats it reads, against the JAX package's,
+    which decodes PNGs natively when its library loads: the library is
+    built and loaded here whatever other processes do
+    (`tests/test_torch_native.py`), and the port takes the decoder JAX
+    took (PIL and the native decoder differ on a 16-bit PNG read as RGB)."""
+    from stereoanywhere_tpu import native as jnative
+
+    from stereoanywhere_tpu_torch import native as pnative
+    from tests.test_torch_native import complete_jax_native
+
+    if not complete_jax_native(monkeypatch):
+        monkeypatch.setattr(pnative, "available", lambda: False)
+    assert pnative.available() == jnative.available(), pnative.build_error()
     rng = np.random.default_rng(7)
     files = {
         "rgb.png": _rgb(rng),

@@ -97,8 +97,12 @@ def _warp_inputs(rng):
 
 @pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
 def test_warps_equal_jax(rng, monkeypatch, native):
-    if native and not (pnative.available() and jnative.available()):
-        pytest.skip("the native library is not built")
+    if native:
+        from tests.test_torch_native import need_jax_native
+
+        need_jax_native(monkeypatch)
+        if not pnative.available():
+            pytest.skip(f"the port's native library cannot be built here: {pnative.build_error()}")
     if not native:
         monkeypatch.setattr(pnative, "available", lambda: False)
         monkeypatch.setattr(jnative, "available", lambda: False)

@@ -29,6 +29,7 @@ def _imported_roots(path: Path):
 def test_port_imports_nothing_of_jax():
     files = _port_files()
     assert len(files) > 20
+    assert {"dcn.py", "mobile_extractors.py", "sgm.py", "update.py"} <= {p.name for p in files}
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p)) & FORBIDDEN) for p in files}
     assert {k: v for k, v in bad.items() if v} == {}
     # the name check is exact: the port's own package is allowed

@@ -8,7 +8,21 @@ case is held bit for bit: the decoders of `tests/test_native.py` (PNG RGB8,
 RGBA and grey16, JPEG, PFM), the warps, the background infill and the Otsu
 threshold.  Without the library the port decodes through PIL and numpy,
 as the JAX package does; the failed build keeps the compiler's message.
+
+The JAX package builds its library lazily, in place, with `g++ -o`, and
+caches a failed load for the whole process; processes that start together
+(pytest-xdist's workers on a fresh checkout) race for that build, and the
+losers load a half-written file.  `complete_jax_native` takes the race out
+of the tests: the other test files that need the JAX package's library
+import it from here.
 """
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
 import numpy as np
 import pytest
 from PIL import Image
@@ -19,7 +33,76 @@ from stereoanywhere_tpu.data import frame_utils as jfu
 from stereoanywhere_tpu_torch import native as pnative
 from stereoanywhere_tpu_torch.data import frame_utils as pfu
 
-pytestmark = pytest.mark.skipif(not jnative.available(), reason="the JAX package's native library is not built")
+# this process's own complete build of the JAX package's library: its path,
+# or the reason it cannot be built here
+_JAX_BUILD: dict = {}
+
+
+def _build_jax_native() -> Path:
+    """The JAX package's library, built once a process with its loader's
+    own compile line (`stereoanywhere_tpu/native/__init__.py` `_build`)
+    into a directory of this process, then copied beside the source under
+    a name of this process's and moved over `native/libstereodata.so`, so
+    that no process ever reads a half-written file there.  Raises
+    RuntimeError with the compiler's message when it cannot be built."""
+    if "path" in _JAX_BUILD:
+        return _JAX_BUILD["path"]
+    if "error" in _JAX_BUILD:
+        raise RuntimeError(_JAX_BUILD["error"])
+    src = jnative._REPO_NATIVE / "stereodata.cc"
+    cxx = shutil.which("g++")
+    try:
+        if cxx is None:
+            raise RuntimeError("g++ not found")
+        if not src.exists():
+            raise RuntimeError(f"{src} is not in this checkout")
+        so = Path(tempfile.mkdtemp(prefix="jax_native_")) / "libstereodata.so"
+        out = subprocess.run([cxx, "-O2", "-fPIC", "-shared", "-fvisibility=hidden", "-o", str(so), str(src),
+                              "-lpng", "-ljpeg", "-lz"], capture_output=True, text=True, timeout=120)
+        if out.returncode != 0:
+            raise RuntimeError(f"g++ failed (exit {out.returncode}):\n{out.stderr.strip()}")
+        ctypes.CDLL(str(so))
+    except (RuntimeError, OSError, subprocess.TimeoutExpired) as e:
+        _JAX_BUILD["error"] = str(e)
+        raise RuntimeError(str(e)) from e
+    tmp = jnative._REPO_NATIVE / f".libstereodata.{os.getpid()}.tmp"
+    try:
+        shutil.copyfile(so, tmp)
+        os.replace(tmp, jnative._REPO_NATIVE / "libstereodata.so")
+    finally:
+        tmp.unlink(missing_ok=True)
+    _JAX_BUILD["path"] = so
+    return so
+
+
+def complete_jax_native(monkeypatch) -> bool:
+    """Load the JAX package's native library into this process whatever
+    its loader cached before (a failed load of another process's
+    half-written build included): the loader's state is reset through
+    `monkeypatch` and its `_build` returns this process's own complete
+    build.  True when the library is loaded; False only when it cannot be
+    built here (no g++, or no libpng / libjpeg headers)."""
+    try:
+        so = _build_jax_native()
+    except RuntimeError:
+        return False
+    monkeypatch.delenv("STEREOANYWHERE_NO_NATIVE", raising=False)
+    monkeypatch.setattr(jnative, "_build", lambda: so)
+    monkeypatch.setattr(jnative, "_LIB", None)
+    monkeypatch.setattr(jnative, "_TRIED", False)
+    return jnative.available()
+
+
+def need_jax_native(monkeypatch) -> None:
+    """`complete_jax_native`, skipping the test only when the library
+    cannot be built here (the compiler's message is the reason)."""
+    if not complete_jax_native(monkeypatch):
+        pytest.skip(f"the JAX package's native library cannot be built here: {_JAX_BUILD.get('error')}")
+
+
+@pytest.fixture(autouse=True)
+def _jax_native(monkeypatch):
+    need_jax_native(monkeypatch)
 
 
 def _same(a, b):

@@ -79,15 +79,16 @@ def _u8_cases():
 
 
 @pytest.mark.parametrize("case", sorted(_u8_cases()))
-def test_uint8_otsu_matches_the_native_library(case):
+def test_uint8_otsu_matches_the_native_library(case, monkeypatch):
     """`otsu_threshold_u8` against `native/stereodata.cc`'s
-    `sd_otsu_threshold`, threshold and mask equal."""
+    `sd_otsu_threshold`, threshold and mask equal (the library built and
+    loaded whatever other processes do: `tests/test_torch_native.py`)."""
     from stereoanywhere_tpu import native
 
     from stereoanywhere_tpu_torch.parallel.non_lambertian import otsu_threshold_u8
+    from tests.test_torch_native import need_jax_native
 
-    if not native.available():
-        pytest.skip("native/libstereodata.so is not built (make -C native)")
+    need_jax_native(monkeypatch)
     img = _u8_cases()[case]
     thr, mask = native.otsu_mask(img)
     assert otsu_threshold_u8(img) == thr
@@ -95,15 +96,19 @@ def test_uint8_otsu_matches_the_native_library(case):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_non_lambertian_mask_matches_jax(seed):
+def test_non_lambertian_mask_matches_jax(seed, monkeypatch):
     """JAX takes the native uint8 Otsu when the library is built and its
     float histogram otherwise; the port always takes the uint8 one, so the
-    two are held equal where JAX has the library, and the port's mask is
-    checked against its own definition either way."""
+    two are held equal where JAX has the library (built and loaded here
+    unless it cannot be built), and the port's mask is checked against its
+    own definition either way."""
     from stereoanywhere_tpu import native
     from stereoanywhere_tpu.parallel.non_lambertian import non_lambertian_mask as jmask
 
     from stereoanywhere_tpu_torch.parallel.non_lambertian import non_lambertian_mask, otsu_threshold_u8
+    from tests.test_torch_native import complete_jax_native
+
+    complete_jax_native(monkeypatch)
 
     rng = np.random.default_rng(seed)
     im2 = rng.uniform(0, 1, (48, 64, 3)).astype(np.float32)

@@ -41,8 +41,9 @@ CPU devices.
   each data group its column.
 - `cli infer --shard-rows 2 --device cpu` writes what `--shard-rows 1`
   writes, within the forward's bound.
-- Train mode and `fused_level0="on"` refuse a row group; `--shard-rows N`
-  on the card refuses with fewer than N cards.
+- Train mode refuses a row group, and `fused_level0="on"` runs under one
+  (its gaps: `tests/test_torch_fused_rowshard.py`); `--shard-rows N` on
+  the card refuses with fewer than N cards.
 `PYTHONPATH=. python tests/test_torch_rowshard.py` prints the gaps behind
 these bounds (`report`).
 """
@@ -174,8 +175,8 @@ def _forward(rank: int, world: int, name: str) -> np.ndarray | None:
 
 
 def _refusals(rank: int) -> dict:
-    """What a row group refuses: {case: the message of its ValueError, or
-    None if it ran}."""
+    """Whether a row group refuses train mode and the fused loop: {case:
+    the message of its ValueError, or None if it ran}."""
     from stereoanywhere_tpu_torch.parallel import halo
     from stereoanywhere_tpu_torch.parallel.mesh import make_mesh
     from stereoanywhere_tpu_torch.parallel.spatial import RowShardedInference
@@ -423,10 +424,16 @@ def test_mesh_groups_reach_only_their_axis(runs):
 
 @pytest.mark.parametrize("name", ["train mode", "fused loop", "fused forward"])
 def test_a_row_group_refuses_train_mode_and_the_fused_loop(runs, name):
+    """Train mode is refused; the fused loop, refused until its kernels ran
+    on bands of rows, now runs (through `RowShardedInference` and under a
+    bare row group)."""
     ranks, _, _ = runs
     for res in ranks[2]:
         msg = res["refusals"][name]
-        assert msg is not None and ("train mode" in msg if name == "train mode" else "fused_level0" in msg), msg
+        if name == "train mode":
+            assert msg is not None and "train mode" in msg, msg
+        else:
+            assert msg is None, msg
 
 
 def test_plan_rows_deals_blocks_evenly():
