@@ -1,0 +1,6 @@
+"""`torch.cuda.max_memory_allocated()` over set-up and window (GiB): the
+models, the activations and the graph pool."""
+
+
+def read(ctx):
+    return ctx.peak_bytes / 2 ** 30 if ctx.peak_bytes else None

@@ -1,0 +1,91 @@
+"""The metric arithmetic: latencies and rates over every request, the
+kernels' FLOP and byte counts against the bounds that PERF.md's kernel
+table records, and the shares of a peak below 105% on recorded card
+times."""
+from __future__ import annotations
+
+import pytest
+
+from port_bench import flops, harness
+from port_bench.trace import Segment
+
+READERS = {m: harness.load_reader(m) for m in ("pair_ms_p50", "pair_ms_p95", "pairs_per_s", "idle_share",
+                                               "kernels_per_pair", "request_host_ms", "pair_mfu")}
+VIT_L = dict(d=1024, heads=16, hidden=4096)
+# PERF.md section 6, K1-K4 at B = 2: (bound ms, device ms) at T = 1370 and 4552
+RECORDS = {
+    "K1": ((0.0174, 0.0348), (0.0579, 0.1156)),
+    "K2": ((0.0155, 0.0477), (0.1716, 0.3950)),
+    "K3": ((0.0058, 0.0120), (0.0193, 0.0418)),
+    "K4": ((0.0465, 0.0912), (0.1544, 0.2829)),
+}
+
+
+def ctx(latencies, window):
+    c = harness.RunContext({}, {})
+    c.latencies_s, c.window_s = list(latencies), window
+    return c
+
+
+def test_latency_and_rate_over_all_requests():
+    steady = [0.1] * 100
+    base = ctx(steady, 10.0)
+    assert READERS["pair_ms_p50"](base) == pytest.approx(100.0)
+    assert READERS["pair_ms_p95"](base) == pytest.approx(100.0)
+    assert READERS["pairs_per_s"](base) == pytest.approx(10.0)
+    # six stalled requests of 2 s among them: the tail and the rate move, the median does not
+    stalled = ctx(steady[:94] + [2.0] * 6, 9.4 + 12.0)
+    assert READERS["pair_ms_p50"](stalled) == pytest.approx(100.0)
+    assert READERS["pair_ms_p95"](stalled) > 1000.0
+    assert READERS["pairs_per_s"](stalled) == pytest.approx(100 / 21.4)
+
+
+def kernel_counts(t: int):
+    d, heads, hidden = VIT_L["d"], VIT_L["heads"], VIT_L["hidden"]
+    return {"K1": flops.ln_dense(2, t, d), "K2": flops.attention_core(2, t, heads, d // heads),
+            "K3": flops.dense_residual(2, t, d), "K4": flops.mlp(2, t, d, hidden)}
+
+
+@pytest.mark.parametrize("i,t", [(0, 1370), (1, 4552)])
+def test_kernel_bounds_match_the_record(i, t):
+    for k, (f, m) in kernel_counts(t).items():
+        bound, device_ms = RECORDS[k][i]
+        assert round(flops.least_ms(f, m), 4) == bound, k
+        assert 100.0 * flops.least_ms(f, m) / device_ms < 105.0, k
+
+
+def test_vit_least_time_sums_the_kernels():
+    t = flops.tokens(375, 1242)
+    assert t == 4552
+    per_block = sum(flops.least_ms(*c) for c in kernel_counts(t).values())
+    assert flops.vit_least_ms(2, t, 1024, 16, 24, "mlp") == pytest.approx(24 * per_block)
+    recorded_vit_ms = 21.83  # PERF.md section 6, device ms of the ViT at 375x1242 before the benchmark
+    assert 100.0 * flops.vit_least_ms(2, t, 1024, 16, 24, "mlp") / recorded_vit_ms < 105.0
+
+
+def test_pair_mfu_below_the_peak_on_recorded_requests():
+    # warm graph requests recorded before the benchmark (PERF.md section 6):
+    # ViT-L 131.5 ms at 375x1242, 56.5 ms at 512x512
+    for (h, w), ms in (((375, 1242), 131.5), ((512, 512), 56.5)):
+        work = flops.pair_flops("vitl", h, w, 32)
+        seg = Segment(host={"pair": [(0.0, ms * 1e3)]})
+        c = harness.RunContext({"mono": {"encoder": "vitl", "input_size": 518}, "iters": 32},
+                               {"height": h, "width": w})
+        c.graph = seg
+        mfu = READERS["pair_mfu"](c)
+        assert mfu == pytest.approx(100.0 * work / (ms * 1e-3 * flops.PEAK_BF16_FLOPS))
+        assert 0.0 < mfu < 105.0
+    assert 16e12 < flops.pair_flops("vitl", 375, 1242, 32) < 20e12
+
+
+def test_trace_readers():
+    # two pairs of 10 ms each; kernels busy 6 ms of the first and 8 of the second
+    seg = Segment(kernels=[("k", 0.0, 6000.0), ("k", 10000.0, 14000.0), ("k", 13000.0, 18000.0)],
+                  host={"pair": [(0.0, 10000.0), (10000.0, 20000.0)]}, pairs=2)
+    c = harness.RunContext({}, {})
+    c.graph = seg
+    assert READERS["kernels_per_pair"](c) == 1.5
+    assert READERS["idle_share"](c) == pytest.approx(30.0)
+    assert READERS["request_host_ms"](c) == pytest.approx(3.0)
+    c.graph = None
+    assert READERS["idle_share"](c) is None
