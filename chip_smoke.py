@@ -5,6 +5,7 @@
     python3 chip_smoke.py --tiles        # K9's, K8's and K7's tile candidates, each forced, timed
     python3 chip_smoke.py --ab OTHER     # K1, K3, K7, K8 and K9 of this checkout and OTHER, in turns
     python3 chip_smoke.py --rowshard-cards  # row sharding over NCCL, one card a rank (2 or 4 cards)
+    python3 chip_smoke.py --spans OTHER  # the benchmark's cells on this checkout and OTHER: the port's spans
 
 Phases of the smoke run (any failure exits non-zero before the result line):
 1. build the hand-written kernels from `stereoanywhere_tpu_torch/csrc/`
@@ -3105,7 +3106,7 @@ TRAIN_PAIRS, TRAIN_SIZE, TRAIN_STEPS, TRAIN_RESUMED = 8, (540, 960), 20, 24
 TRAIN_GROUPS = {"cnet": ("cnet", "context_zqr_convs"),
                 "monoagg": ("hourglass_mono", "classifier_mono", "classifier_monoconf"),
                 "update_block": ("update_block",)}
-TRAIN_PHASES = ("train: forward", "train: loss", "train: backward", "train: optimizer")
+TRAIN_PHASES = ("sa.train.forward", "sa.train.loss", "sa.train.backward", "sa.train.optimizer")
 
 
 def write_flyingthings(root: Path, rng, n: int, size: tuple[int, int]) -> Path:
@@ -3170,34 +3171,30 @@ class _TrainRecorder:
 
 def traced_train_step(trainer, batch) -> None:
     """One train step traced: device busy, idle share of its wall time, and
-    device ms by phase (the step's record_function ranges; the backward's
-    kernels, which the autograd engine launches from its own thread, are
-    those between the loss's last kernel and the optimizer's first)."""
+    device ms by phase (the trainer's `sa.train.*` spans: each kernel under
+    the phase in which the host launched it, the backward's too, which the
+    autograd engine launches from its own thread)."""
+    from stereoanywhere_tpu_torch.utils.profiling import device_by_span
+
     trainer.step(batch)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = sync_ms(lambda: trainer.step(batch))
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in events if e.name not in TRAIN_PHASES]
+    by_phase = device_by_span(prof.events(), "sa.train.")
+    kernels = [k for ks in by_phase.values() for k in ks]
     if not kernels:
         print("train trace: not measured (the profiler saw no device events)", flush=True)
         return
-    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
-    spans = defaultdict(list)
-    for e in events:
-        if e.name in TRAIN_PHASES:
-            spans[e.name].append((e.time_range.start, e.time_range.end))
-    parts = {name: kernels_within(kernels, spans[name]) if spans[name] else None for name in TRAIN_PHASES}
-    if spans["train: loss"] and spans["train: optimizer"]:
-        lo, hi = max(e for _, e in spans["train: loss"]), min(s for s, _ in spans["train: optimizer"])
-        parts["train: backward"] = busy_us([(e.time_range.start, e.time_range.end) for e in kernels
-                                            if e.time_range.start >= lo and e.time_range.end <= hi]) / 1e3
+    busy = busy_us([(s, e) for _, s, e in kernels]) / 1e3
+    parts = {name: busy_us([(s, e) for _, s, e in by_phase[name]]) / 1e3 if name in by_phase else None
+             for name in TRAIN_PHASES}
     print(f"train trace, one step: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share {1 - busy / wall:.3f}, "
           f"{len(kernels)} kernels; device ms by phase: " + ", ".join(
-              f"{n.split(': ')[1]} {fmt(ms)}" for n, ms in parts.items()), flush=True)
+              f"{n.split('.')[-1]} {fmt(ms)}" for n, ms in parts.items())
+          + f"; outside every phase {fmt(busy_us([(s, e) for _, s, e in by_phase.get('', [])]) / 1e3)}", flush=True)
     counts = defaultdict(int)
-    for e in kernels:
-        counts[re.sub(r"[<(].*", "", e.name.replace("(anonymous namespace)::", ""))[-48:]] += 1
+    for name, _, _ in kernels:
+        counts[re.sub(r"[<(].*", "", name.replace("(anonymous namespace)::", ""))[-48:]] += 1
     print("  launches by kernel: " + ", ".join(f"{n} {c}" for n, c in sorted(counts.items(), key=lambda kv: -kv[1])[:12]),
           flush=True)
     # the host ops whose launches include a device-to-host copy (each one waits for the device)
@@ -4069,6 +4066,203 @@ def ab_main(other: Path) -> int:
     return 0
 
 
+
+# ---------------------------------------------------------------------------
+# --spans: the port's spans and counters over the benchmark's cells
+
+STAGES = ("sa.mono.", "sa.stereo.")
+REQUEST_SPANS = ("request.call", "request.to_host", "sa.request", "sa.to_device", "sa.stage_inputs", "sa.replay",
+                 "sa.copy_out")
+KERNEL_CLASSES = {"elementwise": re.compile(r"elementwise_kernel"),
+                  "layout transposes": re.compile(r"nchwToNhwc|nhwcToNchw|[Tt]ranspose")}
+
+
+def _is_copy(name: str) -> bool:
+    return name.startswith(("Memcpy", "Memset"))
+
+
+def _within(intervals, lo: float, hi: float) -> float:
+    """us of the (merged) intervals inside [lo, hi]."""
+    return sum(min(e, hi) - max(s, lo) for s, e in intervals if s < hi and e > lo)
+
+
+def _merged(intervals) -> list[tuple[float, float]]:
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out
+
+
+def idle_by_host_span(pairs, host: dict, kernels) -> list[dict[str, float]]:
+    """Each traced pair's idle device time (no kernel running; copies count
+    as idle, as `port_bench` counts them), split by the innermost host span
+    open at each moment of it (`pair` where no other is), ms."""
+    busy = _merged((s, e) for _, s, e in kernels)
+    out = []
+    for ps, pe in pairs:
+        spans = [(s, e, n) for n, lst in host.items() for s, e in lst if s >= ps and e <= pe]
+        cuts = sorted({ps, pe, *(t for s, e, _ in spans for t in (s, e))})
+        split = defaultdict(float)
+        for a, b in zip(cuts, cuts[1:]):
+            mid = (a + b) / 2
+            inner = max(((s, n) for s, e, n in spans if s <= mid < e), default=(ps, "pair"))[1]
+            split[inner] += ((b - a) - _within(busy, a, b)) / 1e3
+        out.append(dict(split))
+    return out
+
+
+def graph_split(events, row: dict, pairs_traced: int) -> None:
+    """Adds one traced stretch of graph pairs to `row`: each pair's host ms
+    in the benchmark's ranges and the port's request spans, its idle device
+    ms by innermost host span, and device ms a pair by span (kernels and
+    copies apart)."""
+    from stereoanywhere_tpu_torch.utils.profiling import device_by_span, spans_of
+
+    pairs = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CPU and e.name == "pair")
+    host = {n: [(e.time_range.start, e.time_range.end) for e in events
+                if e.device_type == DeviceType.CPU and e.name == n] for n in REQUEST_SPANS[:2]}
+    host.update({k: v for k, v in spans_of(events).items() if k in REQUEST_SPANS})
+    for name, lst in host.items():
+        row["host_ms"][name] += [_within(lst, s, e) / 1e3 for s, e in pairs]
+    by_span = device_by_span(events)
+    for name, ks in by_span.items():
+        for kind, copies in (("kernels", False), ("copies", True)):
+            row["graph_device_ms"][f"{name or '-'} {kind}"] += busy_us(
+                [(s, e) for k, s, e in ks if _is_copy(k) == copies]) / 1e3 / pairs_traced
+    kernels = [k for ks in by_span.values() for k in ks if not _is_copy(k[0])]
+    for split in idle_by_host_span(pairs, host, kernels):
+        for name, ms in split.items():
+            row["idle_ms"][name].append(ms)
+
+
+def eager_split(events, pairs: int) -> dict:
+    """The eager pass's device busy ms a pair, each stage's (`sa.mono.*`,
+    `sa.stereo.*`), what lies outside every stage, and each stage's kernel
+    classes and top three kernels (copies count as idle)."""
+    from stereoanywhere_tpu_torch.utils.profiling import device_by_span
+
+    by_span = {k: [x for x in v if not _is_copy(x[0])] for k, v in device_by_span(events).items()}
+    stages = {k: v for k, v in by_span.items() if k.startswith(STAGES)}
+    top = {}
+    for k, v in stages.items():
+        ms = defaultdict(float)
+        for name, s, e in v:
+            ms[re.sub(r"[<(].*", "", name.replace("(anonymous namespace)::", ""))[-60:]] += (e - s) / 1e3 / pairs
+        top[k] = sorted(ms.items(), key=lambda kv: -kv[1])[:3]
+    return {"eager_busy_ms": busy_us([(s, e) for v in by_span.values() for _, s, e in v]) / 1e3 / pairs,
+            "eager_stage_ms": {k: busy_us([(s, e) for _, s, e in v]) / 1e3 / pairs for k, v in stages.items()},
+            "eager_unspanned_ms": busy_us([(s, e) for k, v in by_span.items() if k not in stages
+                                           for _, s, e in v]) / 1e3 / pairs,
+            "eager_classes_ms": {k: {c: sum(e - s for name, s, e in v if rx.search(name)) / 1e3 / pairs
+                                     for c, rx in KERNEL_CLASSES.items()} for k, v in stages.items()},
+            "eager_top": top}
+
+
+def spans_rows() -> list[dict]:
+    """One --spans run over the checkout this process imported: for each of
+    the benchmark's cells, its program built and warmed as `port_bench`
+    builds it (seed 11), three traced stretches of the cell's graph pairs in
+    the benchmark's own ranges (`pair`, `request.call`, `request.to_host`),
+    and where the port has spans and counters (not in a checkout older than
+    them), the split of each (`graph_split`) and of an eager pass
+    (`eager_split`)."""
+    from port_bench import harness, traffic
+
+    pkg = Path(stereoanywhere_tpu_torch.__file__).resolve().parents[1]
+    if pkg != Path.cwd().resolve():
+        raise RuntimeError(f"imported the package of {pkg}, not that of the checkout {Path.cwd()}")
+    build.build()
+    dev, seed, rows = torch.device("cuda"), 11, []
+    bench = harness.load_benchmark(Path.cwd())
+    for cell in bench["workloads"]:
+        cfg, mix = harness.config_of(bench, cell["config"]), harness.traffic_of(cell["traffic"])
+        pipe = harness.build_program(cfg, dev, seed)
+        pool = traffic.make_pool(mix, seed, dev)
+        for left, right in pool:
+            pipe(left, right).cpu()
+        torch.cuda.synchronize()
+        spans = hasattr(pipe, "counters")
+        row = {"cell": cell["name"], "counters_setup": pipe.counters() if spans else None, "pair_ms": [],
+               "host_ms": defaultdict(list), "idle_ms": defaultdict(list), "graph_device_ms": defaultdict(float)}
+        n, stretches = mix["trace_pairs"], 3
+        for _ in range(stretches):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for i in range(n):
+                    left, right = pool[i % len(pool)]
+                    with record_function("pair"):
+                        with record_function("request.call"):
+                            out = pipe(left, right)
+                        with record_function("request.to_host"):
+                            out.cpu().numpy()
+                torch.cuda.synchronize()
+            events = prof.events()
+            row["pair_ms"] += [(e - s) / 1e3 for s, e in sorted(
+                (e.time_range.start, e.time_range.end) for e in events
+                if e.device_type == DeviceType.CPU and e.name == "pair")]
+            if spans:
+                graph_split(events, row, n * stretches)
+        if spans:
+            row["counters_end"] = pipe.counters()
+            m = mix["eager_trace_pairs"]
+            pipe.graphs = False
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for i in range(m):
+                    left, right = pool[i % len(pool)]
+                    with record_function("pair"):
+                        pipe(left, right).cpu().numpy()
+                torch.cuda.synchronize()
+            pipe.graphs = True
+            row.update(eager_split(prof.events(), m))
+        rows.append(row)
+        del pipe, pool
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def spans_main(other: Path) -> int:
+    """--spans: the benchmark's cells on this checkout and other, in turns
+    (other, this, this, other), each a process of its own run from its
+    checkout: the traced graph pair's mean (the cost of the spans when a
+    profiler records), and this checkout's split by span."""
+    here = Path(__file__).resolve()
+    code = ("import runpy, sys; sys.argv = [sys.argv[1], '--spans-run']; "
+            "runpy.run_path(sys.argv[0], run_name='__main__')")
+    runs = defaultdict(list)
+    for label, root in (("other", other), ("this", here.parent), ("this", here.parent), ("other", other)):
+        out = subprocess.run([sys.executable, "-c", code, str(here)], cwd=root, capture_output=True, text=True)
+        if out.returncode != 0:
+            print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
+            return 1
+        runs[label].append(json.loads(out.stdout.strip().splitlines()[-1]))
+    print(card_line())
+    for i, cell in enumerate(r["cell"] for r in runs["this"][0]):
+        print(f"{cell}: traced graph pair ms, mean [median] of {len(runs['this'][0][i]['pair_ms'])} a run: " + "; ".join(
+            f"{lab} " + ", ".join(f"{np.mean(rows[i]['pair_ms']):.3f} [{np.median(rows[i]['pair_ms']):.3f}]"
+                                   for rows in runs[lab]) for lab in ("other", "this")), flush=True)
+        for k, row in enumerate(runs["this"]):
+            row = row[i]
+            print(f"  this run {k + 1}: counters after set-up {row['counters_setup']}, at the end {row['counters_end']}")
+            print("    host ms a graph pair, median [mean]: " + ", ".join(
+                f"{n} {np.median(v):.3f} [{np.mean(v):.3f}]" for n, v in row["host_ms"].items()))
+            print("    idle device ms a graph pair by innermost host span, median [mean]: " + ", ".join(
+                f"{n} {np.median(v):.3f} [{np.mean(v):.3f}]" for n, v in sorted(row["idle_ms"].items())))
+            print("    graph pair device ms by span: " + ", ".join(
+                f"{n} {ms:.3f}" for n, ms in sorted(row["graph_device_ms"].items()) if ms))
+            stages = row["eager_stage_ms"]
+            print(f"    eager pair: busy {row['eager_busy_ms']:.3f} ms, stages sum {sum(stages.values()):.3f} "
+                  f"({100 * sum(stages.values()) / row['eager_busy_ms']:.2f}%), outside every stage "
+                  f"{row['eager_unspanned_ms']:.3f} ({100 * row['eager_unspanned_ms'] / row['eager_busy_ms']:.2f}%)")
+            for n, ms in stages.items():
+                cls = row["eager_classes_ms"][n]
+                print(f"      {n} {ms:.3f} ms; " + ", ".join(f"{c} {v:.3f}" for c, v in cls.items())
+                      + "; top " + ", ".join(f"{name} {v:.3f}" for name, v in row["eager_top"][n]))
+    return 0
+
 START = time.perf_counter()
 
 
@@ -4095,6 +4289,11 @@ def main() -> int:
         return 0
     if len(args) == 2 and args[0] == "--ab":
         return ab_main(Path(args[1]).resolve())
+    if args == ["--spans-run"]:  # one run of --spans, in the checkout this process imported
+        print(json.dumps(spans_rows()))
+        return 0
+    if len(args) == 2 and args[0] == "--spans":
+        return spans_main(Path(args[1]).resolve())
     if args:
         print(__doc__, file=sys.stderr)
         return 2

@@ -46,6 +46,7 @@ class EvalPrograms(GraphOwner):
         self.programs: dict[tuple, _Program] = {}
 
     def _run(self, key: tuple, body, *arrays: np.ndarray) -> np.ndarray:
+        self.requests += 1
         xs = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device) for a in arrays]
         key = key + tuple(xs[0].shape)
         with torch.inference_mode():
@@ -53,7 +54,7 @@ class EvalPrograms(GraphOwner):
                 out = body(*xs)
             else:
                 if key not in self.programs:
-                    self.programs[key] = _Program(body, self._pool, self.capture_at)
+                    self.programs[key] = self._program(body, self.capture_at)
                 out = self.programs[key](*xs)
         return out.cpu().numpy()
 

@@ -22,6 +22,7 @@ from stereoanywhere_tpu_torch.models.dinov2 import VIT_CONFIGS, DinoVisionTransf
 from stereoanywhere_tpu_torch.models.layers import init_weights
 from stereoanywhere_tpu_torch.ops.interp import (
     resize_bicubic_halfpix, resize_bilinear_align_corners, resize_bilinear_halfpix)
+from stereoanywhere_tpu_torch.utils.profiling import span
 
 INTERMEDIATE_LAYER_IDX = {
     "vits": (2, 5, 8, 11),
@@ -144,10 +145,11 @@ class DepthAnythingV2(nn.Module):
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.depth_head.projects[0].weight.dtype
-        x = x.permute(0, 3, 1, 2).to(dt)
-        ph, pw = x.shape[2] // 14, x.shape[3] // 14
-        feats = self.pretrained(x, INTERMEDIATE_LAYER_IDX[self.cfg.encoder])
-        return self.depth_head(feats, ph, pw).permute(0, 2, 3, 1)
+        ph, pw = x.shape[1] // 14, x.shape[2] // 14
+        with span("sa.mono.vit"):
+            feats = self.pretrained(x.permute(0, 3, 1, 2).to(dt), INTERMEDIATE_LAYER_IDX[self.cfg.encoder])
+        with span("sa.mono.dpt"):
+            return self.depth_head(feats, ph, pw).permute(0, 2, 3, 1)
 
 
 def imagenet_normalize(image01: torch.Tensor) -> torch.Tensor:

@@ -90,6 +90,7 @@ from stereoanywhere_tpu_torch.ops.volume import (
 from stereoanywhere_tpu_torch.parallel import halo
 from stereoanywhere_tpu_torch.parallel.halo import row_conv
 from stereoanywhere_tpu_torch.parallel.multihost import all_reduce_max, rank_and_world
+from stereoanywhere_tpu_torch.utils.profiling import span
 
 
 CORRUPTIONS = ("stereo roll", "stereo noise", "stereo zero", "mono roll", "mono noise", "mono zero")
@@ -264,76 +265,80 @@ class StereoAnywhere(nn.Module):
                 raise ValueError("row sharding runs the test-mode forward only: train mode under a row group "
                                  "is not supported")
         cdt = torch_dtype(cfg.compute_dtype)
-        # a fresh NCHW copy whatever the caller's strides, so that the same
-        # shapes take the same convolution kernels: a channels-last view, or
-        # a one-channel depth map whose channel stride is 1, would take
-        # others on the card, rounding differently
-        to_nchw = lambda t: t.permute(0, 3, 1, 2).float().clone(memory_format=torch.contiguous_format)  # noqa: E731
-        image2, image3, mde2, mde3 = (to_nchw(t) for t in (image2, image3, mde2, mde3))
-        b, c, h, w = image2.shape
+        with span("sa.stereo.prepare"):
+            # a fresh NCHW copy whatever the caller's strides, so that the same
+            # shapes take the same convolution kernels: a channels-last view, or
+            # a one-channel depth map whose channel stride is 1, would take
+            # others on the card, rounding differently
+            to_nchw = lambda t: t.permute(0, 3, 1, 2).float().clone(memory_format=torch.contiguous_format)  # noqa: E731
+            image2, image3, mde2, mde3 = (to_nchw(t) for t in (image2, image3, mde2, mde3))
+            b, c, h, w = image2.shape
 
-        # test-mode width alignment (JAX models/stereoanywhere.py:155-169)
-        w_orig = None
-        if test_mode and cfg.width_pad_align and w >= cfg.width_pad_min and w % cfg.width_pad_align != 0:
-            w_orig = w
-            w = -(-w // cfg.width_pad_align) * cfg.width_pad_align
-            pad = (0, w - w_orig, 0, 0)
-            image2, image3, mde2, mde3 = (F.pad(t, pad, mode="replicate") for t in (image2, image3, mde2, mde3))
+            # test-mode width alignment (JAX models/stereoanywhere.py:155-169)
+            w_orig = None
+            if test_mode and cfg.width_pad_align and w >= cfg.width_pad_min and w % cfg.width_pad_align != 0:
+                w_orig = w
+                w = -(-w // cfg.width_pad_align) * cfg.width_pad_align
+                pad = (0, w - w_orig, 0, 0)
+                image2, image3, mde2, mde3 = (F.pad(t, pad, mode="replicate") for t in (image2, image3, mde2, mde3))
 
-        f = cfg.downsample_factor
-        h4, w4 = h // f, w // f
-        if c == 1:
-            image2, image3 = joint_minmax_normalize([image2.expand(-1, 3, -1, -1), image3.expand(-1, 3, -1, -1)])
-        image2 = image2 * 2.0 - 1.0
-        image3 = image3 * 2.0 - 1.0
+            f = cfg.downsample_factor
+            h4, w4 = h // f, w // f
+            if c == 1:
+                image2, image3 = joint_minmax_normalize([image2.expand(-1, 3, -1, -1), image3.expand(-1, 3, -1, -1)])
+            image2 = image2 * 2.0 - 1.0
+            image3 = image3 * 2.0 - 1.0
 
-        # mono pyramids
-        mde2_low = resize_bilinear_align_corners(mde2, (h4, w4))
-        mde3_low = resize_bilinear_align_corners(mde3, (h4, w4))
-        # vol_downsample: the hourglass's depth pyramids start from 1/2^v of
-        # the full resolution (JAX :187-191)
-        vf = 2 ** cfg.vol_downsample
-        if cfg.vol_downsample > 0:
-            mde2_vlow = resize_bilinear_align_corners(mde2, (h // vf, w // vf))
-            mde3_vlow = resize_bilinear_align_corners(mde3, (h // vf, w // vf))
-        else:
-            mde2_vlow, mde3_vlow = mde2, mde3
-        normal_gain = w4 / cfg.normal_gain
-        normals2 = estimate_normals(mde2_low, normal_gain)
-        normals3 = estimate_normals(mde3_low, normal_gain)
+            # mono pyramids
+            mde2_low = resize_bilinear_align_corners(mde2, (h4, w4))
+            mde3_low = resize_bilinear_align_corners(mde3, (h4, w4))
+            # vol_downsample: the hourglass's depth pyramids start from 1/2^v of
+            # the full resolution (JAX :187-191)
+            vf = 2 ** cfg.vol_downsample
+            if cfg.vol_downsample > 0:
+                mde2_vlow = resize_bilinear_align_corners(mde2, (h // vf, w // vf))
+                mde3_vlow = resize_bilinear_align_corners(mde3, (h // vf, w // vf))
+            else:
+                mde2_vlow, mde3_vlow = mde2, mde3
+            normal_gain = w4 / cfg.normal_gain
+            normals2 = estimate_normals(mde2_low, normal_gain)
+            normals3 = estimate_normals(mde3_low, normal_gain)
 
-        # context encoder on the left mono depth
-        cnet_out = self.cnet(mde2.to(cdt))
-        net = [torch.tanh(o[0]) for o in cnet_out]
-        inp = [
-            tuple(torch.chunk(row_conv(conv, F.relu(o[1])), 3, dim=1))
-            for conv, o in zip(self.context_zqr_convs, cnet_out)
-        ]
+        with span("sa.stereo.context"):
+            # context encoder on the left mono depth
+            cnet_out = self.cnet(mde2.to(cdt))
+            net = [torch.tanh(o[0]) for o in cnet_out]
+            inp = [
+                tuple(torch.chunk(row_conv(conv, F.relu(o[1])), 3, dim=1))
+                for conv, o in zip(self.context_zqr_convs, cnet_out)
+            ]
 
-        # feature encoder, both views as one batch
-        fmaps = self.fnet(torch.cat([image2, image3], dim=0).to(cdt))
-        fmap2, fmap3 = fmaps[:b], fmaps[b:]
+        with span("sa.stereo.features"):
+            # feature encoder, both views as one batch
+            fmaps = self.fnet(torch.cat([image2, image3], dim=0).to(cdt))
+            fmap2, fmap3 = fmaps[:b], fmaps[b:]
 
-        # mono depth pyramids for the hourglass attention, f32 as in JAX: in
-        # a bf16 model they promote the hourglass to f32 past its first gate
-        hv, wv = mde2_vlow.shape[-2:]
-        sizes = [(hv // 2 ** i, wv // 2 ** i) for i in range(cfg.n_downsample, 6)]
-        fmde2 = [resize_bilinear_align_corners(mde2_vlow, size) for size in sizes]
-        fmde3 = [resize_bilinear_align_corners(mde3_vlow, size) for size in sizes]
+        with span("sa.stereo.volumes"):
+            # mono depth pyramids for the hourglass attention, f32 as in JAX: in
+            # a bf16 model they promote the hourglass to f32 past its first gate
+            hv, wv = mde2_vlow.shape[-2:]
+            sizes = [(hv // 2 ** i, wv // 2 ** i) for i in range(cfg.n_downsample, 6)]
+            fmde2 = [resize_bilinear_align_corners(mde2_vlow, size) for size in sizes]
+            fmde3 = [resize_bilinear_align_corners(mde3_vlow, size) for size in sizes]
 
-        # all-pairs volumes
-        stereo_vol = all_pairs_correlation(fmap2, fmap3)  # (B,H4,W2,W3)
-        mono_vol = (1.73 * all_pairs_correlation(normals2.to(cdt), normals3.to(cdt))).float()
-        left_masks = generate_masks(mde2_low, cfg.vol_n_masks)
-        right_masks = generate_masks(mde3_low, cfg.vol_n_masks)
-        # vol_downsample: the mono volume (trilinear) and the masks (nearest)
-        # at 1/2^v on each axis (JAX :248-253)
-        orig_vol_dhw = tuple(mono_vol.shape[1:])
-        if cfg.vol_downsample > 0:
-            tgt = tuple(s // vf for s in orig_vol_dhw)
-            mono_vol = resize_trilinear_align_corners(mono_vol, tgt, row_axis=-3)
-            left_masks = resize_nearest(left_masks, (tgt[0], tgt[1]))
-            right_masks = resize_nearest(right_masks, (tgt[0], tgt[2]))
+            # all-pairs volumes
+            stereo_vol = all_pairs_correlation(fmap2, fmap3)  # (B,H4,W2,W3)
+            mono_vol = (1.73 * all_pairs_correlation(normals2.to(cdt), normals3.to(cdt))).float()
+            left_masks = generate_masks(mde2_low, cfg.vol_n_masks)
+            right_masks = generate_masks(mde3_low, cfg.vol_n_masks)
+            # vol_downsample: the mono volume (trilinear) and the masks (nearest)
+            # at 1/2^v on each axis (JAX :248-253)
+            orig_vol_dhw = tuple(mono_vol.shape[1:])
+            if cfg.vol_downsample > 0:
+                tgt = tuple(s // vf for s in orig_vol_dhw)
+                mono_vol = resize_trilinear_align_corners(mono_vol, tgt, row_axis=-3)
+                left_masks = resize_nearest(left_masks, (tgt[0], tgt[1]))
+                right_masks = resize_nearest(right_masks, (tgt[0], tgt[2]))
 
         # the stereo-volume aggregation (JAX :265-320): the masked stereo
         # volume -> its hourglass and stack -> its classifier, whose volume
@@ -341,136 +346,142 @@ class StereoAnywhere(nn.Module):
         # outputs (and loss terms)
         agg_disp_stereo = None
         if cfg.use_aggregate_stereo_vol:
-            agg_s = self.hourglass_stereo(masked_volume(stereo_vol.float(), left_masks, right_masks).to(cdt),
-                                          fmde2, fmde3)
-            for hourglass in getattr(self, "hourglass_stereo_stack", [])[1:]:
-                agg_s = hourglass(agg_s, fmde2, fmde3)
-            agg_s = agg_s.permute(0, 1, 3, 4, 2)  # (B,C,W3,H,W2) -> (B,C,H,W2,W3)
-            agg_disp_stereo = conv_in_dtype(self.classifier_stereo, agg_s, row_axis=-3).float()[:, 0]
-            coarse_dispstereo2 = resize_bilinear_align_corners(estimate_left_disparity(agg_disp_stereo), (h, w)) * f
-            coarse_dispstereo3 = resize_bilinear_align_corners(estimate_right_disparity(agg_disp_stereo), (h, w)) * f
+            with span("sa.stereo.aggregate"):
+                agg_s = self.hourglass_stereo(masked_volume(stereo_vol.float(), left_masks, right_masks).to(cdt),
+                                              fmde2, fmde3)
+                for hourglass in getattr(self, "hourglass_stereo_stack", [])[1:]:
+                    agg_s = hourglass(agg_s, fmde2, fmde3)
+                agg_s = agg_s.permute(0, 1, 3, 4, 2)  # (B,C,W3,H,W2) -> (B,C,H,W2,W3)
+                agg_disp_stereo = conv_in_dtype(self.classifier_stereo, agg_s, row_axis=-3).float()[:, 0]
+                coarse_dispstereo2, coarse_dispstereo3 = (
+                    resize_bilinear_align_corners(est(agg_disp_stereo), (h, w)) * f
+                    for est in (estimate_left_disparity, estimate_right_disparity))
 
-        # masked mono volume -> hourglass (and stack: JAX :345-357) ->
-        # classifiers over (H, W2, W3); the confidence classifier's input is
-        # detached (JAX :388, :399)
-        agg = self.hourglass_mono(masked_volume(mono_vol, left_masks, right_masks).to(cdt), fmde2, fmde3)
-        for hourglass in getattr(self, "hourglass_mono_stack", [])[1:]:
-            agg = hourglass(agg, fmde2, fmde3)
-        agg = agg.permute(0, 1, 3, 4, 2)  # (B,C,W3,H,W2) -> (B,C,H,W2,W3)
-        agg_disp = conv_in_dtype(self.classifier_mono, agg, row_axis=-3).float()[:, 0]  # (B,H,W2,W3)
-        agg_conf = conv_in_dtype(self.classifier_monoconf, agg.detach(), row_axis=-3).float()[:, 0]
-        if cfg.vol_downsample > 0:  # back to (H4, W4, W4) (JAX :404-406)
-            agg_disp = resize_trilinear_align_corners(agg_disp, orig_vol_dhw, row_axis=-3)
-            agg_conf = resize_trilinear_align_corners(agg_conf, orig_vol_dhw, row_axis=-3)
+        with span("sa.stereo.hourglass"):
+            # masked mono volume -> hourglass (and stack: JAX :345-357) ->
+            # classifiers over (H, W2, W3); the confidence classifier's input is
+            # detached (JAX :388, :399)
+            agg = self.hourglass_mono(masked_volume(mono_vol, left_masks, right_masks).to(cdt), fmde2, fmde3)
+            for hourglass in getattr(self, "hourglass_mono_stack", [])[1:]:
+                agg = hourglass(agg, fmde2, fmde3)
+            agg = agg.permute(0, 1, 3, 4, 2)  # (B,C,W3,H,W2) -> (B,C,H,W2,W3)
+            agg_disp = conv_in_dtype(self.classifier_mono, agg, row_axis=-3).float()[:, 0]  # (B,H,W2,W3)
+            agg_conf = conv_in_dtype(self.classifier_monoconf, agg.detach(), row_axis=-3).float()[:, 0]
+            if cfg.vol_downsample > 0:  # back to (H4, W4, W4) (JAX :404-406)
+                agg_disp = resize_trilinear_align_corners(agg_disp, orig_vol_dhw, row_axis=-3)
+                agg_conf = resize_trilinear_align_corners(agg_conf, orig_vol_dhw, row_axis=-3)
 
-        # coarse disparities and confidences
-        coarse_dispmono2_low = estimate_left_disparity(agg_disp)
-        coarse_dispmono3_low = estimate_right_disparity(agg_disp)
-        conf2_low = estimate_left_confidence(agg_conf)
-        conf3_low = estimate_right_confidence(agg_conf)
-        coarse_dispmono2 = resize_bilinear_align_corners(coarse_dispmono2_low, (h, w)) * f
-        coarse_dispmono3 = resize_bilinear_align_corners(coarse_dispmono3_low, (h, w)) * f
-        coarse_conf2 = resize_bilinear_align_corners(conf2_low, (h, w))
-        coarse_conf3 = resize_bilinear_align_corners(conf3_low, (h, w))
+        with span("sa.stereo.coarse"):
+            # coarse disparities and confidences
+            coarse_dispmono2_low = estimate_left_disparity(agg_disp)
+            coarse_dispmono3_low = estimate_right_disparity(agg_disp)
+            conf2_low = estimate_left_confidence(agg_conf)
+            conf3_low = estimate_right_confidence(agg_conf)
+            coarse_dispmono2 = resize_bilinear_align_corners(coarse_dispmono2_low, (h, w)) * f
+            coarse_dispmono3 = resize_bilinear_align_corners(coarse_dispmono3_low, (h, w)) * f
+            coarse_conf2 = resize_bilinear_align_corners(conf2_low, (h, w))
+            coarse_conf3 = resize_bilinear_align_corners(conf3_low, (h, w))
 
-        lrc2_low, lrc3_low = softlrc(coarse_dispmono2_low, coarse_dispmono3_low, cfg.lrc_th)
-        dispconf2_low = fuzzy_and(conf2_low, lrc2_low)
-        dispconf3_low = fuzzy_and(conf3_low, lrc3_low)
+            lrc2_low, lrc3_low = softlrc(coarse_dispmono2_low, coarse_dispmono3_low, cfg.lrc_th)
+            dispconf2_low = fuzzy_and(conf2_low, lrc2_low)
+            dispconf3_low = fuzzy_and(conf3_low, lrc3_low)
 
-        # global scale/shift by weighted least squares
-        scale, shift = weighted_lsq(
-            torch.cat([mde2_low, mde3_low], dim=1),
-            torch.cat([coarse_dispmono2_low, coarse_dispmono3_low], dim=1),
-            torch.cat([dispconf2_low, dispconf3_low], dim=1),
-        )
-        scaled_mde2_low = scale * mde2_low + shift
-        scaled_mde3_low = scale * mde3_low + shift
-        scaled_mde2 = (scale * mde2 + shift) * f
-        scaled_mde3 = (scale * mde3 + shift) * f
-        lrc_scaled2_low, _ = softlrc(scaled_mde2_low, scaled_mde3_low, cfg.lrc_th)
-
-        # mirror detection: the stereo volume's truncation mask (detached, JAX :445)
-        trunc_mask = None
-        if cfg.use_truncate_vol:
-            mirror_conf = handcrafted_mirror_detector(
-                coarse_dispmono2_low, scaled_mde2_low, dispconf2_low, lrc_scaled2_low, conf_th=cfg.mirror_conf_th
+            # global scale/shift by weighted least squares
+            scale, shift = weighted_lsq(
+                torch.cat([mde2_low, mde3_low], dim=1),
+                torch.cat([coarse_dispmono2_low, coarse_dispmono3_low], dim=1),
+                torch.cat([dispconf2_low, dispconf3_low], dim=1),
             )
-            trunc_mask = truncate_corr_volume(scaled_mde2_low, mirror_conf, None, cfg.mirror_attenuation).detach()
-        if agg_disp_stereo is not None:  # JAX :451
-            stereo_vol = agg_disp_stereo
-        mono_src = agg_disp if cfg.use_aggregate_mono_vol else mono_vol
-        # the train mode's volume corruption, before the truncation (JAX :454-462)
-        if not test_mode and cfg.volume_corruption_prob > 0:
-            stereo_vol, mono_src = self._corrupt_volumes(stereo_vol, mono_src, mde2_low, w4, generator)
-        if trunc_mask is not None:
-            stereo_vol = trunc_mask * stereo_vol
-        stereo_levels = build_corr_pyramid(stereo_vol.to(cdt).contiguous(), cfg.corr_levels)
-        mono_levels = build_corr_pyramid(mono_src.to(cdt).contiguous(), cfg.corr_levels)
-        if test_mode:
-            # contiguous levels: the K5 kernel reads rows of them.  Checked,
-            # and its pointer arrays built, once for all the forward's lookups
-            pyramids = DualPyramid(stereo_levels, mono_levels)
-        else:
-            pyramids = (stereo_levels, mono_levels)  # the plain gather, differentiable
+            scaled_mde2_low = scale * mde2_low + shift
+            scaled_mde3_low = scale * mde3_low + shift
+            scaled_mde2 = (scale * mde2 + shift) * f
+            scaled_mde3 = (scale * mde3 + shift) * f
+            lrc_scaled2_low, _ = softlrc(scaled_mde2_low, scaled_mde3_low, cfg.lrc_th)
 
-        # iterative refinement (the JAX nn.scan, as a loop)
-        coords0 = torch.arange(w4, device=image2.device, dtype=torch.float32).view(1, 1, 1, w4).expand(b, 1, h4, w4)
-        coords1 = coords0 if cfg.init_disparity_zero else coords0 - scaled_mde2_low
-        net = [n.to(cdt) for n in net]
-        inp = [tuple(t.to(cdt) for t in triple) for triple in inp]
-        lookup_impl = cfg.resolved_lookup_impl
-        mask = None
-        flows, masks = [], []
-        if not test_mode:
-            # every iteration's flow and mask head (JAX emit_outputs)
-            for _ in range(iters):
-                net, coords1, mask = refinement_step(
-                    self.update_block, net, inp, pyramids, coords1, coords0, cfg.corr_radius,
-                    compute_mask=True, lookup_impl=lookup_impl,
+            # mirror detection: the stereo volume's truncation mask (detached, JAX :445)
+            trunc_mask = None
+            if cfg.use_truncate_vol:
+                mirror_conf = handcrafted_mirror_detector(
+                    coarse_dispmono2_low, scaled_mde2_low, dispconf2_low, lrc_scaled2_low, conf_th=cfg.mirror_conf_th
                 )
-                flows.append(coords1 - coords0)
-                masks.append(mask.float())
-        elif iters >= 1 and self.fused_step_used(self._global_shape(net[0])):
-            net = update_nets(self.update_block, net, inp, pyramids, coords1, coords0, cfg.corr_radius, lookup_impl)
-            if iters > 1:
-                ws = self.update_block.fused_weights(cdt)
-                net_h = [n.permute(0, 2, 3, 1).contiguous() for n in net]
-                czrq = [torch.cat(triple, dim=1).permute(0, 2, 3, 1).contiguous() for triple in inp]
-                x = coords1[:, 0].contiguous()
-                for _ in range(iters - 1):
-                    net_h, x = fused_refinement_step(ws, net_h, czrq, pyramids, x, cfg.corr_radius)
-                net = [n.permute(0, 3, 1, 2) for n in net_h]
-                coords1 = x[:, None]
-            net, coords1, mask = refinement_tail(self.update_block, net, coords1, compute_mask=True)
-        else:
-            for it in range(iters):
-                net, coords1, mask = refinement_step(
-                    self.update_block, net, inp, pyramids, coords1, coords0, cfg.corr_radius,
-                    compute_mask=it == iters - 1, lookup_impl=lookup_impl,
-                )
+                trunc_mask = truncate_corr_volume(scaled_mde2_low, mirror_conf, None, cfg.mirror_attenuation).detach()
+            if agg_disp_stereo is not None:  # JAX :451
+                stereo_vol = agg_disp_stereo
+            mono_src = agg_disp if cfg.use_aggregate_mono_vol else mono_vol
+            # the train mode's volume corruption, before the truncation (JAX :454-462)
+            if not test_mode and cfg.volume_corruption_prob > 0:
+                stereo_vol, mono_src = self._corrupt_volumes(stereo_vol, mono_src, mde2_low, w4, generator)
+            if trunc_mask is not None:
+                stereo_vol = trunc_mask * stereo_vol
+            stereo_levels = build_corr_pyramid(stereo_vol.to(cdt).contiguous(), cfg.corr_levels)
+            mono_levels = build_corr_pyramid(mono_src.to(cdt).contiguous(), cfg.corr_levels)
+            if test_mode:
+                # contiguous levels: the K5 kernel reads rows of them.  Checked,
+                # and its pointer arrays built, once for all the forward's lookups
+                pyramids = DualPyramid(stereo_levels, mono_levels)
+            else:
+                pyramids = (stereo_levels, mono_levels)  # the plain gather, differentiable
 
-        to_nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
-        result = {}
-        if test_mode:
-            disparity = -convex_upsample(coords1 - coords0, mask.float(), cfg.n_downsample)
-            if w_orig is not None:
-                disparity = disparity[..., :w_orig]
-            result["disparity"] = to_nhwc(disparity)
-        else:
-            ups = convex_upsample(torch.cat(flows), torch.cat(masks), cfg.n_downsample)  # (iters*B,1,H,W)
-            result["disparities"] = -to_nhwc(ups).reshape(iters, b, h, w, 1)
-            result["disparity"] = result["disparities"][-1]
-        if agg_disp_stereo is not None:  # JAX :683-685
-            result.update(coarse_dispstereo2=to_nhwc(coarse_dispstereo2),
-                          coarse_dispstereo3=to_nhwc(coarse_dispstereo3))
-        result.update(
-            coarse_dispmono2=to_nhwc(coarse_dispmono2),
-            coarse_dispmono3=to_nhwc(coarse_dispmono3),
-            coarse_scaled_mde2=to_nhwc(scaled_mde2),
-            coarse_scaled_mde3=to_nhwc(scaled_mde3),
-            coarse_conf2=to_nhwc(coarse_conf2),
-            coarse_conf3=to_nhwc(coarse_conf3),
-            scale=scale,
-            shift=shift,
-        )
+        with span("sa.stereo.loop"):
+            # iterative refinement (the JAX nn.scan, as a loop)
+            coords0 = torch.arange(w4, device=image2.device, dtype=torch.float32).view(1, 1, 1, w4).expand(b, 1, h4, w4)
+            coords1 = coords0 if cfg.init_disparity_zero else coords0 - scaled_mde2_low
+            net = [n.to(cdt) for n in net]
+            inp = [tuple(t.to(cdt) for t in triple) for triple in inp]
+            lookup_impl = cfg.resolved_lookup_impl
+            mask = None
+            flows, masks = [], []
+            if not test_mode:
+                # every iteration's flow and mask head (JAX emit_outputs)
+                for _ in range(iters):
+                    net, coords1, mask = refinement_step(
+                        self.update_block, net, inp, pyramids, coords1, coords0, cfg.corr_radius,
+                        compute_mask=True, lookup_impl=lookup_impl,
+                    )
+                    flows.append(coords1 - coords0)
+                    masks.append(mask.float())
+            elif iters >= 1 and self.fused_step_used(self._global_shape(net[0])):
+                net = update_nets(self.update_block, net, inp, pyramids, coords1, coords0, cfg.corr_radius, lookup_impl)
+                if iters > 1:
+                    ws = self.update_block.fused_weights(cdt)
+                    net_h = [n.permute(0, 2, 3, 1).contiguous() for n in net]
+                    czrq = [torch.cat(triple, dim=1).permute(0, 2, 3, 1).contiguous() for triple in inp]
+                    x = coords1[:, 0].contiguous()
+                    for _ in range(iters - 1):
+                        net_h, x = fused_refinement_step(ws, net_h, czrq, pyramids, x, cfg.corr_radius)
+                    net = [n.permute(0, 3, 1, 2) for n in net_h]
+                    coords1 = x[:, None]
+                net, coords1, mask = refinement_tail(self.update_block, net, coords1, compute_mask=True)
+            else:
+                for it in range(iters):
+                    net, coords1, mask = refinement_step(
+                        self.update_block, net, inp, pyramids, coords1, coords0, cfg.corr_radius,
+                        compute_mask=it == iters - 1, lookup_impl=lookup_impl,
+                    )
+
+        with span("sa.stereo.upsample"):
+            to_nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
+            result = {}
+            if test_mode:
+                disparity = -convex_upsample(coords1 - coords0, mask.float(), cfg.n_downsample)
+                if w_orig is not None:
+                    disparity = disparity[..., :w_orig]
+                result["disparity"] = to_nhwc(disparity)
+            else:
+                ups = convex_upsample(torch.cat(flows), torch.cat(masks), cfg.n_downsample)  # (iters*B,1,H,W)
+                result["disparities"] = -to_nhwc(ups).reshape(iters, b, h, w, 1)
+                result["disparity"] = result["disparities"][-1]
+            if agg_disp_stereo is not None:  # JAX :683-685
+                result.update(coarse_dispstereo2=to_nhwc(coarse_dispstereo2),
+                              coarse_dispstereo3=to_nhwc(coarse_dispstereo3))
+            result.update(
+                coarse_dispmono2=to_nhwc(coarse_dispmono2),
+                coarse_dispmono3=to_nhwc(coarse_dispmono3),
+                coarse_scaled_mde2=to_nhwc(scaled_mde2),
+                coarse_scaled_mde3=to_nhwc(scaled_mde3),
+                coarse_conf2=to_nhwc(coarse_conf2),
+                coarse_conf3=to_nhwc(coarse_conf3),
+                scale=scale,
+                shift=shift,
+            )
         return result

@@ -131,13 +131,14 @@ class TileParallelInference(GraphOwner):
         key = (plan, w)
         if key not in self._programs:
             body = functools.partial(_tiled_forward, self.model, self.iters, self.sequential, plan)
-            self._programs[key] = _Program(body, self._pool)
+            self._programs[key] = self._program(body)
         return self._programs[key]
 
     @torch.inference_mode()
     def infer(self, im2, im3, mde2, mde3) -> torch.Tensor:
         """im* (1,H,W,3), mde* (1,H,W,1), H a multiple of 32 (tensors or
         arrays).  Returns (1,H,W,1) positive disparity, f32."""
+        self.requests += 1
         im2, im3, mde2, mde3 = (self._tensor(x) for x in (im2, im3, mde2, mde3))
         b, h, w, _ = im2.shape
         assert b == 1, "the tiled path takes one image (like the reference's tile_wrapper.py:148-149)"

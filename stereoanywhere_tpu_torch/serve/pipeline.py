@@ -30,6 +30,13 @@ None).  Such a pipeline runs eagerly.
 `serve_http` keeps the JAX request format: POST /infer with an
 X-Meta-Length JSON header ({"h", "w"}) and float32 (2, H, W, 3) pixels,
 answered with uint16 disparity x256; `serve/client.py` is its client.
+
+While a profiler records, a request's phases are spans of
+`utils/profiling.py` (`sa.request`, `sa.to_device`, and a program's
+`sa.warmup`, `sa.capture`, `sa.stage_inputs`, `sa.replay`, `sa.copy_out`),
+and the mono and stereo stages name theirs.  `GraphOwner.counters()` says
+at any time how many requests came and how many calls warmed up, captured
+or replayed: a capture of a new shape shows there.
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from stereoanywhere_tpu_torch.models.stereoanywhere import StereoAnywhere
 from stereoanywhere_tpu_torch.ops.geometry import joint_minmax_normalize
 from stereoanywhere_tpu_torch.ops.interp import resize_jax_image
 from stereoanywhere_tpu_torch.parallel.spatial import RowShardedInference
+from stereoanywhere_tpu_torch.utils.profiling import span
 
 
 def _pad_sizes(h: int, w: int, multiple: int = 32):
@@ -87,41 +95,55 @@ class _Program:
     packed weights (refreshed in place by a load) and the device constants
     it was handed during the capture, which it holds (`held`), so that the
     constants' cache may evict them.  `capture_ms` is the capture's host
-    time."""
+    time.  `counts` holds the program's calls, warm-ups, captures (that
+    succeeded), replays and the captures' summed host ms."""
+
+    COUNTS = ("calls", "warmups", "captures", "replays", "capture_ms")
 
     def __init__(self, body: Callable, pool, capture_at: int = 1):
         if capture_at not in (1, 2):
             raise ValueError(f"capture_at {capture_at}: 1 (with the warm-up) or 2 (at the second call)")
         self.body, self.pool, self.capture_at = body, pool, capture_at
         self.graph, self.warmed = None, False
+        self.counts = dict.fromkeys(self.COUNTS, 0)
 
     def __call__(self, *inputs):
+        self.counts["calls"] += 1
         if self.graph is None:
             if not self.warmed:
-                out = self.body(*inputs)  # the warm-up
+                with span("sa.warmup"):
+                    out = self.body(*inputs)
                 self.warmed = True
+                self.counts["warmups"] += 1
                 if self.capture_at == 1:
                     self._capture(inputs)
                 return out
             self._capture(inputs)
         else:
-            for static, x in zip(self.inputs, inputs):
-                static.copy_(x)
-        self.graph.replay()
-        return _copy(self.output)
+            with span("sa.stage_inputs"):
+                for static, x in zip(self.inputs, inputs):
+                    static.copy_(x)
+        with span("sa.replay"):
+            self.graph.replay()
+        self.counts["replays"] += 1
+        with span("sa.copy_out"):
+            return _copy(self.output)
 
     def _capture(self, inputs) -> None:
         t0 = time.perf_counter()
-        static = [x.clone() for x in inputs]
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with holding_constants() as held, torch.cuda.graph(graph, pool=self.pool):
-                output = self.body(*static)
-        except BaseException:
-            self.warmed = False
-            raise
+        with span("sa.capture"):
+            static = [x.clone() for x in inputs]
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with holding_constants() as held, torch.cuda.graph(graph, pool=self.pool):
+                    output = self.body(*static)
+            except BaseException:
+                self.warmed = False
+                raise
         self.graph, self.inputs, self.output, self.held = graph, static, output, held
         self.capture_ms = 1e3 * (time.perf_counter() - t0)
+        self.counts["captures"] += 1
+        self.counts["capture_ms"] += self.capture_ms
 
 
 def pool_bytes(pool) -> int:
@@ -136,13 +158,28 @@ class GraphOwner:
     """What an owner of `_Program`s shares: its device (the card unless
     "cpu" is asked for), whether its calls take their graphs (`graphs`, on
     by default on the card; the CPU runs only eagerly and refuses it), one
-    graph pool for all its programs, and the move of a request's tensors or
-    arrays to the device in f32."""
+    graph pool for all its programs (made by `_program`), the count of its
+    requests, and the move of a request's tensors or arrays to the device in
+    f32."""
 
     def __init__(self, device: str | torch.device, graphs: bool | None):
         self.device = resolve_device(device)
         self.graphs = self.device.type == "cuda" if graphs is None else graphs
         self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self._programs_made: list[_Program] = []
+        self.requests = 0
+
+    def _program(self, body: Callable, capture_at: int = 1) -> _Program:
+        program = _Program(body, self._pool, capture_at)
+        self._programs_made.append(program)
+        return program
+
+    def counters(self) -> dict[str, float]:
+        """The owner's `requests` and its programs' `counts` summed: calls,
+        warm-ups, captures, replays and the captures' host ms.  Polled over
+        time, a rise in `captures` is a new shape (or batch) captured."""
+        return {"requests": self.requests, **{k: sum(p.counts[k] for p in self._programs_made)
+                                              for k in _Program.COUNTS}}
 
     @property
     def graphs(self) -> bool:
@@ -223,15 +260,15 @@ class StereoAnywherePipeline(GraphOwner):
                 body = lambda im2, im3: self.stereo_stage(im2, im3, *self.mono_stage(im2, im3))  # noqa: E731
             else:
                 body = lambda *views: self.stereo_stage(*views)  # noqa: E731
-            self._cache[key] = _Program(body, self._pool)
+            self._cache[key] = self._program(body)
         return self._cache[key]
 
     def _build_two_stage(self, b: int, h: int, w: int) -> tuple[_Program, _Program]:
         """The mono and the stereo program of (b, h, w), on the one pool."""
         key = ("2s", b, h, w)
         if key not in self._cache:
-            self._cache[key] = (_Program(lambda im2, im3: self.mono_stage(im2, im3), self._pool),
-                                _Program(lambda *views: self.stereo_stage(*views), self._pool))
+            self._cache[key] = (self._program(lambda im2, im3: self.mono_stage(im2, im3)),
+                                self._program(lambda *views: self.stereo_stage(*views)))
         return self._cache[key]
 
     def _run(self, program: _Program, *inputs):
@@ -246,10 +283,12 @@ class StereoAnywherePipeline(GraphOwner):
         im2, im3 = self._tensor(im2), self._tensor(im3)
         b, h, w, _ = im2.shape
         fh, fw = dav2_input_size(h, w, self.mono_size[0], self.mono_size[1])
-        both = torch.cat([im2, im3], dim=0).permute(0, 3, 1, 2)
-        x = resize_jax_image(both, (fh, fw), "cubic").permute(0, 2, 3, 1)
-        depth = self.mono(imagenet_normalize(x)).float().permute(0, 3, 1, 2)
-        depth = resize_jax_image(depth, (h, w), "bilinear").permute(0, 2, 3, 1)
+        with span("sa.mono.resize_in"):
+            both = torch.cat([im2, im3], dim=0).permute(0, 3, 1, 2)
+            x = imagenet_normalize(resize_jax_image(both, (fh, fw), "cubic").permute(0, 2, 3, 1))
+        depth = self.mono(x)
+        with span("sa.mono.resize_out"):
+            depth = resize_jax_image(depth.float().permute(0, 3, 1, 2), (h, w), "bilinear").permute(0, 2, 3, 1)
         return depth[:b], depth[b:]
 
     @torch.inference_mode()
@@ -260,7 +299,8 @@ class StereoAnywherePipeline(GraphOwner):
         other ranks).  Runs eagerly."""
         im2, im3, mde2, mde3 = (self._tensor(x) for x in (im2, im3, mde2, mde3))
         _, h, w, _ = im2.shape
-        inputs, (t, l) = normalize_and_pad(im2, im3, mde2, mde3)
+        with span("sa.stereo.prepare"):
+            inputs, (t, l) = normalize_and_pad(im2, im3, mde2, mde3)
         if self.rows is None:
             disparity = self.stereo(*inputs, iters=self.iters)["disparity"]
         else:
@@ -268,21 +308,26 @@ class StereoAnywherePipeline(GraphOwner):
             disparity = self.rows.gather_rows(self.rows.infer(*inputs), dst=0)
             if disparity is None:
                 return None
-        return disparity[:, t : t + h, l : l + w].float()
+        with span("sa.stereo.upsample"):
+            return disparity[:, t : t + h, l : l + w].float()
 
     @torch.inference_mode()
     def __call__(self, im2, im3, mde2=None, mde3=None) -> torch.Tensor:
-        im2, im3 = self._tensor(im2), self._tensor(im3)
-        b, h, w, _ = im2.shape
-        if self.mono is None:
-            if mde2 is None:
-                mde2 = mde3 = torch.zeros((b, h, w, 1), device=self.device)
-            return self._run(self._build(b, h, w), im2, im3, mde2, mde3)
-        if self.two_stage and mde2 is None:  # JAX's rule: given depth takes the one-graph path
-            mono, stereo = self._build_two_stage(b, h, w)
-            mde2, mde3 = (d.cpu().numpy() for d in self._run(mono, im2, im3))  # the host round trip
-            return self._run(stereo, im2, im3, mde2, mde3)
-        return self._run(self._build(b, h, w), im2, im3)
+        n = self.requests
+        self.requests += 1
+        with span("sa.request", {"n": n}):
+            with span("sa.to_device"):
+                im2, im3 = self._tensor(im2), self._tensor(im3)
+            b, h, w, _ = im2.shape
+            if self.mono is None:
+                if mde2 is None:
+                    mde2 = mde3 = torch.zeros((b, h, w, 1), device=self.device)
+                return self._run(self._build(b, h, w), im2, im3, mde2, mde3)
+            if self.two_stage and mde2 is None:  # JAX's rule: given depth takes the one-graph path
+                mono, stereo = self._build_two_stage(b, h, w)
+                mde2, mde3 = (d.cpu().numpy() for d in self._run(mono, im2, im3))  # the host round trip
+                return self._run(stereo, im2, im3, mde2, mde3)
+            return self._run(self._build(b, h, w), im2, im3)
 
 
 def build_pipeline(

@@ -60,7 +60,6 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from stereoanywhere_tpu_torch.config import StereoAnywhereConfig, TrainConfig
 from stereoanywhere_tpu_torch.device import resolve_device, torch_dtype
@@ -68,6 +67,7 @@ from stereoanywhere_tpu_torch.models.stereoanywhere import StereoAnywhere
 from stereoanywhere_tpu_torch.ops.geometry import joint_minmax_normalize
 from stereoanywhere_tpu_torch.parallel.multihost import all_reduce_sum, any_rank, distributed, rank_and_world
 from stereoanywhere_tpu_torch.train.loss import stereoanywhere_loss
+from stereoanywhere_tpu_torch.utils.profiling import span
 
 FREEZE_GROUPS = {
     "fnet": ("fnet",),
@@ -229,19 +229,19 @@ class Trainer:
             used_gt_mono = 1.0
         b = {k: self._tensor(batch[k]) for k in BATCH_KEYS}
         generator = torch.Generator().manual_seed(step_seed(cfg.seed + 1, self.step_count))
-        with record_function("train: forward"):
+        with span("sa.train.forward"):
             m2, m3 = _normalized_mono(b["mono2"], b["mono3"])
             outputs = self._forward(b["im2_aug"], b["im3_aug"], m2, m3, iters=cfg.train_iters, test_mode=False,
                                     generator=generator)
-        with record_function("train: loss"):
+        with span("sa.train.loss"):
             if self._forward_dtypes is not None:
                 outputs = {k: v.float() for k, v in outputs.items()}
             total, logs = stereoanywhere_loss(outputs, b["gt"], b["validgt"], b["gt_right"], b["validgt_right"],
                                               m2, m3, cfg)
-        with record_function("train: backward"):
+        with span("sa.train.backward"):
             self.optimizer.zero_grad(set_to_none=True)
             total.backward()
-        with record_function("train: optimizer"):
+        with span("sa.train.optimizer"):
             if distributed():
                 self._sum_gradients()
             if cfg.debug_grad:
