@@ -4142,7 +4142,8 @@ def graph_split(events, row: dict, pairs_traced: int) -> None:
 def eager_split(events, pairs: int) -> dict:
     """The eager pass's device busy ms a pair, each stage's (`sa.mono.*`,
     `sa.stereo.*`), what lies outside every stage, and each stage's kernel
-    classes and top three kernels (copies count as idle)."""
+    classes (kernel ms and kernels a pair) and top three kernels (copies
+    count as idle)."""
     from stereoanywhere_tpu_torch.utils.profiling import device_by_span
 
     by_span = {k: [x for x in v if not _is_copy(x[0])] for k, v in device_by_span(events).items()}
@@ -4159,6 +4160,8 @@ def eager_split(events, pairs: int) -> dict:
                                            for _, s, e in v]) / 1e3 / pairs,
             "eager_classes_ms": {k: {c: sum(e - s for name, s, e in v if rx.search(name)) / 1e3 / pairs
                                      for c, rx in KERNEL_CLASSES.items()} for k, v in stages.items()},
+            "eager_classes_n": {k: {c: sum(1 for name, _, _ in v if rx.search(name)) / pairs
+                                    for c, rx in KERNEL_CLASSES.items()} for k, v in stages.items()},
             "eager_top": top}
 
 
@@ -4228,7 +4231,7 @@ def spans_main(other: Path) -> int:
     """--spans: the benchmark's cells on this checkout and other, in turns
     (other, this, this, other), each a process of its own run from its
     checkout: the traced graph pair's mean (the cost of the spans when a
-    profiler records), and this checkout's split by span."""
+    profiler records), and each run's split by span."""
     here = Path(__file__).resolve()
     code = ("import runpy, sys; sys.argv = [sys.argv[1], '--spans-run']; "
             "runpy.run_path(sys.argv[0], run_name='__main__')")
@@ -4244,9 +4247,8 @@ def spans_main(other: Path) -> int:
         print(f"{cell}: traced graph pair ms, mean [median] of {len(runs['this'][0][i]['pair_ms'])} a run: " + "; ".join(
             f"{lab} " + ", ".join(f"{np.mean(rows[i]['pair_ms']):.3f} [{np.median(rows[i]['pair_ms']):.3f}]"
                                    for rows in runs[lab]) for lab in ("other", "this")), flush=True)
-        for k, row in enumerate(runs["this"]):
-            row = row[i]
-            print(f"  this run {k + 1}: counters after set-up {row['counters_setup']}, at the end {row['counters_end']}")
+        for lab, k, row in ((lab, k, rows[i]) for lab in ("other", "this") for k, rows in enumerate(runs[lab])):
+            print(f"  {lab} run {k + 1}: counters after set-up {row['counters_setup']}, at the end {row['counters_end']}")
             print("    host ms a graph pair, median [mean]: " + ", ".join(
                 f"{n} {np.median(v):.3f} [{np.mean(v):.3f}]" for n, v in row["host_ms"].items()))
             print("    idle device ms a graph pair by innermost host span, median [mean]: " + ", ".join(
@@ -4258,8 +4260,8 @@ def spans_main(other: Path) -> int:
                   f"({100 * sum(stages.values()) / row['eager_busy_ms']:.2f}%), outside every stage "
                   f"{row['eager_unspanned_ms']:.3f} ({100 * row['eager_unspanned_ms'] / row['eager_busy_ms']:.2f}%)")
             for n, ms in stages.items():
-                cls = row["eager_classes_ms"][n]
-                print(f"      {n} {ms:.3f} ms; " + ", ".join(f"{c} {v:.3f}" for c, v in cls.items())
+                cls, count = row["eager_classes_ms"][n], row["eager_classes_n"][n]
+                print(f"      {n} {ms:.3f} ms; " + ", ".join(f"{c} {v:.3f} ({count[c]:g} a pair)" for c, v in cls.items())
                       + "; top " + ", ".join(f"{name} {v:.3f}" for name, v in row["eager_top"][n]))
     return 0
 

@@ -1,6 +1,7 @@
-"""Device selection for the port's entry points, and the device-resident
+"""Device selection for the port's entry points, the device-resident
 constants (resize matrices, normalisation statistics) that the forward
-reads."""
+reads, and the channels-last memory formats the stereo stage holds its
+activations and convolution weights in."""
 from __future__ import annotations
 
 import functools
@@ -34,6 +35,20 @@ def torch_dtype(name: str) -> torch.dtype:
     if name not in table:
         raise ValueError(f"unsupported compute dtype {name!r}")
     return table[name]
+
+
+# the channels-last format of a 4-D (B,C,H,W) and a 5-D (B,C,D,H,W) tensor
+CHANNELS_LAST = {4: torch.channels_last, 5: torch.channels_last_3d}
+
+
+def channels_last_format(x: torch.Tensor) -> torch.memory_format | None:
+    """The channels-last format x is held in, or None: for a contiguous x,
+    for a tensor of another rank, and where the two formats hold the same
+    memory (one channel, or a single pixel), which is contiguous too."""
+    fmt = CHANNELS_LAST.get(x.ndim)
+    if fmt is None or x.is_contiguous() or not x.is_contiguous(memory_format=fmt):
+        return None
+    return fmt
 
 
 @functools.lru_cache(maxsize=128)

@@ -14,6 +14,9 @@ The JAX package samples through two dense tent contractions, which build a
 (B, H', W', W, C) intermediate: fine at its test sizes, not on an image.
 Here the sample is a gather of the four neighbouring pixels (NCHW), the
 same function; the weighted taps then meet the kernel in one contraction.
+The gather leaves the convolution path: a channels-last input (the stereo
+stage's format) is copied to NCHW once, by `sample_bilinear`'s flattening,
+and the module's weights are its own, contiguous.
 """
 from __future__ import annotations
 

@@ -1,4 +1,9 @@
-"""Feature and context encoders (reference BasicEncoder / MultiBasicEncoder), NCHW.
+"""Feature and context encoders (reference BasicEncoder / MultiBasicEncoder).
+
+(B,C,H,W) tensors, held in memory as the stereo stage holds them
+(`models/layers.py`; channels-last on the card): channels-last inputs and
+weights give channels-last outputs, which every norm and residual sum
+keeps.
 
 Every convolution goes through `row_conv` / `conv_rows`: on a rank's rows
 with its neighbours' halos when a row group is active (`parallel/halo.py`)."""

@@ -59,7 +59,13 @@ class DoubleFeatureAtt(nn.Module):
 
 
 class Hourglass(nn.Module):
-    """3-level 3-D encoder-decoder (8 -> 16 -> 32 -> 48 channels and back)."""
+    """3-level 3-D encoder-decoder (8 -> 16 -> 32 -> 48 channels and back).
+    NCDHW on the card too, its attention convolutions' weights contiguous
+    (`channels_last = False`, read by `layers.channels_last_weights`):
+    cuDNN's NDHWC 3-D convolutions are no faster than its NCDHW ones with
+    their transposes (NVIDIA H100, the KITTI-size volume)."""
+
+    channels_last = False
 
     def __init__(self, in_ch: int = 8, out_ch: int = 8, feature_channels: Sequence[int] = (1, 1, 1, 1)):
         super().__init__()

@@ -1,4 +1,10 @@
-"""Layers with the reference model's semantics and parameter names (NCHW).
+"""Layers with the reference model's semantics and parameter names.
+
+Tensors are (B,C,H,W) and (B,C,D,H,W) in shape; on the card the stereo
+stage holds its 2-D ones channels-last in memory, as its 2-D convolution
+weights (`channels_last_weights`), so that cuDNN's NHWC kernels read and
+write them as they are; the hourglass's volumes stay NCDHW.  Every layer
+here keeps its input's memory format.
 
 - `InstanceNorm`: per-sample, per-channel over the spatial axes, no affine;
   statistics in f32, applied in the input dtype.
@@ -12,6 +18,9 @@ With a row group active (`parallel/halo.py`) the convolutions run on the
 rank's rows with halos from its neighbours, and the instance norm's sums
 are taken over the group's ranks; BatchNorm on running statistics needs
 nothing, and on the batch's is for training, which a row group refuses.
+- `channels_last_weights`: the 2-D convolutions' weights held
+  channels-last, in place (a module may keep its own contiguous:
+  `channels_last = False`).
 - `init_weights`: random initialization with the JAX package's initializer
   families (truncated-normal He fan-out for convs, LeCun for dense layers),
   drawn from an explicit `torch.Generator`.
@@ -25,31 +34,40 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stereoanywhere_tpu_torch.device import channels_last_format
 from stereoanywhere_tpu_torch.parallel import halo
 from stereoanywhere_tpu_torch.parallel.halo import conv_rows, row_conv
 from stereoanywhere_tpu_torch.parallel.multihost import sum_over_ranks
 
 
+def _space_sums(t: torch.Tensor) -> torch.Tensor:
+    """t summed over its spatial axes: (B, C).  A channels-last t is summed
+    in its memory order (B, spatial axes, C), each row first, then the
+    rows: over the whole plane at once the reduction runs 1.5-2x slower on
+    the card (NVIDIA H100, the feature encoder's bf16 maps at KITTI size)."""
+    dims = tuple(range(2, t.ndim))
+    if channels_last_format(t) is None:
+        return t.sum(dim=dims)
+    rows = t.permute(0, *dims, 1).sum(dim=t.ndim - 2)  # (B, spatial axes but the last, C)
+    return rows.sum(dim=tuple(range(1, rows.ndim - 1)))
+
+
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Normalize each (sample, channel) over the spatial axes of an NCHW /
-    NCDHW tensor: var = E[x^2] - E[x]^2 in f32, applied in x's dtype.  With
-    a row group active, the sums of x and x^2 and the count are the
+    """Normalize each (sample, channel) over the spatial axes of a
+    (B,C,H,W) / (B,C,D,H,W) tensor: mean and var = E[x^2] - E[x]^2 from the
+    sums of x and x^2 in f32 (`_space_sums`) over their count, applied in
+    x's dtype.  With a row group active, the sums and the count are the
     group's."""
-    dims = tuple(range(2, x.ndim))
+    b, c = x.shape[:2]
     xf = x.float()
+    s1, s2, n = _space_sums(xf), _space_sums(xf * xf), xf[0, 0].numel()
     g = halo.active()
-    if g is None:
-        mean = xf.mean(dim=dims, keepdim=True)
-        var = (xf * xf).mean(dim=dims, keepdim=True) - mean * mean
-    else:
-        b, c = x.shape[:2]
-        local = torch.cat([xf.sum(dim=dims).flatten(), (xf * xf).sum(dim=dims).flatten(),
-                           xf.new_full((1,), xf[0, 0].numel())])
-        sums = g.all_reduce(local)
-        count = sums[-1]
-        shape = (b, c) + (1,) * len(dims)
-        mean = (sums[:b * c] / count).view(shape)
-        var = (sums[b * c:2 * b * c] / count).view(shape) - mean * mean
+    if g is not None:
+        total = g.all_reduce(torch.cat([s1.flatten(), s2.flatten(), xf.new_full((1,), n)]))
+        s1, s2, n = total[:b * c], total[b * c:2 * b * c], total[-1]
+    shape = (b, c) + (1,) * (x.ndim - 2)
+    mean = (s1 / n).view(shape)
+    var = (s2 / n).view(shape) - mean * mean
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return (x - mean.to(x.dtype)) * inv
 
@@ -178,6 +196,21 @@ class BasicConv(nn.Module):
         else:
             y = conv_in_dtype(self.conv, x)
         return F.leaky_relu(instance_norm(y), negative_slope=0.01)
+
+
+def channels_last_weights(model: nn.Module) -> nn.Module:
+    """Hold the weight of every `nn.Conv2d` of `model` channels-last, in
+    place of its contiguous one, but inside a module that says
+    `channels_last = False`.  A convolution's output then comes
+    channels-last, whatever its input's format (a one-channel input fits
+    both).  Loads that copy into the parameters (`load_state_dict`,
+    `compat.from_jax`) keep the format."""
+    if getattr(model, "channels_last", True):
+        for mod in model.children():
+            channels_last_weights(mod)
+        if isinstance(model, nn.Conv2d):
+            model.weight.data = model.weight.data.clone(memory_format=torch.channels_last)
+    return model
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,11 @@ across.
 - MobileNetV4-Conv-S: a conv stem, two fused conv stages, universal
   inverted bottlenecks, and the first block of the /32 stage only.
 
-NCHW.  BatchNorm runs on its running statistics, and on the batch's with
+NCHW, with contiguous weights: `StereoAnywhere` does not build these
+modules, so the stereo stage's channels-last weights
+(`layers.channels_last_weights`) do not reach them, and their grouped
+convolutions, which `row_conv` refuses, run as PyTorch gives them.
+BatchNorm runs on its running statistics, and on the batch's with
 `train=True` (updating the running statistics as flax does).
 """
 from __future__ import annotations

@@ -2,7 +2,18 @@
 
 The forward dataflow of the JAX package's `models/stereoanywhere.py` (the
 reference's stereoanywhere.py:95-299) with NHWC tensors at the entry point
-and NCHW inside.  Internally flow = coords1 - coords0 = -disparity; the
+and in the outputs.  Inside, tensors are (B,C,H,W) in shape, held in
+the memory format of the stage's 2-D convolution weights
+(`memory_format`): a model built on the card holds those channels-last
+(`layers.channels_last_weights`), and so the activations, which cuDNN's
+NHWC kernels then read and write as they are, with no transposes around
+each convolution; the fused loop's kernels read the states as NHWC
+views.  The hourglass and the classifiers keep NCDHW: cuDNN's NDHWC 3-D
+convolutions are no faster there than its NCDHW ones with their
+transposes.  A model built for the CPU keeps contiguous weights, and so
+NCHW, where oneDNN's convolutions round as the CPU tests of the port
+against the JAX package allow; `channels_last_weights` on it gives the
+card's layout.  Internally flow = coords1 - coords0 = -disparity; the
 output is POSITIVE disparity.
 
 Test mode (`test_mode=True`, no autograd) pads wide inputs' width, looks
@@ -10,8 +21,9 @@ both pyramids up through the K5 kernel (`DualPyramid`) and has the JAX
 package's two refinement schedules: `iters` plain steps, or with
 `fused_level0="on"` (where the JAX gate would fuse) one pre-step without
 the flow head, `iters - 1` rotated bodies whose quarter-resolution plane
-runs in the K7, K5, K8 and K9 kernels (NHWC), and a tail with the flow and
-mask heads: the same function, reordered.  With `vol_downsample` = v > 0,
+runs in the K7, K5, K8 and K9 kernels (NHWC: the channels-last states as
+views), and a tail with the flow and mask heads: the same function,
+reordered.  With `vol_downsample` = v > 0,
 both modes aggregate the mono volume at 1/2^v of (H/4, W/4, W/4), as the
 JAX package does: the volume resized trilinearly, its masks nearest, the
 hourglass's depth pyramids from a 1/2^v depth map, and the classifiers'
@@ -52,10 +64,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stereoanywhere_tpu_torch.config import StereoAnywhereConfig
-from stereoanywhere_tpu_torch.device import resolve_device, torch_dtype
+from stereoanywhere_tpu_torch.device import channels_last_format, resolve_device, torch_dtype
 from stereoanywhere_tpu_torch.models.extractor import ContextEncoder, FeatureEncoder
 from stereoanywhere_tpu_torch.models.hourglass import Hourglass
-from stereoanywhere_tpu_torch.models.layers import LECUN, batch_statistics, conv_in_dtype, init_weights
+from stereoanywhere_tpu_torch.models.layers import (
+    LECUN,
+    batch_statistics,
+    channels_last_weights,
+    conv_in_dtype,
+    init_weights,
+)
 from stereoanywhere_tpu_torch.models.update import (
     MultiUpdateBlock,
     fused_refinement_step,
@@ -161,7 +179,9 @@ class StereoAnywhere(nn.Module):
     one unless "cpu" is asked for; weights are random from `generator`
     (default seed 0) until loaded.  The parameters are held in
     `param_dtype`, by default the compute dtype; a trainer in mixed
-    precision holds f32 masters (`train/trainer.py`)."""
+    precision holds f32 masters (`train/trainer.py`).  On a CUDA device
+    the 2-D convolution weights are held channels-last, and with them the
+    stage's activations (`memory_format`)."""
 
     def __init__(
         self,
@@ -194,12 +214,20 @@ class StereoAnywhere(nn.Module):
             self.classifier_stereo = _classifier(cfg.volume_channels)
         init_weights(self, generator or torch.Generator().manual_seed(0))
         self.to(device=dev, dtype=param_dtype or torch_dtype(cfg.compute_dtype))
+        if dev.type == "cuda":
+            channels_last_weights(self)
+
+    @property
+    def memory_format(self) -> torch.memory_format:
+        """The stage's 2-D activations' memory format: its convolution
+        weights' (`layers.channels_last_weights`)."""
+        return channels_last_format(self.context_zqr_convs[0].weight) or torch.contiguous_format
 
     def fused_step_used(self, net0_shape) -> bool:
         """The JAX package's gate for the rotated, fused loop
         (`models/stereoanywhere.py:554-562`), with its barrel condition read
         as `lookup_impl == "barrel"`; net0_shape is the quarter-resolution
-        hidden state's NCHW shape."""
+        hidden state's (B,C,H,W) shape."""
         cfg = self.cfg
         b, c, h4, w4 = net0_shape
         return (
@@ -213,7 +241,7 @@ class StereoAnywhere(nn.Module):
 
     @staticmethod
     def _global_shape(t: torch.Tensor) -> tuple[int, ...]:
-        """An NCHW tensor's shape over the whole image: its rows are the
+        """A (B,C,H,W) tensor's shape over the whole image: its rows are the
         rank's under a row group, whose height the JAX gate sees."""
         g = halo.active()
         return tuple(t.shape) if g is None else (*t.shape[:2], g.span(t.shape[2])[0], t.shape[3])
@@ -266,12 +294,7 @@ class StereoAnywhere(nn.Module):
                                  "is not supported")
         cdt = torch_dtype(cfg.compute_dtype)
         with span("sa.stereo.prepare"):
-            # a fresh NCHW copy whatever the caller's strides, so that the same
-            # shapes take the same convolution kernels: a channels-last view, or
-            # a one-channel depth map whose channel stride is 1, would take
-            # others on the card, rounding differently
-            to_nchw = lambda t: t.permute(0, 3, 1, 2).float().clone(memory_format=torch.contiguous_format)  # noqa: E731
-            image2, image3, mde2, mde3 = (to_nchw(t) for t in (image2, image3, mde2, mde3))
+            image2, image3, mde2, mde3 = (t.permute(0, 3, 1, 2).float() for t in (image2, image3, mde2, mde3))
             b, c, h, w = image2.shape
 
             # test-mode width alignment (JAX models/stereoanywhere.py:155-169)
@@ -281,11 +304,18 @@ class StereoAnywhere(nn.Module):
                 w = -(-w // cfg.width_pad_align) * cfg.width_pad_align
                 pad = (0, w - w_orig, 0, 0)
                 image2, image3, mde2, mde3 = (F.pad(t, pad, mode="replicate") for t in (image2, image3, mde2, mde3))
+            # a fresh copy in the model's format whatever the caller's strides,
+            # so that the same shapes take the same kernels and round alike
+            # (direct, tiled and row-sharded runs): a caller's other strides, or
+            # a one-channel depth map's, which fit both formats, would take others
+            fmt = self.memory_format
+            image2, image3, mde2, mde3 = (t.clone(memory_format=fmt) for t in (image2, image3, mde2, mde3))
 
             f = cfg.downsample_factor
             h4, w4 = h // f, w // f
             if c == 1:
-                image2, image3 = joint_minmax_normalize([image2.expand(-1, 3, -1, -1), image3.expand(-1, 3, -1, -1)])
+                image2, image3 = (t.contiguous(memory_format=fmt) for t in joint_minmax_normalize(
+                    [image2.expand(-1, 3, -1, -1), image3.expand(-1, 3, -1, -1)]))
             image2 = image2 * 2.0 - 1.0
             image3 = image3 * 2.0 - 1.0
 
@@ -308,8 +338,12 @@ class StereoAnywhere(nn.Module):
             # context encoder on the left mono depth
             cnet_out = self.cnet(mde2.to(cdt))
             net = [torch.tanh(o[0]) for o in cnet_out]
+            # the injections (cz, cr, cq) that every iteration reads, each made
+            # contiguous in the model's format once: a chunk along C is a
+            # strided view
             inp = [
-                tuple(torch.chunk(row_conv(conv, F.relu(o[1])), 3, dim=1))
+                tuple(t.contiguous(memory_format=fmt)
+                      for t in torch.chunk(row_conv(conv, F.relu(o[1])), 3, dim=1))
                 for conv, o in zip(self.context_zqr_convs, cnet_out)
             ]
 

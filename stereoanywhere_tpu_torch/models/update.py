@@ -1,12 +1,16 @@
 """Iterative update block: motion encoder, 3-scale ConvGRU cascade, heads.
 
-`refinement_step` is one GRU iteration of the test-mode loop (NCHW); the
-JAX package's `nn.scan` over `RefinementStep` becomes a Python loop in the
-stereo model.  The rotated schedule of `fused_level0="on"` (JAX
+`refinement_step` is one GRU iteration of the test-mode loop, on (B,C,H,W)
+tensors held in the stereo stage's format (channels-last on the card):
+every convolution, concatenation along C, pooling and resize here keeps
+the format, and the lookups' (B,H,W,C) results are channels-last views.
+The JAX package's `nn.scan` over `RefinementStep` becomes a Python loop
+in the stereo model.  The rotated schedule of `fused_level0="on"` (JAX
 `FusedRefinementStep`) is built from three pieces: `update_nets`, the
 un-rotated pre-step without the flow head (JAX `skip_flow_head`);
-`fused_refinement_step`, the rotated body, NHWC, whose quarter-resolution
-plane runs in the K7, K5, K8 and K9 kernels; and `refinement_tail`, the
+`fused_refinement_step`, the rotated body, NHWC (the channels-last states
+seen as (B,H,W,C), which costs no copy), whose quarter-resolution plane
+runs in the K7, K5, K8 and K9 kernels; and `refinement_tail`, the
 flow head, mask head and coordinate update (JAX `tail_only`).
 
 The unfused modules' convolutions go through `row_conv` / `conv_rows`: on
@@ -26,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stereoanywhere_tpu_torch.device import channels_last_format
 from stereoanywhere_tpu_torch.ops import step_fused as sf
 from stereoanywhere_tpu_torch.ops.corr_lookup import lookup_corr_pyramid_pair
 from stereoanywhere_tpu_torch.ops.cuda.corr_lookup import DualPyramid, dual_lookup
@@ -50,18 +55,20 @@ class ConvGRU(nn.Module):
         self.convq = nn.Conv2d(hidden_dim + input_dim, hidden_dim, kernel_size, padding=p)
 
     def forward(self, h, cz, cr, cq, *x_list):
-        x = torch.cat(x_list, dim=1)
         hd = h.shape[1]
-        # z and r read the same [h, x]: one conv with both kernels stacked
+        # z and r read the same [h, x]: one conv with both kernels stacked.
+        # [h, x] and [r * h, x] are each one concatenation of the inputs (a
+        # channels-last concatenation along C interleaves its inputs' rows:
+        # x is not built on its own first)
         zr = conv_rows(
-            torch.cat([h, x], dim=1),
+            torch.cat([h, *x_list], dim=1),
             torch.cat([self.convz.weight, self.convr.weight]),
             torch.cat([self.convz.bias, self.convr.bias]),
             padding=self.convz.padding,
         )
         z = torch.sigmoid(zr[:, :hd] + cz)
         r = torch.sigmoid(zr[:, hd:] + cr)
-        q = torch.tanh(row_conv(self.convq, torch.cat([r * h, x], dim=1)) + cq)
+        q = torch.tanh(row_conv(self.convq, torch.cat([r * h, *x_list], dim=1)) + cq)
         return (1 - z) * h + z * q
 
 
@@ -272,7 +279,12 @@ def update_nets(block: MultiUpdateBlock, net, inp, pyramids, coords1, coords0, r
     stereo_corr = stereo_corr.permute(0, 3, 1, 2).to(cdt)
     mono_corr = mono_corr.permute(0, 3, 1, 2).to(cdt)
     flow_x = coords1 - coords0
-    flow = torch.cat([flow_x, torch.zeros_like(flow_x)], dim=1).to(cdt)
+    if channels_last_format(net[0]) is None:
+        flow = torch.cat([flow_x, torch.zeros_like(flow_x)], dim=1).to(cdt)
+    else:
+        # [flow-x, 0] built as (B,H,W,2), so that its (B,2,H,W) view is
+        # channels-last as the states are
+        flow = torch.stack([flow_x[:, 0], torch.zeros_like(flow_x[:, 0])], dim=-1).permute(0, 3, 1, 2).to(cdt)
     motion = block.encoder(flow, stereo_corr, mono_corr)
     return [n.to(cdt) for n in gru_cascade(block, net, inp, motion)]
 

@@ -1,4 +1,5 @@
-"""Joint normalization, depth -> normals, disparity warping, soft LRC (NCHW).
+"""Joint normalization, depth -> normals, disparity warping, soft LRC, on
+(B,C,H,W) maps in either memory format.
 
 With a row group active (`parallel/halo.py`) the tensors hold the rank's
 image rows: the min-max is the group's, the normals take a row from each

@@ -3,7 +3,11 @@
 Every resize here is separable and applied as constant interpolation
 matrices contracted over the trailing spatial axes, exactly as the JAX
 package computes it, so the two agree to float rounding.  The functions act
-on the LAST two (or three) axes: NCHW / NCDHW tensors inside the port.
+on the LAST two (or three) axes of (B,C,H,W) / (B,C,D,H,W) tensors, as a
+contraction over the axis moved last; `interp_like`, which resizes the
+refinement loop's states, contracts a channels-last tensor in its memory
+order instead, and it stays channels-last, with no transposing copy
+(`_along`).
 
 Four families, and a nearest resize:
 - align-corners bilinear / trilinear: torch `F.interpolate(...,
@@ -30,12 +34,13 @@ touch, fetched from the neighbours; `pool2x` takes one row from above.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from stereoanywhere_tpu_torch.device import device_constant
+from stereoanywhere_tpu_torch.device import channels_last_format, device_constant
 from stereoanywhere_tpu_torch.parallel import halo
 
 
@@ -151,7 +156,21 @@ def _band_matrix(kind: str, in_size: int, out_size: int, start: int, stop: int) 
     return np.ascontiguousarray(_MATRICES[kind](in_size, out_size)[start:stop, lo:hi])
 
 
-def _resize_rows(g, x: torch.Tensor, axis: int, out_local: int, kind: str) -> torch.Tensor:
+def _along(x: torch.Tensor, m: torch.Tensor, axis: int, in_memory_order: bool) -> torch.Tensor:
+    """m (out, in) applied along x's `axis`.  With `in_memory_order`, a
+    channels-last x is viewed in its memory order (B, spatial axes, C),
+    where the axis has the axes before it as a batch and the ones after it
+    as columns: one batched product, and the result is channels-last too."""
+    if not in_memory_order or channels_last_format(x) is None:
+        return torch.movedim(torch.tensordot(x, m, dims=([axis], [1])), -1, axis)
+    order = (0, *range(2, x.ndim), 1)
+    xm = x.permute(order)
+    p = order.index(axis)
+    y = torch.matmul(m, xm.reshape(-1, xm.shape[p], math.prod(xm.shape[p + 1:])))
+    return y.view(*xm.shape[:p], m.shape[0], *xm.shape[p + 1:]).permute(tuple(order.index(i) for i in range(x.ndim)))
+
+
+def _resize_rows(g, x: torch.Tensor, axis: int, out_local: int, kind: str, in_memory_order: bool) -> torch.Tensor:
     """The row axis of a sharded x resized: this rank's output rows at the
     scale where it holds out_local rows, from the band of input rows they
     touch."""
@@ -162,23 +181,25 @@ def _resize_rows(g, x: torch.Tensor, axis: int, out_local: int, kind: str) -> to
     band = g.fetch(x, axis, [_band(kind, h_in, h_out, a, b) for a, b in out_ranges])
     a, b = out_ranges[g.index]
     m = device_constant(_band_matrix, (kind, h_in, h_out, a, b), x.device, x.dtype)
-    return torch.movedim(torch.tensordot(band, m, dims=([axis], [1])), -1, axis)
+    return _along(band, m, axis, in_memory_order)
 
 
-def _resize(x: torch.Tensor, sizes: tuple[int, ...], kind: str, order=None, row_axis: int | None = None) -> torch.Tensor:
+def _resize(x: torch.Tensor, sizes: tuple[int, ...], kind: str, order=None, row_axis: int | None = None,
+            in_memory_order: bool = False) -> torch.Tensor:
     """Resize the last len(sizes) axes to `sizes` with the matrices of
     `kind`, one axis at a time in `order` (indices into sizes); axes
     already at their size are skipped.  With a row group active, `row_axis`
-    holds the rank's rows and its size is the rank's rows at the target."""
+    holds the rank's rows and its size is the rank's rows at the target.
+    `in_memory_order`: see `_along`."""
     nd = len(sizes)
     g = halo.active() if row_axis is not None else None
     for i in range(nd) if order is None else order:
         axis = x.ndim - nd + i
         if g is not None and axis == row_axis % x.ndim:
-            x = _resize_rows(g, x, axis, sizes[i], kind)
+            x = _resize_rows(g, x, axis, sizes[i], kind, in_memory_order)
         elif x.shape[axis] != sizes[i]:
             m = device_constant(_MATRICES[kind], (x.shape[axis], sizes[i]), x.device, x.dtype)
-            x = torch.movedim(torch.tensordot(x, m, dims=([axis], [1])), -1, axis)
+            x = _along(x, m, axis, in_memory_order)
     return x
 
 
@@ -247,15 +268,22 @@ def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
 
 
 def interp_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-    """Align-corners bilinear resize of x to ref's spatial size."""
-    return resize_bilinear_align_corners(x, (ref.shape[-2], ref.shape[-1]))
+    """Align-corners bilinear resize of x to ref's spatial size; a
+    channels-last x (the refinement loop's states) stays so."""
+    return _resize(x, (ref.shape[-2], ref.shape[-1]), "align_corners", row_axis=-2, in_memory_order=True)
 
 
 def pool2x(x: torch.Tensor) -> torch.Tensor:
     """3x3 stride-2 pad-1 average pool, zero padding counted.  Under a row
     group, the row above the rank's (zero at the image's top) stands for
-    the padding, which the divisor counts either way."""
+    the padding, which the divisor counts either way.  A channels-last x
+    that autograd differentiates is pooled on an NCHW copy: CUDA's
+    channels-last avg_pool2d backward returns wrong gradients (off by the
+    gradient's own size; torch 2.11, NVIDIA H100), its forward does not."""
     g = halo.active()
+    fmt = channels_last_format(x)
+    if fmt is not None and x.requires_grad and torch.is_grad_enabled():
+        return pool2x(x.contiguous()).contiguous(memory_format=fmt)
     if g is None:
         return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
     return F.avg_pool2d(g.halo(x, -2, 1, 0), 3, stride=2, padding=(0, 1), count_include_pad=True)

@@ -1,5 +1,6 @@
 """Convex (learned) upsampling of a coarse flow / disparity field, and its
-plain bilinear counterpart `upflow` (NCHW)."""
+plain bilinear counterpart `upflow`, on (B,C,H,W) tensors in either memory
+format."""
 from __future__ import annotations
 
 import torch

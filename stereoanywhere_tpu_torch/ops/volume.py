@@ -2,7 +2,8 @@
 disparity, entropy confidence, mirror detection and truncation.
 
 Volumes are (B, H, W2, W3) as in the JAX package: left pixel axis W2, right
-(disparity hypothesis) axis W3 last.  Per-pixel maps are NCHW (B, 1, H, W).
+(disparity hypothesis) axis W3 last.  Per-pixel maps are (B, 1, H, W), and
+feature maps (B, C, H, W), channels-last in the card's stereo stage.
 """
 from __future__ import annotations
 
@@ -15,7 +16,9 @@ from stereoanywhere_tpu_torch.ops.fuzzy import fuzzy_and, fuzzy_not, fuzzy_or
 
 def all_pairs_correlation(feat_left: torch.Tensor, feat_right: torch.Tensor) -> torch.Tensor:
     """feat_left (B,C,H,W2), feat_right (B,C,H,W3) -> (B,H,W2,W3), scaled by
-    1/sqrt(C): one batched matmul over (B,H), accumulated in f32."""
+    1/sqrt(C): one batched matmul over (B,H), accumulated in f32.  For
+    channels-last maps both operands are views: (B,H,W2,C) and its
+    transposed (B,H,C,W3)."""
     c = feat_left.shape[1]
     lf = feat_left.permute(0, 2, 3, 1).float()  # (B,H,W2,C)
     rf = feat_right.permute(0, 2, 1, 3).float()  # (B,H,C,W3)

@@ -25,7 +25,8 @@ layers on its own rows and calls the collectives itself.
   convolution with no padding along H.  At a global edge the fetched rows
   are zeros, the convolution's own padding; no rank extends its shard past
   a global edge, which would be wrong before a stack of convolutions
-  (bias and ReLU make pad rows nonzero).
+  (bias and ReLU make pad rows nonzero).  A band keeps its tensor's
+  memory format (channels-last in the stereo stage on the card).
 
 The row-aware ops (`models/layers.py` instance norm, `ops/interp.py`
 align-corners and nearest resizes and `pool2x`, `ops/geometry.py`
@@ -48,6 +49,8 @@ from typing import Iterator, Sequence
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+
+from stereoanywhere_tpu_torch.device import channels_last_format
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("row_group", default=None)
 
@@ -211,11 +214,16 @@ class RowGroup:
                 shape[axis] = r1 - r0
                 recvs.append((self.ranks[q], x.new_empty(shape)))
         self.traffic["p2p"] += sum(t.numel() * t.element_size() for _, t in sends)
+        # the rows travel contiguous; the received ones and the pads take x's
+        # memory format, so that the band keeps it (a channels-last x gives a
+        # channels-last band)
+        fmt = channels_last_format(x)
+        like = (lambda t: t) if fmt is None else (lambda t: t.contiguous(memory_format=fmt))  # noqa: E731
         got = iter(send_recv(self.group, sends, recvs, staged(self.group, x)))
         for q, (qa, qb) in enumerate(ranges):
             r0, r1 = max(qa, lo, 0), min(qb, hi, height)
             if r0 < r1:
-                parts.append(x.narrow(axis, r0 - a, r1 - r0) if q == me else next(got))
+                parts.append(x.narrow(axis, r0 - a, r1 - r0) if q == me else like(next(got)))
         body = torch.cat(parts, dim=axis) if len(parts) > 1 else parts[0]
         before, after = max(0, -lo), max(0, hi - height)
         if not (before or after):
@@ -228,7 +236,7 @@ class RowGroup:
             top, bottom = body.new_zeros(shape(before)), body.new_zeros(shape(after))
         else:
             raise ValueError(f"unknown pad {pad!r}")
-        return torch.cat([top, body, bottom], dim=axis)
+        return torch.cat([like(top), body, like(bottom)], dim=axis)
 
     def halo(self, x: torch.Tensor, axis: int, top: int, bottom: int, pad: str = "zeros") -> torch.Tensor:
         """x with `top` rows above and `bottom` rows below its own, from

@@ -31,7 +31,7 @@ when the host launched it):
   (`DepthAnythingV2.pretrained`) with its input's cast; `sa.mono.dpt`: the
   DPT head; `sa.mono.resize_out`: the depth resized back;
 - `sa.stereo.prepare`: the pipeline's `normalize_and_pad`, then a second
-  span in the forward: the NCHW copies, the width pad, the [-1, 1]
+  span in the forward: the channels-last copies, the width pad, the [-1, 1]
   scaling, the quarter-size mono depth and the normals;
 - `sa.stereo.context`: the context encoder and the zqr convolutions;
   `sa.stereo.features`: the feature encoder on both views;

@@ -932,6 +932,30 @@ def test_train_step_matches_the_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool2x_gradient_on_the_card_matches_the_cpu(cuda, dtype):
+    """`ops/interp.py` `pool2x` of a channels-last tensor under autograd:
+    the card's gradient is the CPU's (CUDA's own channels-last avg_pool2d
+    backward is wrong by the gradient's size), at the loop's 1/4 and 1/16
+    planes and a ragged one."""
+    from stereoanywhere_tpu_torch.ops.interp import pool2x
+
+    dt = getattr(torch, dtype)
+    for shape in [(1, 128, 96, 312), (2, 128, 6, 10), (1, 128, 5, 9)]:
+        g = torch.Generator().manual_seed(shape[2])
+        x = torch.randn(shape, generator=g).to(dt).contiguous(memory_format=torch.channels_last)
+        grad = torch.randn((shape[0], shape[1], (shape[2] + 1) // 2, (shape[3] + 1) // 2), generator=g).to(dt)
+        grads = []
+        for dev in ("cpu", "cuda"):
+            xi = x.to(dev).detach().requires_grad_(True)
+            y = pool2x(xi)
+            assert y.is_contiguous(memory_format=torch.channels_last)
+            y.backward(grad.to(dev).contiguous(memory_format=torch.channels_last))
+            grads.append(xi.grad.float().cpu())
+        assert (grads[1] - grads[0]).abs().max().item() <= TOL[dtype] * grads[0].abs().max().item(), shape
+
+
+@pytest.mark.cuda
 def test_train_restore_keeps_optimizer_steps_on_the_host(cuda, tmp_path):
     """A restored trainer's AdamW step counts stay on the host, as a fresh
     one's: on the card each would be read back (a sync) twice a parameter
@@ -1090,3 +1114,50 @@ def test_voldown_card_matches_cpu(cuda):
     first, replay = tp.infer(*xs), tp.infer(*xs)
     assert (replay - _tiles_eager(tp, *xs)).abs().max().item() == 0
     _close_to_cpu(first, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", ["off", "on"])
+def test_stereo_stage_runs_no_layout_transposes(cuda, fused):
+    """The stereo stage holds its 2-D activations and weights channels-last,
+    so cuDNN's NHWC kernels run its 2-D convolutions with no nchwToNhwc /
+    nhwcToNchw transposes around them.  cuDNN still runs one such kernel
+    to widen an input of one or two channels for its tensor cores (the
+    context encoder's depth map, twice; the flow, once a refinement step):
+    those are all that may remain outside the hourglass, which keeps NCDHW
+    and its transposes (`models/hourglass.py`), where the NCHW stage ran
+    hundreds a request.  A bf16 pipeline at 384 x 640,
+    with cuDNN's TF32 on as the CLI runs; its graph is warmed (the warm-up,
+    the capture and a replay), then one request is traced on the same
+    kernels run eagerly, where the stage spans name them (a replay runs no
+    Python: its kernels fall under `sa.replay`; the graph tests above hold
+    a replay to its eager call bit for bit)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereoanywhere_tpu_torch.config import MonoConfig, StereoAnywhereConfig
+    from stereoanywhere_tpu_torch.serve.pipeline import build_pipeline
+    from stereoanywhere_tpu_torch.utils.profiling import device_by_span
+
+    iters = 4
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        pipe = build_pipeline(StereoAnywhereConfig(compute_dtype="bfloat16", fused_level0=fused),
+                              MonoConfig.for_encoder("vits"), iters=iters, mono_size=(56, 56), device="cuda", seed=5)
+        rng = np.random.default_rng(19)
+        views = [rng.uniform(0, 1, (1, 384, 640, 3)).astype(np.float32) for _ in range(2)]
+        pipe(*views)
+        pipe(*views)
+        pipe.graphs = False
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pipe(*views).cpu()
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    stereo = {k: v for k, v in device_by_span(prof.events()).items() if k.startswith("sa.stereo.")}
+    assert {"sa.stereo.context", "sa.stereo.features", "sa.stereo.hourglass", "sa.stereo.loop"} <= set(stereo)
+    assert all(stereo[k] for k in ("sa.stereo.context", "sa.stereo.hourglass", "sa.stereo.loop"))
+    found = {k: sum(1 for name, _, _ in v if re.search(r"nchwToNhwc|nhwcToNchw", name)) for k, v in stereo.items()}
+    allowed = {"sa.stereo.context": 2, "sa.stereo.loop": iters}
+    assert all(n <= allowed.get(k, 0) for k, n in found.items() if k != "sa.stereo.hourglass"), found
