@@ -4,13 +4,17 @@ The rooflines divide the least time these give by a measured device time:
 the least time of a product is the larger of its FLOPs over the bf16
 tensor peak and its bytes over the HBM bandwidth, each input read once
 and each output written once.  The model's FLOPs a pair are counted by
-running the plain reference on the meta device under PyTorch's FLOP
-counter: every product, convolution and resize contraction that the
-shapes need, whatever implements them.
+running the configuration's plain reference on the meta device under
+PyTorch's FLOP counter: every product, convolution and resize contraction
+that the shapes need, whatever implements them.
 """
 from __future__ import annotations
 
+from pathlib import Path
+
 import torch
+
+from port_bench import reference
 
 # NVIDIA H100 SXM, dense (data sheet): bf16 tensor FLOP/s, HBM bytes/s; at its 700 W limit
 PEAK_BF16_FLOPS = 989e12
@@ -69,17 +73,14 @@ def attention_least_ms(b: int, t: int, d: int, heads: int, depth: int) -> float:
     return depth * least_ms(*attention_core(b, t, heads, d // heads))
 
 
-def pair_flops(encoder: str, h: int, w: int, iters: int, mono_size: tuple[int, int] = (518, 518)) -> float:
-    """The model's FLOPs for one (H, W) pair: the reference pipeline run on
+def pair_flops(cfg: dict, h: int, w: int, root: Path = reference.REPO) -> float:
+    """The configuration's model's FLOPs for one (H, W) pair: its plain
+    reference (`reference.build`, the one that decides `correct`) run on
     the meta device under `torch.utils.flop_counter.FlopCounterMode`."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from port_bench.reference.dav2 import DepthAnythingV2
-    from port_bench.reference.pipeline import ReferencePipeline
-    from port_bench.reference.stereo import StereoAnywhere
-
+    ref = reference.build(cfg, root)
     with torch.device("meta"):
-        ref = ReferencePipeline(StereoAnywhere(), DepthAnythingV2(encoder), iters, mono_size)
         view = torch.empty((1, h, w, 3))
     with FlopCounterMode(display=False) as counter:
         ref(view, view)

@@ -6,7 +6,9 @@ belongs to one configuration, traffic mix, metric or cell lives in a file
 of its own that the harness finds by that name:
 
 - `port_bench/configs/<config>.json`: the model's widths, dtype, loop
-  length, graphs switch and the law of its random weights;
+  length, graphs switch and the law of its random weights, and optionally
+  `"reference"`, its plain reference `port_bench/reference/<name>.py`
+  (`port_bench/reference/__init__.py`; the shipped model's without it);
 - `port_bench/traffic/<traffic>.json`: a mix for `traffic.make_pool`;
 - `port_bench/metrics/<metric>.py`: `read(ctx) -> float | None` over a
   `RunContext` (None: nothing to read, and the metric is left out);
@@ -19,10 +21,11 @@ eagerly and captures the CUDA graph), then drive `__call__` in a closed
 loop of one client for the window: host float32 arrays in, the host
 disparity out, the next pair sent when the last answer is back.  A traced
 run then profiles a few more pairs on the graph and an eager pass with
-ranges around the port's modules.  Last, with the program freed, the
-plain reference recomputes the pairs drawn for the check from the same
-seeded weights and inputs, and `check.compare` judges every answer that
-the window served for them.
+ranges around the port's modules, which also keeps the port's own `sa.*`
+spans with the kernels launched inside each.  Last, with the program
+freed, the configuration's plain reference recomputes the pairs drawn for
+the check from the same seeded weights and inputs, and `check.compare`
+judges every answer that the window served for them.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from port_bench import check, traffic
+from port_bench import check, reference, traffic
 from port_bench import trace as tr
 from port_bench.weights import draw_into
 
@@ -54,10 +57,12 @@ HOST_SPANS = ("pair", "request.call", "request.to_host")
 @dataclass
 class RunContext:
     """What a metric's reader may read: the window's host clock, the
-    memory peak, the traced segments and the program's counters."""
+    memory peak, the traced segments and the program's counters; `root`
+    is the checkout whose files the run reads."""
 
     config: dict
     mix: dict
+    root: Path = REPO
     latencies_s: list[float] = field(default_factory=list)
     window_s: float = 0.0
     setup_s: float = 0.0
@@ -120,6 +125,7 @@ def validate(bench: dict, root: Path = REPO) -> list[str]:
             data = _json(root / c["file"])
             if data.get("name") != c["name"]:
                 faults.append(f"config {c['name']}: its file names itself {data.get('name')!r}")
+            faults += reference_faults(c["name"], data, root)
     metrics = bench["end_to_end"] + bench["per_layer"]
     e2e = {m["name"] for m in bench["end_to_end"]}
     cells = []
@@ -170,6 +176,18 @@ def validate(bench: dict, root: Path = REPO) -> list[str]:
     return cells
 
 
+def reference_faults(config: str, data: dict, root: Path = REPO) -> list[str]:
+    """A configuration's reference has to exist and to model every key of
+    its `stereo` block that is no implementation switch: a key is never
+    dropped without a word."""
+    name = reference.name_of(data)
+    if not isinstance(name, str) or not NAME.match(name) or not reference.path_of(name, root).is_file():
+        return [f"config {config}: no reference module port_bench/reference/{name}.py"]
+    modelled = reference.load(name, root).STEREO_KEYS | reference.SWITCHES
+    return [f"config {config}: stereo key {key!r} is not modelled by its reference {name!r}"
+            for key in data.get("stereo", {}) if key not in modelled]
+
+
 def metrics_of(bench: dict, workload: str, traced: bool) -> list[dict]:
     """The cell's end-to-end metrics (untraced) or per-layer ones (traced)."""
     kind = bench["per_layer"] if traced else bench["end_to_end"]
@@ -215,25 +233,10 @@ def draw_weights(stereo: torch.nn.Module, mono: torch.nn.Module, cfg: dict, seed
     draw_into(mono, traffic.stream(seed, 3), dtype, law["layer_scale"])
 
 
-def build_reference(cfg: dict, device: torch.device, seed: int):
-    """The plain reference pipeline in f32 at the configuration's widths,
-    with the same weights as the program (drawn anew from the seed)."""
-    from port_bench.reference.dav2 import VIT_CONFIGS, DepthAnythingV2
-    from port_bench.reference.pipeline import ReferencePipeline
-    from port_bench.reference.stereo import StereoAnywhere, StereoConfig
-
-    mono = cfg["mono"]
-    vit = VIT_CONFIGS[mono["encoder"]]
-    widths = (vit["embed_dim"], vit["depth"], vit["num_heads"], vit["features"], tuple(vit["out_channels"]))
-    if widths != (mono["embed_dim"], mono["depth"], mono["num_heads"], mono["features"], tuple(mono["out_channels"])):
-        raise ValueError(f"config {cfg['name']}: the reference's {mono['encoder']} differs from the file")
-    fields = StereoConfig.__dataclass_fields__
-    stereo_cfg = StereoConfig(**{k: tuple(v) if isinstance(v, list) else v
-                                 for k, v in cfg["stereo"].items() if k in fields})
-    with torch.device("meta"):
-        ref = ReferencePipeline(StereoAnywhere(stereo_cfg), DepthAnythingV2(mono["encoder"]), cfg["iters"],
-                                (mono["input_size"],) * 2)
-    ref = ref.to_empty(device=device)
+def build_reference(cfg: dict, device: torch.device, seed: int, root: Path = REPO):
+    """The configuration's plain reference pipeline in f32, with the same
+    weights as the program (drawn anew from the seed)."""
+    ref = reference.build(cfg, root).to_empty(device=device)
     for name, buf in ref.named_buffers():
         buf.fill_(1.0 if name.endswith("running_var") else 0.0)
     draw_weights(ref.stereo, ref.mono, cfg, seed)
@@ -241,13 +244,13 @@ def build_reference(cfg: dict, device: torch.device, seed: int):
 
 
 def reference_answers(cfg: dict, pool, pairs: list[int], device: torch.device, seed: int,
-                      operands: torch.dtype | None = None) -> dict[int, np.ndarray]:
+                      operands: torch.dtype | None = None, root: Path = REPO) -> dict[int, np.ndarray]:
     """The reference's disparity for each pool pair in `pairs`: f32 with
     TF32 off, or with every product's operands rounded to `operands`
     (bfloat16: the check's yardstick; float8_e4m3fn: the control)."""
     from port_bench.reference import arith
 
-    ref = build_reference(cfg, device, seed)
+    ref = build_reference(cfg, device, seed, root)
     out = {}
     with torch.no_grad(), arith.strict_f32(), arith.rounded_operands(operands):
         for p in pairs:
@@ -357,7 +360,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *, device: 
             phases.append(("first call (eager, capture)", time.perf_counter()))
     _sync(dev)
     phases.append(("replays of the pool", time.perf_counter()))
-    ctx = RunContext(cfg, mix, setup_s=time.perf_counter() - t0)
+    ctx = RunContext(cfg, mix, root, setup_s=time.perf_counter() - t0)
     log(f"set-up {ctx.setup_s:.3f} s: " + ", ".join(
         f"{name} {b - a:.3f}" for (_, a), (name, b) in zip([("start", t0)] + phases, phases)) + f"; window {seconds} s")
 
@@ -406,8 +409,8 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *, device: 
         if v is not None:
             values[m["name"]] = {"value": float(v), "unit": m["unit"]}
 
-    references = reference_answers(cfg, pool, checked, dev, seed)
-    yardsticks = reference_answers(cfg, pool, checked, dev, seed, torch.bfloat16)
+    references = reference_answers(cfg, pool, checked, dev, seed, root=root)
+    yardsticks = reference_answers(cfg, pool, checked, dev, seed, torch.bfloat16, root)
     numbers = check.compare(answers, references, yardsticks)
     for p in checked:
         served = max((check.epe_px(a, references[p]) for a in answers.get(p, [])), default=float("inf"))

@@ -1,21 +1,16 @@
 """The harness is driven by data: a configuration, a traffic mix, a cell
 and a per-layer metric are added as new files and entries only, in a
 copy, and the harness lists and validates them without a change to any
-file that was there; malformed names and units are refused."""
+file that was there; malformed names and units are refused, and so is a
+configuration's stereo key that its reference does not model."""
 from __future__ import annotations
 
-import hashlib
 import json
 
 import pytest
 
 from port_bench import harness
 from port_bench.tests import tiny
-
-
-def digests(root):
-    return {p.relative_to(root): hashlib.sha1(p.read_bytes()).hexdigest()
-            for p in sorted(root.rglob("*")) if p.is_file()}
 
 
 @pytest.fixture
@@ -32,10 +27,10 @@ def add_metric(root, name="tiny_dummy_ms", unit="ms"):
 
 
 def test_new_files_and_entries_only(root):
-    before = digests(root)
+    before = tiny.digests(root)
     tiny.add_tiny_cell(root, 0.4)
     add_metric(root)
-    after = digests(root)
+    after = tiny.digests(root)
     changed = {p for p in before if before[p] != after[p]}
     assert changed == {root.joinpath("BENCHMARK.json").relative_to(root)}
     bench = harness.load_benchmark(root)
@@ -76,4 +71,35 @@ def test_unknown_traffic_and_missing_reader_refused(root):
                                "layer": "serve pipeline", "moves": "pair_ms_p50"})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     with pytest.raises(ValueError, match="nowhere.*no_reader_ms|no_reader_ms.*nowhere"):
+        harness.validate(harness.load_benchmark(root), root)
+
+
+def write_config(root, name, cfg):
+    (root / "port_bench/configs" / f"{name}.json").write_text(json.dumps(cfg))
+
+
+@pytest.mark.parametrize("key,value", [("use_aggregate_stereo_vol", True), ("n_additional_hourglass", 1),
+                                       ("vol_downsample", 1), ("use_truncate_vol", True)])
+def test_unmodelled_stereo_key_refused(root, key, value):
+    cfg = json.loads((root / "port_bench/configs/sa_vitl.json").read_text())
+    cfg["stereo"][key] = value
+    write_config(root, "sa_vitl", cfg)
+    with pytest.raises(ValueError, match=f"config sa_vitl: stereo key '{key}' is not modelled by its reference "
+                                         "'shipped'"):
+        harness.validate(harness.load_benchmark(root), root)
+
+
+def test_switches_and_the_named_default_validate(root):
+    cfg = json.loads((root / "port_bench/configs/sa_vitl.json").read_text())
+    cfg["stereo"]["lookup_impl"] = "auto"
+    cfg["reference"] = "shipped"
+    write_config(root, "sa_vitl", cfg)
+    assert harness.validate(harness.load_benchmark(root), root) == ["vitl_kitti", "vitg_kitti", "vitl_oakd400p"]
+
+
+def test_missing_reference_refused(root):
+    cfg = json.loads((root / "port_bench/configs/sa_vitg.json").read_text())
+    cfg["reference"] = "nowhere"
+    write_config(root, "sa_vitg", cfg)
+    with pytest.raises(ValueError, match="config sa_vitg: no reference module port_bench/reference/nowhere.py"):
         harness.validate(harness.load_benchmark(root), root)

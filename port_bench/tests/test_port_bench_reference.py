@@ -67,6 +67,39 @@ def test_pipeline(pair):
     assert np.abs(got - want).max() < 2e-3
 
 
+def previous_build_reference(cfg, device, seed):
+    """`harness.build_reference` as it was before a configuration could
+    name its reference: the shipped model's, built in place."""
+    from port_bench.reference.dav2 import DepthAnythingV2
+    from port_bench.reference.pipeline import ReferencePipeline
+    from port_bench.reference.stereo import StereoAnywhere, StereoConfig
+
+    mono = cfg["mono"]
+    fields = StereoConfig.__dataclass_fields__
+    stereo_cfg = StereoConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                 for k, v in cfg["stereo"].items() if k in fields})
+    with torch.device("meta"):
+        ref = ReferencePipeline(StereoAnywhere(stereo_cfg), DepthAnythingV2(mono["encoder"]), cfg["iters"],
+                                (mono["input_size"],) * 2)
+    ref = ref.to_empty(device=device)
+    for name, buf in ref.named_buffers():
+        buf.fill_(1.0 if name.endswith("running_var") else 0.0)
+    harness.draw_weights(ref.stereo, ref.mono, cfg, seed)
+    return ref.eval()
+
+
+def test_default_build_as_before(pair):
+    _, reference, _ = pair
+    before = previous_build_reference(CFG, CPU, 2 ** 31 + 77)
+    assert (reference.iters, reference.mono_size) == (before.iters, before.mono_size)
+    for now, then in ((reference.named_parameters(), before.named_parameters()),
+                      (reference.named_buffers(), before.named_buffers())):
+        now, then = dict(now), dict(then)
+        assert list(now) == list(then)
+        for name, t in then.items():
+            assert now[name].dtype == t.dtype and torch.equal(now[name], t), name
+
+
 @pytest.mark.parametrize("ffn", ["mlp", "swiglu"])
 def test_vit_block(ffn):
     dim, heads = 128, 2

@@ -1,9 +1,11 @@
 """Reading the profiler's trace: device intervals, busy time, kernels inside
-spans, and ranges wrapped around the port's parts for an eager pass.
+spans, ranges wrapped around the port's parts for an eager pass, and each
+kernel under the port's own `sa.*` span that launched it.
 
 Copies of `chip_smoke.py`'s `busy_us`, `kernels_within` and
-`module_ranges`, kept here so that the yardstick does not move with that
-script.  Times are the profiler's microseconds.
+`module_ranges`, and of `stereoanywhere_tpu_torch/utils/profiling.py`'s
+`device_by_span`, kept here so that the yardstick does not move with that
+script or with the program.  Times are the profiler's microseconds.
 """
 from __future__ import annotations
 
@@ -11,18 +13,25 @@ import bisect
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 
+import torch
 from torch.autograd import DeviceType
 from torch.autograd.profiler import record_function
+
+SPAN_PREFIX = "sa."  # the port's own spans (`utils/profiling.span`)
+_USER_SCOPE = int(torch._C._profiler.RecordScope.USER_SCOPE)
 
 
 @dataclass
 class Segment:
     """One traced stretch: the device's kernels (name, start, end), the
-    benchmark's host spans by name and the ranges' device spans by name."""
+    benchmark's host spans by name, the ranges' device spans by name, and
+    the kernels by the port's innermost `sa.*` span open at their launch
+    ("" for launches outside every such span)."""
 
     kernels: list[tuple[str, float, float]] = field(default_factory=list)
     host: dict[str, list[tuple[float, float]]] = field(default_factory=dict)
     ranges: dict[str, list[tuple[float, float]]] = field(default_factory=dict)
+    spans: dict[str, list[tuple[str, float, float]]] = field(default_factory=dict)
     pairs: int = 0
 
 
@@ -56,18 +65,51 @@ def kernels_within(kernels, spans) -> float:
 def segment(prof, host_names, range_names=()) -> Segment:
     """The Segment of a finished `torch.profiler.profile`: device kernels
     (memory copies left out: they count as idle), the CPU spans named in
-    `host_names` and the device spans of the ranges in `range_names`."""
+    `host_names`, the device spans of the ranges in `range_names`, and
+    `spans`: each of those kernels under the innermost port span open
+    when the host launched it (`span_owner`)."""
+    events = list(prof.events())
     seg = Segment(host={n: [] for n in host_names}, ranges={n: [] for n in range_names})
-    for e in prof.events():
+    owner = span_owner(events)
+    for e in events:
         span = (float(e.time_range.start), float(e.time_range.end))
         if e.device_type == DeviceType.CUDA:
             if e.name in seg.ranges:
                 seg.ranges[e.name].append(span)
             elif e.name not in seg.host and not e.name.startswith("Memcpy"):  # a host span's shadow, a copy
                 seg.kernels.append((e.name, *span))
+                name = owner(e)
+                if name is not None:
+                    seg.spans.setdefault(name, []).append((e.name, *span))
         elif e.name in seg.host:
             seg.host[e.name].append(span)
     return seg
+
+
+def span_owner(events):
+    """`owner(device_event)`: the innermost span whose name starts with
+    `SPAN_PREFIX` that was open, on any thread, when the host launched the
+    event; "" for a launch outside every such span; None where the event
+    is a user-scope range's device copy or no launch shares its
+    correlation id.  A device event and its launch (`cudaLaunch*`,
+    `cudaMemcpyAsync`, `cudaGraphLaunch`: each kernel of a replay) share
+    the profiler's correlation id (`id`)."""
+    user = {e.name for e in events if e.device_type == DeviceType.CPU and e.scope == _USER_SCOPE}
+    launches = {e.id: float(e.time_range.start) for e in events
+                if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+    spans = sorted((float(e.time_range.start), -float(e.time_range.end), e.name) for e in events
+                   if e.device_type == DeviceType.CPU and e.name.startswith(SPAN_PREFIX))
+    starts = [s for s, _, _ in spans]
+
+    def owner(e) -> str | None:
+        if e.name in user or e.id not in launches:
+            return None
+        t = launches[e.id]
+        for _, neg_end, name in reversed(spans[: bisect.bisect_right(starts, t)]):
+            if t <= -neg_end:  # the latest-starting span that still holds the launch is the innermost
+                return name
+        return ""
+    return owner
 
 
 @contextmanager
