@@ -38,7 +38,11 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    K9's time, TFLOP/s and bound per scale and plane; K8's device time by
    launch (c1/f1, the grouped 3x3 stage, the merge conv); the launch
    geometry (tile, pixel patch, grid) of K9 per scale and plane and of K8's
-   two 3x3 stages per plane;
+   two 3x3 stages per plane; then K10, the fused hourglass, at the KITTI
+   (8x320x96x320) and OAK-D (8x160x104x160) volumes of a bf16 model with
+   TF32 on: against the modules (cuDNN) in bf16 units, each of its 15
+   launches against its plain version, timed beside the modules with its
+   bound from its launches' operations and bytes;
 3. CUDA graphs: the runtime and driver versions; K1-K4 and the step
    kernels captured in one graph, its edges by type (the launchers'
    programmatic launches should capture as programmatic edges) and its
@@ -68,9 +72,8 @@ Phases of the smoke run (any failure exits non-zero before the result line):
    graph and of the two-stage pair at each shape; (5) after every
    parameter is loaded anew, and (6) after the device constants' cache
    has evicted every constant the graphs read, replay against eager again;
-   then the mono hourglass and classifiers of a bf16 model alone at both
-   requests' volumes, with f32 depth pyramids (as the model runs them: f32
-   past the first gate) and with bf16 ones (all in bf16), in turns;
+   K10's launches in one eager request (every hourglass call fused, 15
+   launches each) and in the traced replay and eager request;
 5. whole-model checks: DAv2 ViT-L at 140x140 in f32 (backbone tokens and
    depth), the whole pipeline (ViT-S, 64x96) on the card against the CPU
    through the plain versions, in the default and the fused configuration,
@@ -403,6 +406,21 @@ def device_profile(fn, iters: int = 20, warmup: int = 3) -> tuple[float, dict] |
     return busy_us([(e.time_range.start, e.time_range.end) for e in events]) / 1e3 / iters, dict(by_name)
 
 
+def graph_ms(fn) -> float:
+    """fn captured in a CUDA graph after a warm-up call, ms a replay (CUDA
+    events over replays back to back): the device's time for the call with
+    no host gap inside it, where the profiler may return no whole trace."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def device_ms(fn) -> float | None:
     """device_profile's busy time; None where the profiler saw nothing."""
     got = device_profile(fn)
@@ -527,6 +545,8 @@ SOURCE = {
                        "stereoanywhere_tpu/ops/pallas/step_fused.py:646"),
     "conv_gru": ("stereoanywhere_tpu_torch/csrc/step_fused.cu", "stereoanywhere_tpu/ops/pallas/step_fused.py:763, "
                  "stereoanywhere_tpu/ops/pallas/gru_fused.py:203, stereoanywhere_tpu/ops/pallas/gru_fused.py:228"),
+    "hourglass3d": ("stereoanywhere_tpu_torch/csrc/hourglass3d.cu",
+                    "none: the JAX package leaves the hourglass to XLA's convolutions"),
 }
 
 
@@ -1225,36 +1245,168 @@ def _device_us(avg) -> float:
     return getattr(avg, "device_time_total", None) or getattr(avg, "cuda_time_total", 0.0)
 
 
-def hourglass_phase() -> None:
-    """The mono hourglass and its two classifiers of a bf16 model at the
-    volumes of both requests, as the model runs them (the depth pyramids in
-    f32, so the hourglass is f32 past its first gate) and all in bf16 (the
-    pyramids cast to bf16: what the port ran before it followed the JAX
-    package's promotion), in turns: ms a call, CUDA events over 5 calls
-    (tens of ms each, so the host's issue time hides behind the device's;
-    the profiler, asked for these, returned no whole trace)."""
+HOURGLASS_VOLUMES = {"kitti": (320, 96, 320), "oakd": (160, 104, 160)}
+# H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet): K10's 3x3x3 products
+PEAK_TF32 = 494.7e12
+K10_LAUNCHES = 15  # a fused hourglass: 10 3x3x3, 2 1x1x1, 2 projections, 1 finalize
+BF16_UNIT = 2.0 ** -8
+
+
+def hourglasses(pipe) -> int:
+    """The `Hourglass` calls a forward of the pipeline's model makes."""
+    from stereoanywhere_tpu_torch.models.hourglass import Hourglass
+
+    return sum(isinstance(m, Hourglass) for m in pipe.stereo.modules())
+
+
+def k10_in_a_request(pipe, label: str, im2, im3) -> int:
+    """K10's launches in one eager request, counted from 0 just before it:
+    every `Hourglass` call of the forward on the fused path, 15 launches
+    each."""
+    from stereoanywhere_tpu_torch.ops.cuda import hourglass3d  # here: --spans and --ab run older checkouts too
+
+    n = hourglasses(pipe)
+    calls, launched = hourglass3d.calls(), hourglass3d.launches()
+    eager(pipe, im2, im3)
+    by_path = {k: v - calls[k] for k, v in hourglass3d.calls().items()}
+    launched = hourglass3d.launches() - launched
+    print(f"pipeline {label}: K10 in one eager request {tuple(im2.shape[1:3])}: {launched} launches, hourglass calls by "
+          f"path {by_path}", flush=True)
+    if by_path != {"fused": n, "plain": 0} or launched != K10_LAUNCHES * n:
+        raise AssertionError(f"{label}: an eager request ran the hourglass {by_path} with {launched} K10 launches, "
+                             f"expected {n} fused calls and {K10_LAUNCHES * n} launches")
+    return launched
+
+
+def k10_kernels(names) -> int:
+    """K10's launches among kernel names (its kernels live in sa::hg)."""
+    return sum(1 for n in names if "sa::hg::" in n)
+
+
+def _k10_launch_cost(name: str, args: tuple, out) -> tuple[float, int, float]:
+    """A recorded K10 launch's FLOP, bytes (its operands read once, its
+    output written once) and the FLOP/s its FLOP run at."""
+    v = args[0]
+    gate = nbytes(*(v.gate or ()))
+    if name == "conv3":
+        w = args[1]
+        return 2 * out.x.numel() * 27 * v.channels, nbytes(v.x, w, out.x) + gate, PEAK_TF32
+    if name == "conv1":
+        up, w = args[2], args[3]
+        return 2 * out.x.numel() * v.channels, nbytes(v.x, up, w, out.x) + gate, PEAK_FLOPS[torch.float32]
+    if name == "upsampled_share":
+        return 2 * out.numel() * v.channels, nbytes(v.x, args[1], out) + gate, PEAK_FLOPS[torch.float32]
+    return 0.0, nbytes(v.x, out) + gate, PEAK_FLOPS[torch.float32]
+
+
+def hourglass_kernel_phase() -> dict:
+    """K10, the fused hourglass (`ops/cuda/hourglass3d.py`), at the KITTI
+    and OAK-D volumes of a bf16 model with TF32 on, as the port serves it:
+    the hourglass against its modules (cuDNN, TF32) within one bf16 unit of
+    the output's largest value and a mean under a twentieth of one; each of
+    its 15 launches against its plain version (`*_ref`, on the card in full
+    f32) at the card tests' tolerances (a 3x3x3 launch one bf16 unit, two
+    for a bf16 store; the rest 1e-5; a launch's sums within 1e-5 of its
+    stored output's); then timed beside the modules (CUDA events eager and
+    on a CUDA graph, the profiler's device time, host), its bound the launches' own operations and bytes (each launch's
+    max of FLOP at the TF32 or f32 peak and bytes at 3.35 TB/s, summed).
+    Returns the KITTI volume's record, the OAK-D one's under `oakd_`."""
+    from stereoanywhere_tpu_torch.ops.cuda import hourglass3d as hg3  # here: --spans and --ab run older checkouts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
     torch.backends.cudnn.benchmark = True
     model = StereoAnywhere(StereoAnywhereConfig(compute_dtype="bfloat16"), device="cuda")
+    hg = model.hourglass_mono
     g = torch.Generator().manual_seed(6)
-    for shape, (h4, w4) in STEP_PLANES.items():
-        vol = torch.randn((1, 8, w4, h4, w4), generator=g).to("cuda", torch.bfloat16)
-        feats = [[torch.rand((1, 1, 4 * h4 // 2 ** i, 4 * w4 // 2 ** i), generator=g).cuda() for i in range(2, 6)]
-                 for _ in range(2)]
+    record = {}
+    for label, dims in HOURGLASS_VOLUMES.items():
+        vol = torch.randn((1, 8, *dims), generator=g).to("cuda", torch.bfloat16)
+        levels = [dims]
+        for _ in range(3):
+            levels.append(tuple((s - 1) // 2 + 1 for s in levels[-1]))
+        fl = [torch.rand((1, 1, d[1], d[2]), generator=g).cuda() for d in levels]
+        fr = [torch.rand((1, 1, d[1], d[0]), generator=g).cuda() for d in levels]
+        run = functools.partial(hg, vol, fl, fr)
+        seen = []
+        wrapped = {n: getattr(hg3, n) for n in ("conv3", "conv1", "upsampled_share", "finalize")}
 
-        def run(dtype):
-            fl, fr = ([f.to(dtype) for f in fs] for fs in feats)
-            agg = model.hourglass_mono(vol, fl, fr).permute(0, 1, 3, 4, 2)
-            return conv_in_dtype(model.classifier_mono, agg), conv_in_dtype(model.classifier_monoconf, agg)
+        def recorder(name):
+            def call(*args):
+                out = wrapped[name](*args)
+                seen.append((name, args, out))
+                return out
+            return call
 
-        parts = []
-        for label, dtype in (("f32 past the first gate", torch.float32), ("all bf16", torch.bfloat16)) * 2:
-            with torch.no_grad():
-                out = run(dtype)
-                torch.cuda.synchronize()
-                if not all(torch.isfinite(o).all() for o in out):
-                    raise AssertionError(f"hourglass {shape} {label}: non-finite output")
-                parts.append(f"{label} {cuda_ms(lambda: run(dtype), iters=5, warmup=2):.3f}")
-        print(f"hourglass {shape} (volume 8x{w4}x{h4}x{w4}), ms a call in turns: " + "; ".join(parts), flush=True)
+        with torch.no_grad():
+            want = hg.forward_modules(vol, fl, fr)
+            calls, n0 = hg3.calls(), hg3.launches()
+            for n in wrapped:
+                setattr(hg3, n, recorder(n))
+            try:
+                got = run()
+            finally:
+                for n, f in wrapped.items():
+                    setattr(hg3, n, f)
+            torch.cuda.synchronize()
+            by_path = {k: v - calls[k] for k, v in hg3.calls().items()}
+            launched = hg3.launches() - n0
+            if by_path != {"fused": 1, "plain": 0} or launched != K10_LAUNCHES or len(seen) != K10_LAUNCHES:
+                raise AssertionError(f"K10 {label}: calls by path {by_path}, {launched} launches, {len(seen)} recorded")
+            gap = (got - want).abs()
+            unit = BF16_UNIT * want.abs().max()
+            units, mean_units = float(gap.max() / unit), float(gap.mean() / unit)
+            if not (units <= 1.0 and mean_units <= 0.05 and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"K10 {label}: {units:.3f} bf16 units from the modules (mean {mean_units:.4f})")
+            # each launch against its plain version in full f32
+            torch.backends.cudnn.allow_tf32 = False
+            worst = defaultdict(float)
+            flops = moved = bound = 0.0
+            for i, (name, args, out) in enumerate(seen):
+                ref = getattr(hg3, f"{name}_ref")
+                if name == "conv3":
+                    v, w, stride = args[:3]
+                    want_out, tol = ref(v, w, stride), (2.0 if out.x.dtype == torch.bfloat16 else 1.0) * BF16_UNIT
+                elif name == "conv1":
+                    want_out, tol = ref(*args[:4]), 1e-5
+                else:
+                    want_out, tol = ref(*args), 1e-5
+                a, b = (out.x, want_out.x) if name in ("conv3", "conv1") else (out, want_out)
+                rel = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                if not rel <= tol:
+                    raise AssertionError(f"K10 {label} launch {i} ({name}): {rel:.3e} of its plain version's largest "
+                                         f"value, tolerance {tol:.3e}")
+                if name in ("conv3", "conv1"):
+                    own, scale = hg3.sums(out.x), hg3.sums(out.x.abs())
+                    if not bool(((out.stats - own).abs() <= 1e-5 * scale + 1e-30).all()):
+                        raise AssertionError(f"K10 {label} launch {i} ({name}): its sums are not its output's")
+                worst[name] = max(worst[name], rel)
+                f, m, peak = _k10_launch_cost(name, args, out)
+                flops, moved, bound = flops + f, moved + m, bound + max(f / peak, m / PEAK_BYTES)
+            torch.backends.cudnn.allow_tf32 = True
+            del seen, got, want
+            ms, plain_ms = cuda_ms(run), cuda_ms(lambda: hg.forward_modules(vol, fl, fr))
+            on_graph, plain_on_graph = graph_ms(run), graph_ms(lambda: hg.forward_modules(vol, fl, fr))
+            prof = device_profile(run)
+            kernel_ms = None if prof is None else sum(t for n, t in prof[1].items() if "sa::hg::" in n)
+            row = dict(max_bf16_units=units, mean_bf16_units=mean_units, launch_max_rel_err=dict(worst), ms=ms,
+                       device_ms=None if prof is None else prof[0], kernels_device_ms=kernel_ms,
+                       graph_ms=on_graph, host_ms=host_ms(run), plain_ms=plain_ms, plain_graph_ms=plain_on_graph,
+                       plain_device_ms=device_ms(
+                           lambda: hg.forward_modules(vol, fl, fr)),
+                       bound_ms=bound * 1e3, bound_by="bytes" if moved / PEAK_BYTES >= flops / PEAK_TF32 else
+                       "operations", flops=flops, bytes=moved, launches_a_call=launched)
+        print(f"kernel hourglass3d (K10) bf16 model, volume 8x{dims[0]}x{dims[1]}x{dims[2]}, TF32: "
+              f"{units:.3f} bf16 units from the modules (mean {mean_units:.4f}); launches against their plain "
+              f"versions (max rel.) " + ", ".join(f"{n} {e:.2e}" for n, e in worst.items())
+              + f"; ms {fmt(ms, flops)} graph_ms {fmt(on_graph, flops)} device_ms {fmt(row['device_ms'], flops)} "
+              f"(K10's launches {fmt(kernel_ms)}) host_ms {row['host_ms']:.4f}; the modules (cuDNN) ms {plain_ms:.4f} "
+              f"graph_ms {plain_on_graph:.4f} device_ms {fmt(row['plain_device_ms'])}; bound_ms {row['bound_ms']:.4f} ({row['bound_by']}; "
+              f"{flops / 1e9:.2f} GFLOP, {moved / 1e9:.3f} GB in {launched} launches)", flush=True)
+        record.update(row if label == "kitti" else {f"{label}_{k}": v for k, v in row.items()})
+    del model, hg
+    torch.cuda.empty_cache()
+    return record
 
 
 # the model's parts, each wrapped in a record_function range of this name
@@ -1365,6 +1517,7 @@ def time_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> dict:
               f"{k} {np.median(v):.1f} [{min(v):.1f}-{max(v):.1f}]" for k, v in times.items()), flush=True)
 
     want = EXPECTED[label]
+    want_k10 = K10_LAUNCHES * hourglasses(pipe)
     # the profiler now and then drops a replay's events: three traces, the
     # one that kept the most kernels read
     tries = [traced(lambda: pipe(im2, im3)) for _ in range(3)]
@@ -1379,6 +1532,11 @@ def time_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> dict:
               f"traces: {[len(k) for _, k, _ in tries]}); launches by wrapper from the trace {graph_counts}", flush=True)
         if graph_counts != want:
             raise AssertionError(f"{label} {h}x{w}: the replayed graph launched {graph_counts}, expected {want}")
+        graph_counts["hourglass3d"] = k10_kernels(e.name for e in kernels)
+        print(f"trace {label} {h}x{w} graph: K10's launches {graph_counts['hourglass3d']}", flush=True)
+        if graph_counts["hourglass3d"] != want_k10:
+            raise AssertionError(f"{label} {h}x{w}: the replay launched K10 {graph_counts['hourglass3d']} times, "
+                                 f"expected {want_k10}")
     else:
         print(f"trace {label} {h}x{w} graph: not measured (the profiler saw no device events in the replay); "
               "launches by wrapper are the capture's", flush=True)
@@ -1404,6 +1562,9 @@ def time_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> dict:
     eager_counts = trace_launches(e.name for e in kernels)
     if eager_counts != want:
         raise AssertionError(f"{label} {h}x{w}: the eager request launched {eager_counts}, expected {want}")
+    if k10_kernels(e.name for e in kernels) != want_k10:
+        raise AssertionError(f"{label} {h}x{w}: the eager request launched K10 "
+                             f"{k10_kernels(e.name for e in kernels)} times, expected {want_k10}")
     # launches of each stage alone
     stage_kernels = {}
     for stage, fn in (("mono", lambda: pipe.mono_stage(im2, im3)),
@@ -1415,7 +1576,7 @@ def time_and_trace(pipe, label: str, h: int, w: int, im2, im3) -> dict:
     print(f"trace {label} {h}x{w} eager: device busy {busy:.1f} ms, idle share {1 - busy / median:.3f} of the "
           f"untraced median {median:.1f} ms (traced wall {traced_wall:.1f} ms); {len(kernels)} kernels (alone: mono "
           f"stage {stage_kernels['mono']}, stereo stage {stage_kernels['stereo']}); launches by wrapper from the "
-          f"trace {eager_counts}; aten::conv3d (the hourglass and its classifiers) {conv3d:.2f} device ms", flush=True)
+          f"trace {eager_counts}, K10 {want_k10}; aten::conv3d (the classifiers) {conv3d:.2f} device ms", flush=True)
     counts = defaultdict(int)
     for e in kernels:
         counts[re.sub(r"[<(].*", "", e.name.replace("(anonymous namespace)::", ""))[-48:]] += 1
@@ -1601,6 +1762,7 @@ def pipeline_phase(label: str, cfg: StereoAnywhereConfig, encoder: str = "vitl",
 
     print(f"pipeline {label}: device memory peak over the served requests {torch.cuda.max_memory_allocated() / 1e9:.2f} "
           f"GB (models, activations and the graphs' pool)", flush=True)
+    totals["hourglass3d"] = k10_in_a_request(pipe, label, *images[KITTI])
     graph_phase(pipe, label, images, np.random.default_rng(1))
     replayed = {}
     for (h, w), (im2, im3) in images.items():
@@ -3890,8 +4052,14 @@ def camera_phase() -> dict:
             raise AssertionError(f"camera: wrapper calls a frame {calls[:3]}..., expected {want} then none")
         for f in COUNTERS.values():
             f.launches = 0
+        from stereoanywhere_tpu_torch.ops.cuda import hourglass3d  # here: --spans and --ab run older checkouts too
+
+        hourglass_before = hourglass3d.calls()
         eager_frame = eagerly(pipe, lambda: infer(*next(iter(source))))
         one = {n: f.launches for n, f in COUNTERS.items()}
+        hourglass_calls = {k: v - hourglass_before[k] for k, v in hourglass3d.calls().items()}
+        if hourglass_calls != {"fused": 1, "plain": 0}:  # the fused hourglass serves the frame
+            raise AssertionError(f"camera: one eager frame's hourglass calls by path {hourglass_calls}")
         print(f"camera wrapper calls: the first frame {calls[0]} (warm-up and capture), each later frame none "
               f"(replays); one eager frame {one}", flush=True)
         if one != EXPECTED["default"]:
@@ -4318,6 +4486,7 @@ def main() -> int:
                                                f": {port_native.build_error()}"), flush=True)
     sass_counts(paths)
     records = {**timed("kernels K1-K4", kernel_phase), **timed("kernels K5-K9", step_kernel_phase)}
+    hourglass_record = timed("kernels K10", hourglass_kernel_phase)
     vitg_records = timed("kernels ViT-G", vitg_kernel_phase)
     timed("capture", capture_phase)
     launches, replayed = timed("pipeline default", pipeline_phase, "default",
@@ -4332,7 +4501,6 @@ def main() -> int:
     variant, variant_replayed = timed("pipeline variant", pipeline_phase, "variant",
                                       StereoAnywhereConfig(compute_dtype="bfloat16", **VARIANT), "vitl", False)
     torch.cuda.empty_cache()
-    timed("hourglass", hourglass_phase)
     timed("compare", compare_phase)
     timed("compare vitg", vitg_compare_phase)
     timed("variants card vs cpu", variants_compare_phase)
@@ -4382,6 +4550,17 @@ def main() -> int:
                             **({f"vitg_{k}": g[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                                                              "bound_by", "library_ms", "cublas_product_ms")}
                                if g else {})))
+    # K10: its launches in one eager request of each pipeline and in one
+    # replayed request (traced), its checks and times at the KITTI volume
+    # (the OAK-D one's under `oakd_`)
+    src, replaces = SOURCE["hourglass3d"]
+    kernels.append(dict(name="hourglass3d", route="cuda", source=src, replaces=replaces,
+                        launches=launches["hourglass3d"],
+                        replay_launches=None if replayed is None else replayed.get("hourglass3d"),
+                        fused_launches=fused["hourglass3d"], vitg_launches=vitg["hourglass3d"],
+                        variant_launches=variant["hourglass3d"],
+                        variant_replay_launches=None if variant_replayed is None else variant_replayed.get("hourglass3d"),
+                        library_ms=None, **hourglass_record))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

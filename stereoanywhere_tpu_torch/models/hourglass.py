@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 
 from stereoanywhere_tpu_torch.models.layers import BasicConv, conv_in_dtype
+from stereoanywhere_tpu_torch.ops.cuda import hourglass3d
 from stereoanywhere_tpu_torch.ops.interp import resize_trilinear_align_corners
 
 
@@ -60,10 +61,12 @@ class DoubleFeatureAtt(nn.Module):
 
 class Hourglass(nn.Module):
     """3-level 3-D encoder-decoder (8 -> 16 -> 32 -> 48 channels and back).
-    NCDHW on the card too, its attention convolutions' weights contiguous
-    (`channels_last = False`, read by `layers.channels_last_weights`):
-    cuDNN's NDHWC 3-D convolutions are no faster than its NCDHW ones with
-    their transposes (NVIDIA H100, the KITTI-size volume)."""
+    On the card, `ops/cuda/hourglass3d.py`'s fused kernels run it over
+    NDHWC volumes, except under autograd and in a row group
+    (`hourglass3d.serve`); there and on the CPU its modules run it, NCDHW,
+    its attention convolutions' weights contiguous (`channels_last =
+    False`, read by `layers.channels_last_weights`).  Either way the output
+    is NCDHW; `hourglass3d.calls()` counts the calls by path."""
 
     channels_last = False
 
@@ -104,6 +107,11 @@ class Hourglass(nn.Module):
         self.final_feature_atts_up = DoubleFeatureAtt(out_ch, fc[0])
 
     def forward(self, x, features_left, features_right):
+        out = hourglass3d.serve(self, x, features_left, features_right)
+        return self.forward_modules(x, features_left, features_right) if out is None else out
+
+    def forward_modules(self, x, features_left, features_right):
+        """The plain path: the modules, NCDHW, whatever the device."""
         ns = self.ns
         original = x
         down = []

@@ -26,7 +26,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("vit_dense", "vit_attention", "vit_mlp", "corr_lookup", "step_fused")
+SOURCES = ("vit_dense", "vit_attention", "vit_mlp", "corr_lookup", "step_fused", "hourglass3d")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -40,8 +40,10 @@ or replayed: a capture of a new shape shows there.
 """
 from __future__ import annotations
 
+import gc
 import json
 import time
+from contextlib import contextmanager
 from http.server import BaseHTTPRequestHandler, HTTPServer
 from typing import Callable
 
@@ -78,6 +80,22 @@ def normalize_and_pad(im2, im3, mde2, mde3) -> tuple[list[torch.Tensor], tuple[i
     return [pad(im2.permute(0, 3, 1, 2)), pad(im3.permute(0, 3, 1, 2)), pad(mde2), pad(mde3)], (t, l)
 
 
+@contextmanager
+def _collector_paused():
+    """No cyclic garbage collection inside the block.  A collection during
+    a capture may free a dropped program's graph (a pipeline and its
+    programs' bodies refer to each other, so only the cyclic collector
+    frees them), and destroying a graph is not permitted while a stream
+    captures: the capture would be invalidated."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def _copy(out):
     return tuple(o.clone() for o in out) if isinstance(out, tuple) else out.clone()
 
@@ -96,7 +114,8 @@ class _Program:
     it was handed during the capture, which it holds (`held`), so that the
     constants' cache may evict them.  `capture_ms` is the capture's host
     time.  `counts` holds the program's calls, warm-ups, captures (that
-    succeeded), replays and the captures' summed host ms."""
+    succeeded), replays and the captures' summed host ms.  The cyclic
+    garbage collector is paused while a graph captures (`_collector_paused`)."""
 
     COUNTS = ("calls", "warmups", "captures", "replays", "capture_ms")
 
@@ -135,7 +154,7 @@ class _Program:
             static = [x.clone() for x in inputs]
             graph = torch.cuda.CUDAGraph()
             try:
-                with holding_constants() as held, torch.cuda.graph(graph, pool=self.pool):
+                with _collector_paused(), holding_constants() as held, torch.cuda.graph(graph, pool=self.pool):
                     output = self.body(*static)
             except BaseException:
                 self.warmed = False

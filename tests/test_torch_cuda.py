@@ -751,6 +751,36 @@ def test_a_failed_capture_raises(cuda):
         torch.cuda.synchronize()
 
 
+@pytest.mark.cuda
+def test_a_capture_survives_a_dropped_program_in_cyclic_garbage(cuda):
+    """A program that holds a graph and sits in a reference cycle is freed
+    only by the cyclic collector; with the collector set to run at every
+    allocation, a capture of another program still succeeds (the collector
+    is paused there: destroying a graph while a stream captures would
+    invalidate the capture) and its replay is its eager result."""
+    import gc
+
+    from stereoanywhere_tpu_torch.serve.pipeline import _Program
+
+    pool = torch.cuda.graph_pool_handle()
+    x = torch.arange(8.0, device="cuda")
+    dropped = _Program(lambda t: t * 2, pool)
+    dropped(x)
+    assert dropped.graph is not None
+    dropped.cycle = dropped
+    del dropped
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        program = _Program(lambda t: torch.cat([t + i for i in range(64)]), pool)
+        first = program(x)
+        assert program.graph is not None
+        assert torch.equal(program(x), first)
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.collect()
+
+
 # The evaluator's programs (eval/programs.py) on the card: ViT-S DAv2 and the
 # stereo model in bf16, 4 iterations.  A key's first call runs eagerly, its
 # second captures and replays; the replays are held to the eager programs'
@@ -1100,15 +1130,20 @@ def test_dual_lookup_kernel_booster_tile_plane(cuda, dtype, b):
 
 @pytest.mark.cuda
 def test_voldown_card_matches_cpu(cuda):
-    """vol_downsample=1 at 64 x 128, f32, card against CPU; and the card's
-    graph of it (a tile program of one tile) against its eager call."""
+    """vol_downsample=1 at 64 x 128, f32, card against CPU (the card's
+    hourglass on its fused kernels, in full f32 as TF32 is off; the CPU's
+    on its modules); and the card's graph of it (a tile program of one
+    tile) against its eager call."""
     from stereoanywhere_tpu_torch.config import StereoAnywhereConfig
+    from stereoanywhere_tpu_torch.ops.cuda import hourglass3d
     from stereoanywhere_tpu_torch.parallel import TileParallelInference
 
     card, cpu = _card_and_cpu(StereoAnywhereConfig(vol_downsample=1), 8)
     xs = _stereo_inputs(np.random.default_rng(15), 64, 128, "cpu")
     want = cpu(*xs, iters=2)["disparity"]
+    before = hourglass3d.calls()
     got = card(*(x.cuda() for x in xs), iters=2)["disparity"]
+    assert hourglass3d.calls()["fused"] == before["fused"] + 1
     _close_to_cpu(got, want)
     tp = TileParallelInference(card, 1, iters=2, device="cuda")
     first, replay = tp.infer(*xs), tp.infer(*xs)
@@ -1124,8 +1159,8 @@ def test_stereo_stage_runs_no_layout_transposes(cuda, fused):
     nhwcToNchw transposes around them.  cuDNN still runs one such kernel
     to widen an input of one or two channels for its tensor cores (the
     context encoder's depth map, twice; the flow, once a refinement step):
-    those are all that may remain outside the hourglass, which keeps NCDHW
-    and its transposes (`models/hourglass.py`), where the NCHW stage ran
+    those are all that may remain outside the hourglass span (its
+    classifiers run cuDNN on NCDHW volumes), where the NCHW stage ran
     hundreds a request.  A bf16 pipeline at 384 x 640,
     with cuDNN's TF32 on as the CLI runs; its graph is warmed (the warm-up,
     the capture and a replay), then one request is traced on the same

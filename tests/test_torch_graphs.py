@@ -232,3 +232,36 @@ def test_a_failed_capture_raises_and_runs_nothing_in_its_place(monkeypatch):
             program(torch.zeros(3))
         assert program.graph is None
     assert calls == ["body", "body"] * 2  # each try: the warm-up and the captured call, nothing more
+
+
+@pytest.mark.parametrize("fails", [False, True], ids=["captured", "failed"])
+def test_a_capture_runs_with_the_cyclic_collector_paused(monkeypatch, fails):
+    """No cyclic collection runs inside a capture (it could destroy a
+    dropped program's graph there, which invalidates the capture); the
+    collector is on again after it, whether the capture succeeded or not.
+    (The capture is a stand-in here, as above.)"""
+    import gc
+    from contextlib import contextmanager
+
+    from stereoanywhere_tpu_torch.serve.pipeline import _Program
+
+    seen = []
+
+    @contextmanager
+    def capture(graph, pool=None):
+        seen.append(gc.isenabled())
+        yield
+        seen.append(gc.isenabled())
+        if fails:
+            raise RuntimeError("operation not permitted when stream is capturing")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(torch.cuda, "graph", capture)
+    assert gc.isenabled()
+    program = _Program(lambda x: x + 1, pool=None)
+    if fails:
+        with pytest.raises(RuntimeError, match="capturing"):
+            program(torch.zeros(3))
+    else:  # the capture alone: a replay needs a real graph
+        program._capture((torch.zeros(3),))
+    assert seen == [False, False] and gc.isenabled()

@@ -220,6 +220,7 @@ def _mesh_sums(rank: int) -> dict:
 def _rank_main(rank: int, world: int, init_method: str, out_dir: str) -> None:
     import torch.distributed as dist
 
+    from stereoanywhere_tpu_torch.ops.cuda import hourglass3d
     from stereoanywhere_tpu_torch.parallel.halo import halo_exchange
     from stereoanywhere_tpu_torch.parallel.mesh import make_mesh
     from stereoanywhere_tpu_torch.parallel.ring_corr import sharded_correlation_volume
@@ -230,7 +231,9 @@ def _rank_main(rank: int, world: int, init_method: str, out_dir: str) -> None:
         out = {}
         if world in OP_HEIGHTS:
             out["ops"] = _ops(rank, world)
+        before = hourglass3d.calls()
         out["forwards"] = {name: _forward(rank, world, name) for name, (n, _, _) in FORWARDS.items() if n == world}
+        out["hourglass_calls"] = {k: v - before[k] for k, v in hourglass3d.calls().items()}
         if world == 2:
             out["refusals"] = _refusals(rank)
         if world == 4:
@@ -373,6 +376,16 @@ def test_row_sharded_forward_matches_one_process_and_jax(runs, name):
     # of the inputs moves the one-process forward
     gap, one_gap = float(np.abs(got - ref).max()), float(np.abs(one - ref).max())
     assert gap <= one_gap + 2 * moved, (gap, one_gap, moved)
+
+
+def test_a_row_group_runs_the_hourglass_on_its_modules(runs):
+    """Every rank's sharded forwards call the hourglass once each, on the
+    plain path (`ops/cuda/hourglass3d.py` serves no call in a row group)."""
+    ranks, _, _ = runs
+    for world, results in ranks.items():
+        n = sum(1 for ranks_, _, _ in FORWARDS.values() if ranks_ == world)
+        for res in results:
+            assert res["hourglass_calls"] == {"fused": 0, "plain": n}, (world, res["hourglass_calls"])
 
 
 def test_a_mesh_of_one_rank_is_the_plain_forward_bit_for_bit():
